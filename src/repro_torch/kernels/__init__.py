@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions
+(port of ``repro.kernels``)."""
