@@ -6,11 +6,18 @@
 From the root of a checkout: builds the CUDA kernels of
 ``src/repro_torch/kernels/csrc/`` with nvcc, holds each kernel against its
 plain PyTorch version on the card and times both, then drives the port's
-main path — QuAFL (paper Algorithm 1) through ``make_algorithm`` and
-``simulate`` at the paper's MLP width (784-32-10, n=300 clients, s=16) —
-once with the 8-bit ``lattice`` codec and once with a ``lattice_packed:
-bits=4`` uplink. It prints JSON lines per phase, a ``kernels`` line, the
-card's name and power limit, and last ``{"ok": true, "device": ...}``.
+two paths at the paper's MLP width (784-32-10, n=300 clients, s=16):
+
+* QuAFL (paper Algorithm 1) through ``make_algorithm`` and ``simulate``,
+  once with the 8-bit ``lattice`` codec and once with a ``lattice_packed:
+  bits=4`` uplink;
+* the paper's baselines through ``compare``: FedAvg, compressed FedAvg
+  (lattice and scalar uplinks), FedBuff (lattice and qsgd deltas) and the
+  sequential node, 30 rounds each.
+
+Each path runs with the launch counts set to 0 just before it and read just
+after. It prints JSON lines per phase, a ``kernels`` line, the card's name
+and power limit, and last ``{"ok": true, "device": ...}``.
 
 Every check raises on failure, so any failed phase exits non-zero; so does a
 machine without CUDA. The port imports neither JAX nor the JAX package.
@@ -20,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -36,6 +44,7 @@ REPLACES = {
     "fused_rotate": "src/repro/kernels/exchange.py:266",
     "quantize_codes": "src/repro/kernels/exchange.py:371",
     "snap_codes": "src/repro/kernels/exchange.py:417",
+    "fused_decode": "src/repro/kernels/exchange.py:464",
 }
 # fp32 operations per coordinate, for the operation bound: the butterfly's
 # log2(b) adds plus the sign and scale multiplies; the quantize's div, add,
@@ -52,6 +61,8 @@ N_CLIENTS, S, K, LR, SWT, ROUNDS = 300, 16, 5, 0.3, 10.0, 30
 SEED = 0                          # data, weights and draws of the main path
 ROT_TOL = 1e-5                    # rotation: max err / max|y|
 ENC_MISMATCH_FRAC = 1e-4          # encode: ±1 mod L on at most this share
+DECODE_TOL = 1e-6                 # decode: max err / max|x| (target 0)
+D_MLP = 25_450                    # 784-32-10: d_pad 32,768
 
 
 def emit(obj) -> None:
@@ -240,6 +251,64 @@ def time_kernels(kx, io, m, d_pad, bits, pack, peak_bw):
     return out
 
 
+def decode_case(kx, dev, gen, m, d_pad, bits, pack, *, mr=1, sign_rows=False,
+                levels=None):
+    """fused_decode against decode_plain on one shape: m code rows (from
+    encoding x, whose rows lie close together) against mr references x +
+    a perturbation inside the wrap window; one shared sign row or m rows."""
+    from repro_torch.compression.rotation import signs
+    x = (torch.randn((1, d_pad), generator=gen, device=dev)
+         + 0.05 * torch.randn((m, d_pad), generator=gen, device=dev))
+    sg = (signs(gen, m * d_pad).reshape(m, d_pad) if sign_rows
+          else signs(gen, d_pad))
+    u = torch.rand((m, d_pad), generator=gen, device=dev)
+    lv = (None if levels is None
+          else torch.tensor(levels, dtype=torch.float32, device=dev))
+    L = lv if lv is not None else torch.full((m,), float(1 << bits),
+                                               device=dev)
+    gam = (kx.rotate_plain(x, sg).abs().amax(dim=1) / L / 2).contiguous()
+    kw = dict(bits=bits, pack=pack, levels2=lv)
+    codes = kx.fused_encode(x, sg, u, gam, **kw)
+    ref = (x[:mr] + 0.1 * gam[:mr, None]
+           * torch.randn((mr, d_pad), generator=gen, device=dev))
+    out = kx.fused_decode(codes, ref, sg, gam, **kw)
+    want = kx.decode_plain(codes, ref, sg, gam, **kw)
+    err = float((out - want).abs().max())
+    res = {"m": m, "mr": mr, "d_pad": d_pad, "bits": bits, "pack": pack,
+           "sign_rows": sign_rows, "levels": levels is not None,
+           "decode_max_abs_err": err,
+           "decode_rel_err": err / float(x.abs().max()),
+           "decode_vs_x_max": float((out - x).abs().max()),
+           "gamma_max": float(gam.max())}
+    if sign_rows:
+        # fused_encode with per-message sign rows against encode_plain
+        codes_p = kx.encode_plain(x, sg, u, gam, **kw)
+        res["encode_sign_rows_mismatches"] = int((codes != codes_p).sum())
+        assert res["encode_sign_rows_mismatches"] == 0, res
+    assert res["decode_rel_err"] <= DECODE_TOL, res
+    torch.cuda.synchronize()
+    return res, dict(codes=codes, ref=ref, sg=sg, gam=gam, kw=kw)
+
+
+def time_decode(kx, io, peak_bw):
+    """ms, plain_ms, bound_ms, bound_by and library_ms of fused_decode."""
+    codes, ref, sg, gam, kw = (io["codes"], io["ref"], io["sg"], io["gam"],
+                               io["kw"])
+    out = kx.fused_decode(codes, ref, sg, gam, **kw)
+    m, d_pad = out.shape
+    log_b = int(math.log2(min(d_pad, 16_384)))
+    # two butterflies, two sign and two scale multiplies, the snap
+    db, dby = bound(nbytes(codes, ref, sg, gam) + nbytes(out),
+                    m * d_pad * (2 * log_b + 4 + SNAP_OPS), peak_bw)
+    return dict(ms=time_ms(lambda: kx.fused_decode(codes, ref, sg, gam,
+                                                   **kw)),
+                plain_ms=time_ms(lambda: kx.decode_plain(codes, ref, sg, gam,
+                                                         **kw)),
+                bound_ms=db, bound_by=dby, library_ms=None,
+                shape=[m, d_pad], ref_rows=int(ref.shape[0]),
+                sign_rows=int(sg.dim() == 2))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -333,10 +402,159 @@ def injected_round(dev, alg_cuda, state, data, gen):
     return diff, max(steps)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the paper's baselines through compare()
+# ---------------------------------------------------------------------------
+
+# (run name, registry name, kwargs, bits up and bits down per round at
+#  d=25,450 / d_pad=32,768, fused_decode launches per round)
+BASELINES = (
+    ("fedavg", "fedavg", {}, 13_030_400, 13_030_400, 0),
+    ("compressed_fedavg", "compressed_fedavg", {}, 4_194_816, 814_400, 1),
+    ("compressed_fedavg_scalar", "compressed_fedavg", {"uplink": "scalar"},
+     3_258_112, 814_400, 0),
+    ("fedbuff_lattice", "fedbuff", {"quantize": True, "quantizer": "lattice"},
+     2_621_760, 8_144_000, 10),
+    ("fedbuff_qsgd", "fedbuff", {"quantize": True, "quantizer": "qsgd"},
+     2_036_320, 8_144_000, 0),
+    ("sequential", "sequential", {}, 0, 0, 0),
+)
+COUNTED = ("fused_encode", "fused_decode")
+
+
+class CountedRounds:
+    """An algorithm whose rounds record the encode and decode launches each
+    one made."""
+
+    def __init__(self, kx, alg):
+        self.kx = kx
+        self.alg = alg
+        self.per_round = []
+
+    def __getattr__(self, name):
+        return getattr(self.alg, name)
+
+    def round(self, state, data, generator):
+        before = {k: self.kx.LAUNCHES[k] for k in COUNTED}
+        out = self.alg.round(state, data, generator)
+        self.per_round.append({k: self.kx.LAUNCHES[k] - before[k]
+                               for k in COUNTED})
+        return out
+
+
+def run_baselines(dev, kx):
+    """compare() of the six baseline runs at the main path's width."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.paper_mlp import dims
+    from repro_torch.data.synthetic import make_federated_classification
+    from repro_torch.fed.registry import make_algorithm
+    from repro_torch.fed.simulate import compare
+    from repro_torch.models.mlp import (init_mlp_classifier, mlp_loss,
+                                        mlp_loss_batched)
+    d_in, d_hidden, n_cls = dims()
+    fed = FedConfig(n_clients=N_CLIENTS, s=S, local_steps=K, lr=LR, bits=8,
+                    swt=SWT, kernel_backend="cuda")
+    part, test = make_federated_classification(
+        SEED, N_CLIENTS, d=d_in, n_classes=n_cls, iid=False,
+        test_samples=4096, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    p0 = init_mlp_classifier(gen, d_in, d_hidden, n_cls)
+    algs = {run: CountedRounds(kx, make_algorithm(
+                name, fed, loss_fn=mlp_loss_batched, template=p0,
+                batch_size=32, device=dev, **kw))
+            for run, name, kw, *_ in BASELINES}
+
+    def evaluate(p):
+        loss, aux = mlp_loss(p, test)
+        return {"loss": float(loss), "acc": float(aux["acc"])}
+
+    base = evaluate(p0)
+    torch.cuda.synchronize()
+    traces = compare(algs, p0, part, gen, rounds=ROUNDS, eval_every=10,
+                     record_every=1, eval_fn=evaluate)
+    torch.cuda.synchronize()
+    return algs, traces, base, part, gen
+
+
+def check_baselines(algs, traces, base):
+    """Bits exact in every round, accuracy above round 0 (loss finite for
+    the sequential node), and the decode launches of each round."""
+    out = []
+    for run, _, _, up, down, decodes in BASELINES:
+        tr, alg = traces[run], algs[run]
+        row = {"run": run, "rounds": tr.rounds,
+               "d": int(tr.final_state.server.shape[0]),
+               "ms_per_round": tr.wall_time_s / tr.rounds * 1e3,
+               "bits_up": sorted(set(tr.column("bits_up"))),
+               "bits_down": sorted(set(tr.column("bits_down"))),
+               "acc_round0": base["acc"],
+               "acc": [(r["round"], r["acc"]) for r in tr.rows if "acc" in r],
+               "loss_final": tr.final["loss"],
+               "quant_err_final": tr.final["quant_err"],
+               "sim_time_final": tr.final["sim_time"],
+               "launches_per_round": sorted({tuple(sorted(p.items()))
+                                             for p in alg.per_round})}
+        out.append(row)
+        emit({"phase": "baselines", **row})
+        assert tr.rounds == ROUNDS and row["d"] == D_MLP, row
+        assert row["bits_up"] == [up] and row["bits_down"] == [down], row
+        assert all(p["fused_decode"] == decodes for p in alg.per_round), row
+        assert math.isfinite(row["loss_final"]), row
+        if run != "sequential":
+            assert tr.final["acc"] > base["acc"], row
+    return out
+
+
+class GammaLog:
+    """A codec that records the largest γ of every message it encodes."""
+
+    def __init__(self, codec):
+        self.codec = codec
+        self.gammas = [0.0]
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+    def encode(self, key, x, hint=None):
+        msg = self.codec.encode(key, x, hint)
+        self.gammas.append(float(msg.gamma.max()))
+        return msg
+
+
+def injected_cfa_round(dev, alg_cuda, state, data, gen):
+    """One compressed_fedavg round with the same injected draws on the cuda
+    backend and on the torch backend; returns (max |Δ| of the server,
+    lattice step)."""
+    from repro_torch.fed.registry import make_algorithm
+    fed_t = dataclasses.replace(alg_cuda.fed, kernel_backend="torch")
+    alg_torch = make_algorithm("compressed_fedavg", fed_t,
+                               loss_fn=alg_cuda.loss_fn,
+                               template=alg_cuda.template, batch_size=32,
+                               device=dev)
+    n, s, d = alg_cuda.fed.n_clients, alg_cuda.fed.s, alg_cuda.d
+    draws = {"idx": torch.randperm(n, generator=gen, device=dev)[:s],
+             "batch_idx": torch.randint(0, data["y"].shape[1], (s, K, 32),
+                                        generator=gen, device=dev),
+             "durations": 10.0 * torch.rand((s,), generator=gen, device=dev),
+             "key_up": alg_cuda.codec_up.keys(gen, s, d),
+             "key_dn": alg_cuda.codec_down.keys(gen, 1, d)}
+    servers, steps = [], []
+    for alg in (alg_cuda, alg_torch):
+        codec = alg.codec_up
+        alg.codec_up = GammaLog(codec)
+        st, _ = alg.round(state, data, None, draws=draws)
+        steps.append(max(alg.codec_up.gammas))
+        alg.codec_up = codec
+        servers.append(st.server)
+    return float((servers[0] - servers[1]).abs().max()), max(steps)
+
+
 KERNEL_SYMBOLS = {"fused_encode": "encode_kernel",
                   "fused_rotate": "rotate_kernel",
                   "quantize_codes": "quantize_kernel",
-                  "snap_codes": "snap_kernel"}
+                  "snap_codes": "snap_kernel",
+                  "fused_decode": "decode_kernel"}
 
 
 def profile_rounds(alg, state, data, gen, rounds: int = 5):
@@ -394,7 +612,13 @@ def main() -> int:
     t0 = time.perf_counter()
     path, nvcc_s, log = build.build("exchange")
     kx.library()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    ptxas, fn = {}, None
+    for ln in log.splitlines():
+        hit = re.search(r"Compiling entry function '.*?([a-z]+_kernel)", ln)
+        if hit:
+            fn = hit.group(1)
+        elif "registers" in ln and fn:
+            ptxas[fn] = ln.split(":", 1)[1].strip()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": nvcc_s, "library": str(path.relative_to(ROOT)),
           "ptxas": ptxas})
@@ -427,7 +651,33 @@ def main() -> int:
         del io
         torch.cuda.empty_cache()
 
-    # the main path: counts from 0 just before, read just after
+    # fused_decode (and fused_encode with per-message sign rows) against
+    # the plain versions; the (S, 32,768) sign-row case is compressed
+    # FedAvg's uplink, the (1, 32,768) one a FedBuff delta
+    decode_checks = [
+        (BENCH_M, BENCH_D, 8, 1, {}),
+        (4, 4096, 4, 2, {}),
+        (4, 8192, 8, 1, {"mr": 4, "sign_rows": True}),
+        (4, 4096, 8, 1, {"mr": 4, "levels": [256.0, 16.0, 64.0, 256.0]}),
+        (S, 32_768, 8, 1, {"sign_rows": True}),
+        (1, 32_768, 8, 1, {"sign_rows": True})]
+    decode_times = {}
+    for m, d_pad, bits, pack, kw in decode_checks:
+        res, io = decode_case(kx, dev, gen, m, d_pad, bits, pack, **kw)
+        emit({"phase": "kernel_check", "kernel": "fused_decode", **res})
+        if d_pad == 32_768:
+            errors["fused_decode"] = max(errors.get("fused_decode", 0.0),
+                                         res["decode_max_abs_err"])
+        if (m, d_pad) in ((BENCH_M, BENCH_D), (S, 32_768), (1, 32_768)):
+            decode_times[(m, d_pad)] = time_decode(kx, io, peak_bw)
+            emit({"phase": "kernel_times", "m": m, "d_pad": d_pad,
+                  "bits": bits, "pack": pack, "nvidia_smi": smi,
+                  "kernels": {"fused_decode": decode_times[(m, d_pad)]}})
+        del io
+        torch.cuda.empty_cache()
+    timings["fused_decode"] = decode_times[(S, 32_768)]
+
+    # path 1, QuAFL: counts from 0 just before, read just after
     kx.reset_launches()
     runs = {}
     for uplink, bits_up in (("lattice", 4_194_816),
@@ -446,20 +696,47 @@ def main() -> int:
             "rotation_fwd": ROUNDS * (S + 1), "rotation_inv": ROUNDS * (S + 1)}
         runs[uplink] = (alg, tr, data)
     torch.cuda.synchronize()
-    launches = dict(kx.LAUNCHES)
-    emit({"phase": "launches", "launches": launches})
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} never launched on the main path"
+    quafl_launches = dict(kx.LAUNCHES)
+    emit({"phase": "launches", "path": "quafl", "launches": quafl_launches})
+    for k in ("fused_encode", "fused_rotate", "quantize_codes", "snap_codes"):
+        assert quafl_launches[k] > 0, f"kernel {k} never launched on QuAFL"
+
+    # path 2, the baselines: counts from 0 just before, read just after
+    kx.reset_launches()
+    b_algs, b_traces, b_base, b_data, b_gen = run_baselines(dev, kx)
+    torch.cuda.synchronize()
+    base_launches = dict(kx.LAUNCHES)
+    emit({"phase": "launches", "path": "baselines",
+          "launches": base_launches})
+    check_baselines(b_algs, b_traces, b_base)
+    for k in ("fused_encode", "fused_decode"):
+        assert base_launches[k] > 0, f"kernel {k} never launched on the " \
+            f"baselines"
+    launches = {**quafl_launches, "fused_decode": base_launches["fused_decode"]}
 
     alg, tr, data = runs["lattice"]
     diff, step = injected_round(dev, alg, tr.final_state, data, gen)
-    emit({"phase": "injected_round", "max_abs_diff": diff,
-          "lattice_step": step})
+    emit({"phase": "injected_round", "algorithm": "quafl",
+          "max_abs_diff": diff, "lattice_step": step})
+    assert diff <= step, (diff, step)
+    cfa = b_algs["compressed_fedavg"].alg
+    cfa_state = b_traces["compressed_fedavg"].final_state
+    diff, step = injected_cfa_round(dev, cfa, cfa_state, b_data, b_gen)
+    emit({"phase": "injected_round", "algorithm": "compressed_fedavg",
+          "max_abs_diff": diff, "lattice_step": step})
     assert diff <= step, (diff, step)
 
     prof = profile_rounds(alg, clone_state(tr.final_state), data, gen)
-    emit({"phase": "profile", "uplink": "lattice", **prof})
+    emit({"phase": "profile", "algorithm": "quafl", "uplink": "lattice",
+          **prof})
     device_ms = prof["ported_device_ms_per_launch"]
+    for run in ("compressed_fedavg", "fedbuff_lattice"):
+        p = profile_rounds(b_algs[run].alg, b_traces[run].final_state,
+                           b_data, b_gen, rounds=3)
+        emit({"phase": "profile", "algorithm": run, **p})
+        if run == "compressed_fedavg":
+            device_ms["fused_decode"] = p["ported_device_ms_per_launch"][
+                "fused_decode"]
 
     emit({"kernels": [dict(name=k, route="cuda", source=SOURCE,
                            replaces=REPLACES[k], launches=launches[k],

@@ -1,10 +1,10 @@
 """Rotated-space quantized exchange + backend registry (port of
 ``repro.compression.pipeline``).
 
-**Backends** — the four primitive ops of the exchange (batched rotation,
+**Backends** — the five primitive ops of the exchange (batched rotation,
 fused rotate + stochastic round + wrap ``encode``, elementwise ``quantize``
-of already-rotated coordinates, positional ``snap``) in two
-implementations:
+of already-rotated coordinates, positional ``snap``, and the fully fused
+``decode`` of the per-message codec API) in two implementations:
 
   * ``"torch"`` — the plain PyTorch versions, on any device,
   * ``"cuda"``  — the hand-written CUDA kernels of
@@ -73,7 +73,7 @@ def wrap_gamma(dist_hint, d: int, *, bits: int = None, levels=None,
 
 
 class Backend(NamedTuple):
-    """The four primitive ops; every op is batched over a message axis."""
+    """The five primitive ops; every op is batched over a message axis."""
     name: str
     rotate: Callable    # (x2, signs, *, block, inverse) -> y2
     encode: Callable    # (x2, signs, u2, gammas, *, bits, block,
@@ -81,13 +81,15 @@ class Backend(NamedTuple):
     quantize: Callable  # (y2, u2, gammas, *, bits, block, pack, levels2)
     snap: Callable      # (codes2, wrot2, gammas, *, bits, block, pack,
                         #  levels2) -> q2
+    decode: Callable    # (codes2, ref2, signs, gammas, *, bits, block,
+                        #  pack, levels2) -> x2 in original coordinates
 
 
 _REGISTRY = {
     "torch": Backend("torch", kx.rotate_plain, kx.encode_plain,
-                     kx.quantize_plain, kx.snap_plain),
+                     kx.quantize_plain, kx.snap_plain, kx.decode_plain),
     "cuda": Backend("cuda", kx.fused_rotate, kx.fused_encode,
-                    kx.quantize_codes, kx.snap_codes),
+                    kx.quantize_codes, kx.snap_codes, kx.fused_decode),
 }
 
 
@@ -180,6 +182,18 @@ class ExchangePipeline:
         self.stats.inv += int(y2.shape[0])
         return self.ops.rotate(y2.contiguous(), sg, block=self.block,
                                inverse=True)[:, :d]
+
+    def decode(self, codes2, ref2, sg, gammas, d: int,
+               wire: LatticeWire = None):
+        """Full fused Dec(ref, msg): rotate ref + snap + inverse rotate;
+        (max(mc, mr), d) in original coordinates."""
+        wire = self._wire(wire)
+        m = max(codes2.shape[0], ref2.shape[0])
+        self.stats.fwd += int(ref2.shape[0])
+        self.stats.inv += m
+        return self.ops.decode(codes2, self._pad(ref2), sg, gammas,
+                               bits=wire.bits, block=self.block,
+                               pack=wire.pack, levels2=wire.levels)[:, :d]
 
     def _randomness(self, generator, s, d, sg, u_cl, u_srv):
         if sg is None or u_cl is None or u_srv is None:

@@ -13,7 +13,7 @@ class FedConfig:
     lr: float = 0.1                # eta (client SGD step)
     # paper App. A: 'Unless otherwise noted, we employ the unweighted version'
     weighted: bool = False         # eta_i = H_min / H_i dampening
-    quantizer: str = "lattice"     # 'lattice' ('qsgd' | 'none' not ported)
+    quantizer: str = "lattice"     # 'lattice' | 'qsgd' | 'none'
     bits: int = 8
     # per-direction codec specs (repro_torch.compression.codecs names, e.g.
     # 'lattice_packed:bits=4'); "" derives the scheme from `quantizer` +

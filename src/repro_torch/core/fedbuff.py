@@ -1,0 +1,248 @@
+"""FedBuff baseline [Nguyen et al.]: buffered asynchronous aggregation
+(port of the event-driven ``FedBuff`` of ``repro.core.fedbuff``).
+
+Clients run continuously; when client i finishes its K local steps
+(duration Gamma(K, 1/λ_i)) it ships the model DELTA to a shared buffer and
+restarts from the current server model. Once the buffer holds Z updates the
+server applies the averaged delta. The deltas can be compressed
+(``quantize=True``) with ``quantizer="qsgd"`` (the paper's variant, the
+``scalar`` codec) or ``"lattice"`` (a delta decodes against the zero vector
+with hint ‖Δ‖: one ``fused_encode`` and one ``fused_decode`` launch per
+completion); ``uplink=`` / ``downlink=`` codec specs override both knobs.
+
+The event machinery is host-side, as in the reference: a min-heap of
+completion times (:class:`~repro_torch.fed.clock.ArrivalQueue`) fed by a
+numpy rng, seeded on the first ``round`` from one integer drawn from the
+generator (or injected), so the same seed gives the reference's event
+stream draw for draw. ``round`` advances the simulation until ONE buffer
+flush, exactly ``buffer_size`` completions; the state is forked, not
+mutated. ``run`` is the legacy time-budget loop over the same
+single-completion step.
+
+Each completion's draws come from the round's generator, or from
+``draws``: ``event_seed`` (int, first round only), ``batch_idx`` (Z, K, B),
+``key_up`` and ``key_dn`` (:class:`MessageKey` of Z rows, row z for the
+round's z-th completion). The reference's device-resident
+``FedBuffDevice`` waits for the round engine (ROADMAP Queue 1 item 10).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import default_device
+from repro_torch.compression.codecs import IdentityCodec, resolve_codec
+from repro_torch.configs.base import FedConfig
+from repro_torch.core.local import local_sgd
+from repro_torch.fed.clock import ArrivalQueue, completion_time, speeds_for
+from repro_torch.utils.tree import (tree_flatten_vector, tree_size,
+                                    tree_unflatten_vector)
+
+
+def _copy_rng(rng: np.random.Generator) -> np.random.Generator:
+    new = np.random.default_rng()
+    new.bit_generator.state = rng.bit_generator.state
+    return new
+
+
+@dataclass
+class FedBuffState:
+    """Event-driven simulation state (host-side containers around device
+    vectors)."""
+    server: torch.Tensor
+    start_model: List[torch.Tensor]     # model each client started from
+    queue: Optional[ArrivalQueue]       # pending completion events
+    buffer: List[torch.Tensor]          # deltas awaiting the next flush
+    sim_time: float = 0.0
+    t: int = 0                          # server updates applied
+    bits_up: float = 0.0
+    bits_down: float = 0.0
+    rng: Optional[np.random.Generator] = None   # seeded on first round
+
+    @property
+    def bits_sent(self):
+        """Total communication bits, both directions."""
+        return self.bits_up + self.bits_down
+
+
+@dataclass(eq=False)
+class FedBuff:
+    fed: FedConfig
+    loss_fn: Callable[[Any, Any], Any]   # batched over clients
+    template: Dict[str, torch.Tensor]
+    batch_size: int = 32
+    buffer_size: int = 10
+    server_lr: float = 1.0
+    quantize: bool = False
+    quantizer: str = "qsgd"   # 'qsgd' (paper) | 'lattice' (delta-vs-zero)
+    uniform_speeds: bool = False
+    uplink: Any = None        # codec spec; default from quantize/quantizer
+    downlink: Any = None      # codec spec for the restart broadcast
+    device: Any = None        # None = the card
+
+    def __post_init__(self):
+        self.device = default_device(self.device)
+        n = self.fed.n_clients
+        self.lam = speeds_for(self.fed, n, uniform=self.uniform_speeds)
+        legacy_up = ({"qsgd": "scalar", "lattice": "lattice",
+                      "none": "identity"}.get(self.quantizer, "identity")
+                     if self.quantize else "identity")
+        self.codec_up = resolve_codec(self.uplink, self.fed, direction="up",
+                                      default=legacy_up)
+        self.codec_down = resolve_codec(self.downlink, self.fed,
+                                        direction="down",
+                                        default="identity")
+        self._down_identity = isinstance(self.codec_down, IdentityCodec)
+        self._up_compressed = not isinstance(self.codec_up, IdentityCodec)
+        self.d = tree_size(self.template)
+
+    # ------------------------------------------------------------------
+    def init(self, params0) -> FedBuffState:
+        server = tree_flatten_vector(params0).to(self.device)
+        n = self.fed.n_clients
+        return FedBuffState(server=server,
+                            start_model=[server for _ in range(n)],
+                            queue=None, buffer=[])
+
+    def _seed(self, state: FedBuffState, generator, seed=None
+              ) -> FedBuffState:
+        """Seed the event rng: one integer from the generator, or
+        ``seed``."""
+        if seed is None:
+            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                                     device=generator.device))
+        rng = np.random.default_rng(int(seed))
+        queue = ArrivalQueue.initial(rng, self.lam, self.fed.local_steps)
+        return replace(state, rng=rng, queue=queue)
+
+    @staticmethod
+    def _fork(state: FedBuffState) -> FedBuffState:
+        """Copy the mutable containers so the caller's state stays usable
+        (once per round, not per completion)."""
+        return replace(state, queue=state.queue.copy(),
+                       start_model=list(state.start_model),
+                       buffer=list(state.buffer), rng=_copy_rng(state.rng))
+
+    def _key(self, codec, draws, name, z, generator):
+        if name in draws:
+            return draws[name].row(z)
+        return codec.keys(generator, 1, self.d)
+
+    def _completion(self, state: FedBuffState, data, generator, draws=None,
+                    z: int = 0, want_metrics: bool = False):
+        """Process ONE client completion event, MUTATING ``state``. With
+        ``want_metrics`` returns the relative quantization error of this
+        delta as a device scalar (None when uncompressed)."""
+        draws = draws or {}
+        K, d = self.fed.local_steps, self.d
+        t_now, i = state.queue.pop()
+        if "batch_idx" in draws:
+            bidx = draws["batch_idx"][z].long()
+        else:
+            bidx = torch.randint(0, data["y"].shape[1],
+                                 (K, self.batch_size), generator=generator,
+                                 device=self.device)
+        start = state.start_model[i]
+        end = local_sgd(self.loss_fn, self.template, start[None],
+                        data["x"][i][bidx][None], data["y"][i][bidx][None],
+                        self.fed.lr)[0]
+        delta = start - end           # positive direction of descent
+        rel_err = None
+        if self._up_compressed:
+            key = self._key(self.codec_up, draws, "key_up", z, generator)
+            hint = torch.linalg.vector_norm(delta) + 1e-12
+            msg = self.codec_up.encode(key, delta[None], hint[None])
+            dq = self.codec_up.decode(
+                key, msg, torch.zeros((1, d), device=self.device))[0]
+            if want_metrics:
+                rel_err = (torch.linalg.vector_norm(dq - delta)
+                           / (torch.linalg.vector_norm(delta) + 1e-12))
+            delta = dq
+        state.bits_up += self.codec_up.message_bits(d)
+        state.buffer.append(delta)
+        if len(state.buffer) >= self.buffer_size:
+            # Δ = start − end points downhill: w ← w − η_g·avg(Δ)
+            state.server = state.server - self.server_lr * torch.mean(
+                torch.stack(state.buffer), 0)
+            state.buffer = []
+            state.t += 1
+        # the client restarts from the downlinked server model: fp32 by
+        # default, else decoded against its previous start model
+        if self._down_identity:
+            state.start_model[i] = state.server
+        else:
+            key = self._key(self.codec_down, draws, "key_dn", z, generator)
+            hint_dn = (torch.linalg.vector_norm(state.server
+                                                - state.start_model[i])
+                       + 1e-12)
+            msg_dn = self.codec_down.encode(key, state.server[None],
+                                            hint_dn[None])
+            state.start_model[i] = self.codec_down.decode(
+                key, msg_dn, state.start_model[i][None])[0]
+        state.bits_down += self.codec_down.message_bits(d)
+        state.sim_time = float(t_now)
+        state.queue.push(t_now + completion_time(
+            state.rng, K, self.lam[i]), i)
+        return rel_err
+
+    def round(self, state: FedBuffState, data, generator: torch.Generator,
+              draws: Dict[str, Any] = None):
+        """Advance the event simulation until ONE buffer flush (one server
+        update). The input state is forked, not mutated."""
+        draws = dict(draws or {})
+        seed = draws.pop("event_seed", None)
+        draws = {k: v.to(self.device) for k, v in draws.items()}
+        if state.rng is None:
+            state = self._seed(state, generator, seed)
+        state = self._fork(state)
+        t_before, errs = state.t, []
+        time_before, up_before, down_before = (state.sim_time, state.bits_up,
+                                               state.bits_down)
+        z = 0
+        while state.t == t_before:
+            rel = self._completion(state, data, generator, draws, z,
+                                   want_metrics=True)
+            if rel is not None:
+                errs.append(rel)
+            z += 1
+        metrics = {
+            "sim_time": state.sim_time,
+            "round_time": state.sim_time - time_before,
+            "bits_up": state.bits_up - up_before,
+            "bits_down": state.bits_down - down_before,
+            # every buffered arrival carries exactly K completed steps
+            "h_steps_mean": float(self.fed.local_steps),
+            "quant_err": (torch.mean(torch.stack(errs)) if errs
+                          else 0.0),
+            "buffer_flushes": 1.0,
+        }
+        return state, metrics
+
+    def eval_params(self, state: FedBuffState):
+        return tree_unflatten_vector(self.template, state.server)
+
+    # ------------------------------------------------------------------
+    def run(self, params0, data, generator: torch.Generator,
+            total_time: float, eval_every: float, eval_fn):
+        """Simulate until ``total_time``; returns a list of (time, eval,
+        bits sent). The same single-completion step as ``round``, in the
+        same order."""
+        state = self._seed(self.init(params0), generator)
+        history, next_eval = [], 0.0
+        while len(state.queue):
+            t_now, _ = state.queue.peek()
+            if t_now > total_time:
+                break
+            while t_now >= next_eval:
+                history.append((next_eval, eval_fn(self.eval_params(state)),
+                                state.bits_sent))
+                next_eval += eval_every
+            self._completion(state, data, generator)   # run owns state
+        while next_eval <= total_time:
+            history.append((next_eval, eval_fn(self.eval_params(state)),
+                            state.bits_sent))
+            next_eval += eval_every
+        return history

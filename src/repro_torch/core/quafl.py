@@ -28,9 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch import default_device
-from repro_torch.compression.codecs import resolve_codec
+from repro_torch.compression.codecs import is_lattice_family, resolve_codec
 from repro_torch.compression.pipeline import ExchangePipeline
 from repro_torch.configs.base import FedConfig
+from repro_torch.core.local import batched_grads
 from repro_torch.fed.clock import expected_steps, speeds_for
 from repro_torch.fed.population import (Population, build_population,
                                         gather_rows, resolve_participation,
@@ -81,6 +82,12 @@ class QuAFL:
         self.codec_up = resolve_codec(self.uplink, fed, direction="up")
         self.codec_down = resolve_codec(self.downlink, fed,
                                         direction="down")
+        for codec in (self.codec_up, self.codec_down):
+            if not is_lattice_family(codec):
+                raise NotImplementedError(
+                    f"QuAFL with the {codec.name!r} codec: the per-message "
+                    f"branch of QuAFL.round is not ported yet (ROADMAP "
+                    f"Queue 1 item 6)")
         self.pipeline = ExchangePipeline(bits=self.codec_up.bits,
                                          block=self.codec_up.block,
                                          safety=self.codec_up.safety,
@@ -106,21 +113,14 @@ class QuAFL:
                                                     device=self.device))
 
     # ------------------------------------------------------------------
-    def _grads(self, flat, batch):
-        """Per-client gradients of the batched loss at (s, d) ``flat``."""
-        v = flat.detach().requires_grad_(True)
-        losses, _ = self.loss_fn(tree_unflatten_vector(self.template, v),
-                                 batch)
-        (g,) = torch.autograd.grad(losses.sum(), v)
-        return g
-
     def _local_progress(self, cl, xs, ys, h_steps):
         """Replay K masked SGD steps of every sampled client; returns h̃,
         the sum of the active steps' gradients, (s, d)."""
         eta = self.fed.lr
         x, h = cl, torch.zeros_like(cl)
         for q in range(self.fed.local_steps):
-            g = self._grads(x, {"x": xs[:, q], "y": ys[:, q]})
+            g = batched_grads(self.loss_fn, self.template, x,
+                              {"x": xs[:, q], "y": ys[:, q]})
             act = (q < h_steps).to(torch.float32)[:, None]
             x = x - eta * act * g
             h = h + act * g

@@ -21,6 +21,7 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import default_device
 from repro_torch.configs.base import FedConfig
 from repro_torch.fed.clock import lazy_h_steps, speeds_for
 
@@ -35,11 +36,13 @@ class Population(NamedTuple):
 def build_population(fed: FedConfig, n: int = None, *, lam=None,
                      device=None, **extra_rows) -> Population:
     """The base store: speeds ``lam`` and ``group`` speed-class labels (1 =
-    slow), plus any ``extra_rows`` (models, last-interaction times, ...)."""
+    slow), plus any ``extra_rows`` (models, last-interaction times, ...);
+    ``device=None`` means the card, as for every entry point."""
     n = fed.n_clients if n is None else n
     if lam is None:
         lam = speeds_for(fed, n)
-    lam = torch.as_tensor(lam, dtype=torch.float32, device=device)
+    lam = torch.as_tensor(lam, dtype=torch.float32,
+                          device=default_device(device))
     group = (lam == float(np.float32(fed.lam_slow))).to(torch.int32)
     return Population(rows=dict(lam=lam, group=group, **extra_rows))
 

@@ -1,5 +1,6 @@
 """Run an algorithm to a budget and trace it (port of the eager path of
-``repro.fed.simulate``).
+``repro.fed.simulate``); :func:`compare` does it for a named set of
+algorithms under one simulated clock.
 
 A trace row holds the round's metrics (the :data:`METRIC_KEYS` schema, per
 round as the algorithm returned them) plus ``round``, ``wall_time_s``, the
@@ -41,16 +42,17 @@ def simulate(alg, params0, data, generator: torch.Generator, *,
              eval_every: int = 10, record_every: int = 0,
              eval_fn: Optional[Callable[[Any], Any]] = None,
              on_row: Optional[Callable[[Dict[str, Any]], None]] = None,
-             max_rounds: int = 100_000) -> Trace:
+             name: str = "", max_rounds: int = 100_000) -> Trace:
     """Run ``alg`` from ``params0`` until ``rounds`` server rounds or
     ``until_sim_time`` simulated seconds (first hit wins; ``max_rounds`` is
     the backstop). ``eval_fn(params)`` runs every ``eval_every`` rounds and
     on the final round; ``record_every`` adds metrics-only rows;
-    ``on_row`` streams each row as it is recorded."""
+    ``on_row`` streams each row as it is recorded. The trace is labelled
+    ``name``, else the algorithm's class name."""
     if rounds is None and until_sim_time is None:
         raise ValueError("give at least one budget: rounds / "
                          "until_sim_time")
-    trace = Trace(algorithm=type(alg).__name__)
+    trace = Trace(algorithm=name or type(alg).__name__)
     state = alg.init(params0)
     bits_up = bits_down = 0.0
     t0 = time.time()
@@ -86,3 +88,18 @@ def simulate(alg, params0, data, generator: torch.Generator, *,
     trace.rounds = r
     trace.wall_time_s = time.time() - t0
     return trace
+
+
+def compare(algorithms: Dict[str, Any], params0, data,
+            generator: torch.Generator, **sim_kw) -> Dict[str, Trace]:
+    """Run every named algorithm from the SAME initial params, the same
+    generator state and the same budget (``simulate``'s keywords); returns
+    ``{name: Trace}`` in input order. Each run gets its own copy of
+    ``generator``, so every algorithm starts from the same draws."""
+    state = generator.get_state()
+    traces = {}
+    for name, alg in algorithms.items():
+        gen = torch.Generator(device=generator.device)
+        gen.set_state(state)
+        traces[name] = simulate(alg, params0, data, gen, name=name, **sim_kw)
+    return traces

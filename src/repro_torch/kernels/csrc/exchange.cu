@@ -6,6 +6,7 @@
 //   exch_encode    <- fused_encode   (_encode_kernel)
 //   exch_quantize  <- quantize_codes (_quantize_kernel)
 //   exch_snap      <- snap_codes     (_snap_kernel)
+//   exch_decode    <- fused_decode   (_decode_kernel)
 //
 // Layout: a batch of m messages of d_pad fp32 coordinates, row-major. Each
 // message splits into nb = d_pad / b Hadamard blocks of b = r*c coordinates;
@@ -23,12 +24,17 @@
 // The plain PyTorch version in kernels/exchange.py runs the same stages in
 // the same order, so the two agree bit for bit.
 //
-// Bound. All four kernels are memory-bound on an H100: the butterfly does
+// Bound. All five kernels are memory-bound on an H100: the butterfly does
 // log2(b) <= 14 adds per coordinate against 8-16 bytes moved, far below the
 // card's ~20 fp32 flop/byte ridge. The design therefore reads every input
 // once and writes every output once (the rotated block never leaves shared
-// memory between the rotation and the quantize), and keeps the elementwise
-// kernels to one coalesced pass.
+// memory between the rotation and the quantize, nor between the snap and
+// the inverse rotation), and keeps the elementwise kernels to one coalesced
+// pass.
+//
+// Signs. The encode and decode kernels take one sign row shared by every
+// message (sign_stride 0) or one row per message (sign_stride d_pad): the
+// per-message codec API gives each message its own rotation.
 //
 // Rounding. No --use_fast_math. The quantize and snap arithmetic uses the
 // explicit round-to-nearest intrinsics (__fdiv_rn, __fadd_rn, __fsub_rn,
@@ -120,9 +126,12 @@ rotate_kernel(const float* __restrict__ x, const float* __restrict__ signs,
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// Two CTAs of 1024 threads per SM at b=16,384 need <= 32 registers a
+// thread: the second bound holds ptxas to that.
+__global__ void __launch_bounds__(kMaxThreads, 2)
 encode_kernel(const float* __restrict__ x, const float* __restrict__ signs,
-              const float* __restrict__ u, const float* __restrict__ gam,
+              int sign_stride, const float* __restrict__ u,
+              const float* __restrict__ gam,
               int gam_stride, const float* __restrict__ levels,
               int lev_stride, float levels_default,
               int32_t* __restrict__ codes32, uint8_t* __restrict__ codes8,
@@ -132,7 +141,9 @@ encode_kernel(const float* __restrict__ x, const float* __restrict__ signs,
   const int j = blockIdx.x;
   const int i = blockIdx.y;
   const size_t base = (size_t)i * d_pad + (size_t)j * b;
-  load_and_transform(sm, x, base, signs + (size_t)j * b, b, true);
+  load_and_transform(sm, x, base,
+                     signs + (size_t)i * sign_stride + (size_t)j * b, b,
+                     true);
   for (int e = threadIdx.x; e < b; e += blockDim.x) {
     const float v = __fmul_rn(sm[e], scale);
     sm[e] = v;
@@ -235,6 +246,49 @@ __global__ void snap_kernel(const int32_t* __restrict__ codes32,
   }
 }
 
+// One (message, block) pair: rotate the reference block, snap every code to
+// the representative nearest it, inverse-rotate. Code row i is codes row
+// (mc == 1 ? 0 : i), reference row (mr == 1 ? 0 : i).
+__global__ void __launch_bounds__(kMaxThreads)
+decode_kernel(const int32_t* __restrict__ codes32,
+              const uint8_t* __restrict__ codes8, int mc,
+              const float* __restrict__ ref, int mr,
+              const float* __restrict__ signs, int sign_stride,
+              const float* __restrict__ gam, int gam_stride,
+              const float* __restrict__ levels, int lev_stride,
+              float levels_default, float* __restrict__ out, int d_pad,
+              int b, int c, int bits, int pack, float scale) {
+  extern __shared__ float sm[];
+  const int j = blockIdx.x;
+  const int i = blockIdx.y;
+  const size_t ci = mc == 1 ? 0 : (size_t)i;
+  const size_t ri = mr == 1 ? 0 : (size_t)i;
+  const float* s = signs + (size_t)i * sign_stride + (size_t)j * b;
+  load_and_transform(sm, ref, ri * d_pad + (size_t)j * b, s, b, true);
+  const float g = gam[(size_t)i * gam_stride];
+  const float L = levels != nullptr ? levels[(size_t)i * lev_stride]
+                                    : levels_default;
+  const unsigned mask = (1u << bits) - 1u;
+  const size_t cbase = ci * (d_pad / pack) + (size_t)j * (b / pack);
+  for (int e = threadIdx.x; e < b; e += blockDim.x) {
+    unsigned code;
+    if (pack == 1) {
+      code = (unsigned)codes32[ci * d_pad + (size_t)j * b + e];
+    } else {
+      const int row = e / c;
+      const int k = e - row * c;
+      const unsigned byte = codes8[cbase + (size_t)(row / pack) * c + k];
+      code = (byte >> ((row % pack) * bits)) & mask;
+    }
+    sm[e] = snap_one((float)code, __fmul_rn(sm[e], scale), g, L);
+  }
+  __syncthreads();
+  fwht_shared(sm, b);
+  const size_t obase = (size_t)i * d_pad + (size_t)j * b;
+  for (int e = threadIdx.x; e < b; e += blockDim.x)
+    out[obase + e] = __fmul_rn(__fmul_rn(sm[e], scale), s[e]);
+}
+
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -262,8 +316,10 @@ int exch_rotate(const void* x, const void* signs, void* y, int m, int d_pad,
 }
 
 // Rotate + stochastic round + wrap. codes32 (m, d_pad) int32 when pack == 1,
-// else codes8 (m, d_pad / pack) uint8; yout (m, d_pad) fp32 or null.
-int exch_encode(const void* x, const void* signs, const void* u,
+// else codes8 (m, d_pad / pack) uint8; yout (m, d_pad) fp32 or null; signs
+// (d_pad,) with sign_stride 0 or (m, d_pad) with sign_stride d_pad.
+int exch_encode(const void* x, const void* signs, int sign_stride,
+                const void* u,
                 const void* gam, int gam_stride, const void* levels,
                 int lev_stride, float levels_default, void* codes32,
                 void* codes8, void* yout, int m, int d_pad, int b, int c,
@@ -273,7 +329,7 @@ int exch_encode(const void* x, const void* signs, const void* u,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(d_pad / b, m);
   encode_kernel<<<grid, block_threads(b), smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)signs, (const float*)u,
+      (const float*)x, (const float*)signs, sign_stride, (const float*)u,
       (const float*)gam, gam_stride, (const float*)levels, lev_stride,
       levels_default, (int32_t*)codes32, (uint8_t*)codes8, (float*)yout,
       d_pad, b, c, bits, pack, scale);
@@ -305,6 +361,27 @@ int exch_snap(const void* codes32, const void* codes8, int mc, const void* w,
       (const int32_t*)codes32, (const uint8_t*)codes8, mc, (const float*)w,
       mw, (const float*)gam, gam_stride, (const float*)levels, lev_stride,
       levels_default, (float*)out, m, d_pad, b, c, bits, pack);
+  return (int)cudaGetLastError();
+}
+
+// Full Dec(ref, msg): mc code rows against mr reference rows in original
+// coordinates (either may be 1 and broadcasts); signs as exch_encode's;
+// out (m, d_pad) fp32, m = max(mc, mr).
+int exch_decode(const void* codes32, const void* codes8, int mc,
+                const void* ref, int mr, const void* signs, int sign_stride,
+                const void* gam, int gam_stride, const void* levels,
+                int lev_stride, float levels_default, void* out, int m,
+                int d_pad, int b, int c, int bits, int pack, float scale,
+                void* stream) {
+  const size_t smem = (size_t)b * sizeof(float);
+  cudaError_t err = allow_shared(decode_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(d_pad / b, m);
+  decode_kernel<<<grid, block_threads(b), smem, (cudaStream_t)stream>>>(
+      (const int32_t*)codes32, (const uint8_t*)codes8, mc, (const float*)ref,
+      mr, (const float*)signs, sign_stride, (const float*)gam, gam_stride,
+      (const float*)levels, lev_stride, levels_default, (float*)out, d_pad,
+      b, c, bits, pack, scale);
   return (int)cudaGetLastError();
 }
 

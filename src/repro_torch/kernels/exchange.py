@@ -1,8 +1,9 @@
 """Rotated-space lattice exchange: CUDA kernels and their plain versions
 (port of ``repro.kernels.exchange``).
 
-Four kernels carry the QuAFL round. Each has a plain PyTorch version here
-(``*_plain``, any device) and a wrapper under the reference's name that
+Four kernels carry the QuAFL round and a fifth, ``fused_decode``, the
+per-message codec API of the baselines. Each has a plain PyTorch version
+here (``*_plain``, any device) and a wrapper under the reference's name that
 launches the CUDA kernel of ``csrc/exchange.cu`` on a CUDA tensor, runs the
 plain version on a CPU tensor, and raises on anything else. Every wrapper
 counts its launches in :data:`LAUNCHES`.
@@ -27,7 +28,7 @@ from repro_torch.kernels import build
 # Launches of each kernel since the last reset_launches(); a wrapper adds
 # one where it launches its kernel and nowhere else.
 LAUNCHES = {"fused_encode": 0, "fused_rotate": 0, "quantize_codes": 0,
-            "snap_codes": 0}
+            "snap_codes": 0, "fused_decode": 0}
 
 
 def reset_launches() -> None:
@@ -121,13 +122,13 @@ def _fwht(x: torch.Tensor) -> torch.Tensor:
 
 def rotate_plain(x2, signs, *, block=DEFAULT_BLOCK, inverse=False):
     """Batched randomized-Hadamard rotation: (m, d_pad) -> (m, d_pad).
-    Forward: signs, then H_b / sqrt(b) per block; inverse: H first."""
-    m, d_pad = x2.shape
-    b = block_geometry(d_pad, block)[0]
+    Forward: signs, then H_b / sqrt(b) per block; inverse: H first.
+    ``signs`` is one (d_pad,) row or (m, d_pad) rows, and broadcasts."""
+    b = block_geometry(x2.shape[-1], block)[0]
     x = x2.to(torch.float32)
     if not inverse:
         x = x * signs
-    y = _fwht(x.reshape(m, d_pad // b, b)).reshape(m, d_pad) * _scale(b)
+    y = _fwht(x.reshape(-1, b)).reshape(x.shape) * _scale(b)
     return y * signs if inverse else y
 
 
@@ -169,6 +170,17 @@ def snap_plain(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     return q * g
 
 
+def decode_plain(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
+                 pack=1, levels2=None):
+    """Full Dec(ref, msg): rotate the reference, snap, inverse-rotate;
+    (max(mc, mr), d_pad) in original coordinates. Codes, references and
+    (m, d_pad) sign rows broadcast along the message axis."""
+    w = rotate_plain(ref2, signs, block=block)
+    q = snap_plain(codes2, w, gammas, bits=bits, block=block, pack=pack,
+                   levels2=levels2)
+    return rotate_plain(q, signs, block=block, inverse=True)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -176,12 +188,14 @@ def snap_plain(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "exch_rotate": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "exch_encode": [_P, _P, _P, _P, _I, _P, _I, _F, _P, _P, _P, _I, _I, _I,
-                    _I, _I, _I, _F, _P],
+    "exch_encode": [_P, _P, _I, _P, _P, _I, _P, _I, _F, _P, _P, _P, _I, _I,
+                    _I, _I, _I, _I, _F, _P],
     "exch_quantize": [_P, _P, _P, _I, _P, _I, _F, _P, _P, _I, _I, _I, _I,
                       _I, _I, _P],
     "exch_snap": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _F, _P, _I, _I, _I,
                   _I, _I, _I, _P],
+    "exch_decode": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _F, _P, _I,
+                    _I, _I, _I, _I, _I, _F, _P],
 }
 # the largest block one CTA holds in shared memory (227 KB on Hopper)
 _MAX_SHARED_BLOCK = 232_448 // 4
@@ -219,6 +233,16 @@ def _require(t, name, dtype, shape):
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _sign_stride(signs, m, d_pad):
+    """One (d_pad,) sign row for every message (stride 0) or (m, d_pad)
+    rows, one per message (stride d_pad)."""
+    if signs.dim() == 1:
+        _require(signs, "signs", torch.float32, (d_pad,))
+        return 0
+    _require(signs, "signs", torch.float32, (m, d_pad))
+    return d_pad
 
 
 def _row(t, name, m):
@@ -299,7 +323,8 @@ def _levels_args(levels2, bits, m):
 def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
                  want_rotated=False, pack=1, levels2=None):
     """Rotate + stochastic round + wrap in one pass; returns codes, or
-    (rotated, codes) when ``want_rotated``.
+    (rotated, codes) when ``want_rotated``. ``signs`` is one (d_pad,) row
+    for every message or (m, d_pad) rows, one per message.
 
     Replaces ``repro/kernels/exchange.py`` · ``fused_encode``
     (``_encode_kernel``). Bound on the H100: bytes, 16 per coordinate with
@@ -314,7 +339,7 @@ def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
     m, d_pad = x2.shape
     b, c = _geometry(d_pad, block, bits, pack)
     _require(x2, "x2", torch.float32, (m, d_pad))
-    _require(signs, "signs", torch.float32, (d_pad,))
+    s_stride = _sign_stride(signs, m, d_pad)
     _require(u2, "u2", torch.float32, (m, d_pad))
     if gammas.numel() != m:
         raise ValueError(f"gammas: {gammas.numel()} values for {m} messages")
@@ -324,7 +349,8 @@ def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
     y = torch.empty_like(x2) if want_rotated else None
     LAUNCHES["fused_encode"] += 1
     _check(library().exch_encode(
-        _ptr(x2), _ptr(signs), _ptr(u2), _ptr(gammas), g_stride, _ptr(lv),
+        _ptr(x2), _ptr(signs), s_stride, _ptr(u2), _ptr(gammas), g_stride,
+        _ptr(lv),
         lv_stride, lv_default, _ptr(codes32), _ptr(codes8), _ptr(y), m,
         d_pad, b, c, bits, pack, _scale(b), _stream()), "exch_encode")
     codes = codes32 if pack == 1 else codes8
@@ -393,4 +419,49 @@ def snap_codes(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
         _ptr(c32), _ptr(c8), mc, _ptr(wrot2), mw, _ptr(gammas), g_stride,
         _ptr(lv), lv_stride, lv_default, _ptr(out), m, d_pad, b, c, bits,
         pack, _stream()), "exch_snap")
+    return out
+
+
+def fused_decode(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
+                 pack=1, levels2=None):
+    """Full Dec(ref, msg) in one pass: rotate the reference, snap each code
+    to the representative nearest it, inverse-rotate.
+
+    ``codes2`` (mc, d_pad // pack) against references ``ref2`` (mr, d_pad)
+    in original coordinates; either may be 1 and broadcasts. ``signs`` is
+    one (d_pad,) row or (m, d_pad) rows, m = max(mc, mr); ``gammas`` and
+    ``levels2`` hold 1 or m values. Returns (m, d_pad) fp32.
+
+    Replaces ``repro/kernels/exchange.py`` · ``fused_decode``
+    (``_decode_kernel``, four MXU matmuls per (r, c) block). Bound on the
+    H100: bytes, 8 per output coordinate (int32 code or packed byte share,
+    fp32 output) plus the broadcast side and the shared signs read once.
+    Design: one CTA per (message, block) holds the block in shared memory
+    from the reference's rotation through the snap to the inverse rotation,
+    two butterflies of log2(b) stages, so neither the rotated reference nor
+    the snapped point touches device memory.
+    """
+    if _on_cpu(codes2, ref2, signs, gammas, levels2):
+        return decode_plain(codes2, ref2, signs, gammas, bits=bits,
+                            block=block, pack=pack, levels2=levels2)
+    mc, d_padp = codes2.shape
+    mr, d_pad = ref2.shape
+    m = max(mc, mr)
+    if d_padp * pack != d_pad or min(mc, mr) not in (1, m):
+        raise ValueError(f"codes {tuple(codes2.shape)} (pack={pack}) do not "
+                         f"broadcast against refs {tuple(ref2.shape)}")
+    b, c = _geometry(d_pad, block, bits, pack)
+    _require(codes2, "codes2", torch.int32 if pack == 1 else torch.uint8,
+             (mc, d_padp))
+    _require(ref2, "ref2", torch.float32, (mr, d_pad))
+    s_stride = _sign_stride(signs, m, d_pad)
+    g_stride = _row(gammas, "gammas", m)
+    lv, lv_stride, lv_default = _levels_args(levels2, bits, m)
+    out = torch.empty((m, d_pad), dtype=torch.float32, device=ref2.device)
+    c32, c8 = (codes2, None) if pack == 1 else (None, codes2)
+    LAUNCHES["fused_decode"] += 1
+    _check(library().exch_decode(
+        _ptr(c32), _ptr(c8), mc, _ptr(ref2), mr, _ptr(signs), s_stride,
+        _ptr(gammas), g_stride, _ptr(lv), lv_stride, lv_default, _ptr(out),
+        m, d_pad, b, c, bits, pack, _scale(b), _stream()), "exch_decode")
     return out

@@ -6,15 +6,19 @@ arrays), so nothing here imports JAX.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core.fedavg import CompressedFedAvgState, FedAvgState
+from repro_torch.core.fedbuff import FedBuffState
 from repro_torch.core.quafl import QuaflState
+from repro_torch.fed.clock import ArrivalQueue
 from repro_torch.fed.population import Population
 
 QUAFL_ROWS = ("lam", "group", "model", "last_time")
+FEDAVG_ROWS = ("lam", "group")
 
 
 def _tensor(a, device, dtype=None):
@@ -49,3 +53,45 @@ def quafl_state_from_numpy(*, server, rows: Dict[str, np.ndarray], t,
                       bits_up=float(bits_up), bits_down=float(bits_down),
                       srv_dist_est=_tensor(srv_dist_est, device,
                                            torch.float32))
+
+
+def fedavg_state_from_numpy(*, server, rows: Dict[str, np.ndarray], t,
+                            sim_time, bits_up, bits_down, device
+                            ) -> FedAvgState:
+    """A reference ``FedAvgState`` as the port's state (rows
+    :data:`FEDAVG_ROWS`)."""
+    pop = Population(rows={k: _tensor(rows[k], device)
+                           for k in FEDAVG_ROWS})
+    return FedAvgState(server=_tensor(server, device, torch.float32),
+                       pop=pop, t=int(t),
+                       sim_time=_tensor(sim_time, device, torch.float32),
+                       bits_up=float(bits_up), bits_down=float(bits_down))
+
+
+def compressed_fedavg_state_from_numpy(*, srv_prev, srv_dist_est, device,
+                                       **fedavg) -> CompressedFedAvgState:
+    """A reference ``CompressedFedAvgState`` (stateless uplink: its empty
+    ``codec_up`` row has no counterpart) as the port's state."""
+    base = fedavg_state_from_numpy(device=device, **fedavg)
+    return CompressedFedAvgState(
+        *base, srv_prev=_tensor(srv_prev, device, torch.float32),
+        srv_dist_est=_tensor(srv_dist_est, device, torch.float32))
+
+
+def fedbuff_state_from_numpy(*, server, start_model: Sequence[np.ndarray],
+                             events, buffer: Sequence[np.ndarray], sim_time,
+                             t, bits_up, bits_down,
+                             rng: np.random.Generator, device
+                             ) -> FedBuffState:
+    """A reference ``FedBuffState`` — vectors as numpy, the pending
+    ``(time, client)`` events, and its numpy event rng, whose state is
+    copied — as the port's state."""
+    new_rng = np.random.default_rng()
+    new_rng.bit_generator.state = rng.bit_generator.state
+    return FedBuffState(
+        server=_tensor(server, device, torch.float32),
+        start_model=[_tensor(v, device, torch.float32) for v in start_model],
+        queue=ArrivalQueue([(float(a), int(i)) for a, i in events]),
+        buffer=[_tensor(v, device, torch.float32) for v in buffer],
+        sim_time=float(sim_time), t=int(t), bits_up=float(bits_up),
+        bits_down=float(bits_down), rng=new_rng)

@@ -68,6 +68,61 @@ def test_levels_row_matches_plain_version(dev):
                        kx.snap_plain(codes, y, gam, **kw))
 
 
+def _decode_case(dev, m, d_pad, bits, pack, sign_rows=False, seed=0):
+    """Codes of x under (m, d_pad) or (d_pad,) signs, and references x plus
+    a perturbation inside the wrap window."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = (torch.randn((1, d_pad), generator=g, device=dev)
+         + 0.05 * torch.randn((m, d_pad), generator=g, device=dev))
+    sg = (signs(g, m * d_pad).reshape(m, d_pad) if sign_rows
+          else signs(g, d_pad))
+    u = torch.rand((m, d_pad), generator=g, device=dev)
+    y = kx.rotate_plain(x, sg)
+    gam = (y.abs().amax(dim=1) / (1 << bits) / 2).contiguous()
+    codes = kx.fused_encode(x, sg, u, gam, bits=bits, pack=pack)
+    ref = x + 0.1 * gam[:, None] * torch.randn((m, d_pad), generator=g,
+                                               device=dev)
+    return x, sg, u, gam, codes, ref
+
+
+@pytest.mark.parametrize("bits,pack", [(8, 1), (4, 2)])
+@pytest.mark.parametrize("m,d_pad,sign_rows", [(4, 4096, False),
+                                               (4, 8192, True),
+                                               (16, 32_768, True)])
+def test_fused_decode_matches_plain_version(dev, m, d_pad, sign_rows, bits,
+                                            pack):
+    x, sg, _, gam, codes, ref = _decode_case(dev, m, d_pad, bits, pack,
+                                             sign_rows)
+    kw = dict(bits=bits, pack=pack)
+    cases = [(codes, ref[:1].contiguous(), gam), (codes, ref, gam)]
+    if not sign_rows:
+        cases.append((codes[:1].contiguous(), ref, gam[:1].contiguous()))
+    for c, r, g in cases:
+        out = kx.fused_decode(c, r, sg, g, **kw)
+        assert torch.equal(out, kx.decode_plain(c, r, sg, g, **kw))
+        assert out.shape == (m, d_pad)
+
+
+def test_fused_decode_levels_row(dev):
+    x, sg, u, gam, _, ref = _decode_case(dev, 3, 4096, 8, 1)
+    lv = torch.tensor([256.0, 16.0, 64.0], device=dev)
+    codes = kx.fused_encode(x, sg, u, gam, levels2=lv)
+    assert torch.equal(kx.fused_decode(codes, ref, sg, gam, levels2=lv),
+                       kx.decode_plain(codes, ref, sg, gam, levels2=lv))
+
+
+@pytest.mark.parametrize("bits,pack", [(8, 1), (4, 2)])
+def test_fused_encode_with_sign_rows(dev, bits, pack):
+    x, sg, u, gam, codes, _ = _decode_case(dev, 16, 32_768, bits, pack,
+                                           sign_rows=True)
+    assert torch.equal(codes, kx.encode_plain(x, sg, u, gam, bits=bits,
+                                              pack=pack))
+    y, _ = kx.fused_encode(x, sg, u, gam, bits=bits, pack=pack,
+                           want_rotated=True)
+    assert torch.equal(y, kx.rotate_plain(x, sg))
+
+
 def test_each_wrapper_counts_its_launches(dev):
     x, sg, u, gam = _inputs(dev, 2, 4096, 8)
     kx.reset_launches()
@@ -75,10 +130,35 @@ def test_each_wrapper_counts_its_launches(dev):
     kx.fused_rotate(y, sg, inverse=True)
     kx.quantize_codes(y, u, gam)
     kx.snap_codes(codes, y, gam)
+    kx.fused_decode(codes, x, sg, gam)
     kx.rotate_plain(x, sg)
+    kx.decode_plain(codes, x, sg, gam)
     torch.cuda.synchronize()
     assert kx.LAUNCHES == {"fused_encode": 1, "fused_rotate": 1,
-                           "quantize_codes": 1, "snap_codes": 1}
+                           "quantize_codes": 1, "snap_codes": 1,
+                           "fused_decode": 1}
+
+
+def test_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, sg, u, gam = _inputs(dev, 2, 4096, 8)
+    codes = kx.fused_encode(x, sg, u, gam)
+    kx.reset_launches()
+    with pytest.raises(TypeError, match="int32"):
+        kx.fused_decode(codes.to(torch.int64), x, sg, gam)
+    with pytest.raises(TypeError, match="float32"):
+        kx.fused_decode(codes, x.double(), sg, gam)
+    with pytest.raises(ValueError, match="broadcast"):
+        kx.fused_decode(codes, x[:, :2048].contiguous(), sg, gam)
+    with pytest.raises(ValueError, match="shape"):
+        kx.fused_decode(codes, x, sg[None].repeat(3, 1), gam)
+    with pytest.raises(ValueError, match="CPU or all"):
+        kx.fused_decode(codes, x, sg.cpu(), gam)
+    with pytest.raises(ValueError, match="contiguous"):
+        kx.fused_decode(codes, x.t().contiguous().t(), sg, gam)
+    with pytest.raises(ValueError, match="messages"):
+        kx.fused_decode(codes, x, sg, torch.ones(3, device=dev))
+    torch.cuda.synchronize()
+    assert kx.LAUNCHES["fused_decode"] == 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

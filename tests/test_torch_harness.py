@@ -21,8 +21,13 @@ for _name in ("ClosedJaxpr", "Jaxpr", "Literal", "Primitive"):
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import jax.numpy as jnp  # noqa: E402
+
 import repro.compression.pipeline as ref_pipeline  # noqa: E402
+from repro.compression.rotation import _signs as ref_signs  # noqa: E402
 from repro.fed.population import gather_rows  # noqa: E402
+from repro_torch.compression.lattice import MessageKey  # noqa: E402
+from repro_torch.compression.rotation import pad_len  # noqa: E402
 
 
 def tt(a, dtype=None) -> torch.Tensor:
@@ -78,6 +83,101 @@ def reference_round_draws(alg, state, data, key, batch: int):
     sg, u_cl, u_srv = alg.pipeline._round_randomness(k_q, s, alg.d)
     return {"idx": npy(idx), "h_steps": npy(h_steps), "batch_idx": bidx,
             "signs": npy(sg), "u_cl": npy(u_cl), "u_srv": npy(u_srv)}
+
+
+def _batch_idx(key, K: int, batch: int, m: int) -> np.ndarray:
+    """(K, B) indices of the reference's ``client_batch`` under
+    ``fold_in(key, q)``, q = 0..K-1."""
+    return np.stack([np.asarray(jax.random.randint(
+        jax.random.fold_in(key, q), (batch,), 0, m)) for q in range(K)])
+
+
+def message_key(codec, keys, d: int) -> MessageKey:
+    """The draws the reference codec takes from each of ``keys`` (one key
+    per message), as the port codec's batched :class:`MessageKey`: for the
+    lattice quantizer ``krot, krnd = split(key)``, signs from ``krot`` and
+    u from ``krnd`` (``lattice.py:90-92``); for QSGD u from the key itself;
+    nothing for identity."""
+    if getattr(codec, "family", "") == "lattice":
+        d_pad = pad_len(d, codec.block)
+        sg, u = [], []
+        for k in keys:
+            krot, krnd = jax.random.split(k)
+            sg.append(npy(ref_signs(krot, d_pad)))
+            u.append(npy(jax.random.uniform(krnd, (d_pad,), jnp.float32)))
+        return MessageKey(tt(np.stack(sg)), tt(np.stack(u)))
+    if codec.name == "scalar":
+        return MessageKey(u=tt(np.stack([npy(jax.random.uniform(
+            k, (d,), jnp.float32)) for k in keys])))
+    return MessageKey()
+
+
+def reference_fedavg_draws(alg, state, data, key, batch: int, port):
+    """The values the reference ``FedAvg.round`` / ``CompressedFedAvg.
+    round`` take from their key splits (``core/fedavg.py:131-171``,
+    ``:259-283``): idx, (s, K, B) batch indices, the sampled clients'
+    K-step durations, and the uplink (s) and downlink (1) message keys for
+    the codecs of ``port``."""
+    fed = alg.fed
+    n, s, K = fed.n_clients, fed.s, fed.local_steps
+    k_sel, k_loc, k_t = jax.random.split(key, 3)
+    k_q = jax.random.fold_in(key, 17)
+    idx = alg.part.sample(k_sel, state.t, n, s, state.pop.rows["lam"])
+    m = data["y"].shape[1]
+    keys = jax.random.split(k_loc, s)
+    bidx = np.stack([_batch_idx(keys[i], K, batch, m) for i in range(s)])
+    lam = state.pop.rows["lam"][idx]
+    durations = jax.random.gamma(k_t, K * jnp.ones((s,))) / lam
+    kq_cl = jax.random.split(jax.random.fold_in(k_q, 1), s)
+    return {"idx": tt(npy(idx)), "batch_idx": tt(bidx),
+            "durations": tt(npy(durations)),
+            "key_up": message_key(port.codec_up, list(kq_cl), port.d),
+            "key_dn": message_key(port.codec_down,
+                                  [jax.random.fold_in(k_q, 0)], port.d)}
+
+
+def reference_fedbuff_draws(alg, state, key, batch: int, m: int, port):
+    """The draws of the reference ``FedBuff.round``'s next ``buffer_size``
+    completions (``core/fedbuff.py:166-225``): the event seed on the first
+    round, then per completion ``jkey, sub = split(jkey)`` for the batches,
+    ``jkey, qk = split(jkey)`` for the uplink message key (compressed
+    uplinks only) and ``jkey, dk = split(jkey)`` for the downlink one
+    (compressed downlinks only)."""
+    K = alg.fed.local_steps
+    draws = {}
+    if state.rng is None:
+        draws["event_seed"] = int(jax.random.randint(key, (), 0,
+                                                     2**31 - 1))
+        jkey = key
+    else:
+        jkey = state.jkey
+    bidx, kq, kd = [], [], []
+    for _ in range(alg.buffer_size):
+        jkey, sub = jax.random.split(jkey)
+        bidx.append(_batch_idx(sub, K, batch, m))
+        if alg._up_compressed:
+            jkey, qk = jax.random.split(jkey)
+            kq.append(qk)
+        if not alg._down_identity:
+            jkey, dk = jax.random.split(jkey)
+            kd.append(dk)
+    draws["batch_idx"] = tt(np.stack(bidx))
+    if kq:
+        draws["key_up"] = message_key(port.codec_up, kq, port.d)
+    if kd:
+        draws["key_dn"] = message_key(port.codec_down, kd, port.d)
+    return draws
+
+
+def reference_sequential_draws(alg, data, key, batch: int):
+    """``Sequential.round``'s batch of client 0 and its Exp(λ_slow) step
+    time (``core/baseline.py:55-60``)."""
+    k_b, k_t = jax.random.split(key)
+    m = data["y"].shape[1]
+    return {"batch_idx": tt(np.asarray(jax.random.randint(
+                k_b, (batch,), 0, m))),
+            "duration": tt(np.asarray(jax.random.exponential(k_t)
+                                      / alg.fed.lam_slow))}
 
 
 def test_alias_makes_reference_pipeline_importable():

@@ -149,7 +149,9 @@ def test_codec_spec_errors():
     with pytest.raises(ValueError, match="unknown codec"):
         codecs.make_codec("nope")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        codecs.make_codec("scalar:bits=4")
+        codecs.make_codec("topk_ef:frac=0.1")
+    with pytest.raises(ValueError, match="unknown codec parameter"):
+        codecs.make_codec("scalar:frac=0.1")
     with pytest.raises(ValueError, match="malformed"):
         codecs.make_codec("lattice:bits")
     with pytest.raises(ValueError, match="unknown codec parameter"):
@@ -158,3 +160,29 @@ def test_codec_spec_errors():
         codecs.make_codec("lattice_packed:bits=3")
     with pytest.raises(NotImplementedError, match="group"):
         codecs.resolve_codec({"fast": "lattice"}, None, direction="up")
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("wire", ["b8", "b4_packed"])
+def test_pipeline_decode_matches_reference(backend, wire):
+    """``ExchangePipeline.decode``: the fused Dec(ref, msg) of s messages
+    against one reference, with the reference's rotation counts (one
+    forward per reference row, one inverse per message)."""
+    server, Y, hints = _inputs(5)
+    up_j, _, up_t, _ = _wires(wire)
+    ref = ref_pipe.ExchangePipeline(bits=8, backend="jnp")
+    sg, u_cl, _ = ref._round_randomness(jax.random.PRNGKey(4), S, D)
+    gam = ref.gammas(jnp.asarray(hints), jnp.linalg.norm(jnp.asarray(Y),
+                                                         axis=1), D, up_j)
+    codes = ref.rotate_encode(jnp.asarray(Y), sg, u_cl, gam,
+                              want_rotated=False, wire=up_j)
+    want = ref.decode(codes, jnp.asarray(server)[None], sg, gam, D, up_j)
+    port = pipeline.ExchangePipeline(bits=8, backend=backend)
+    ccodes = tt(npy(codes).astype(np.int32 if up_t.pack == 1 else np.uint8))
+    out = port.decode(ccodes, tt(server[None]), tt(sg), tt(gam), D, up_t)
+    assert out.shape == (S, D)
+    assert port.stats.counts() == {"rotation_fwd": 1, "rotation_inv": S}
+    # the reference's count also holds the S forward passes of its encode
+    assert (ref.stats.fwd - S, ref.stats.inv) == (1, S)
+    np.testing.assert_allclose(npy(out), npy(want), rtol=0,
+                               atol=1e-5 * np.abs(Y).max())

@@ -149,9 +149,21 @@ def test_uniform_sampling_dense_and_floyd(n):
         population.resolve_participation("cyclic:period=8", None)
 
 
+def test_build_population_means_the_card_by_default():
+    fed = FedConfig(**FED_KW)
+    assert population.build_population(
+        fed, device="cpu").rows["lam"].device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert population.build_population(fed).rows["lam"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            population.build_population(fed)
+
+
 def test_population_gather_scatter():
     fed = FedConfig(**FED_KW)
-    pop = population.build_population(fed, model=torch.zeros((16, 3)),
+    pop = population.build_population(fed, device="cpu",
+                                      model=torch.zeros((16, 3)),
                                       last_time=torch.zeros(16))
     assert int(pop.rows["group"].sum()) == 5          # 30% of 16 slow
     idx = torch.tensor([3, 7])
@@ -248,8 +260,9 @@ def test_simulate_trains_and_traces():
 
 
 def test_registry_and_metrics_schema():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        make_algorithm("fedavg", FedConfig(), loss_fn=None, template={})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        make_algorithm("quafl_scaffold", FedConfig(), loss_fn=None,
+                       template={})
     with pytest.raises(ValueError, match="unknown algorithm"):
         make_algorithm("nope", FedConfig(), loss_fn=None, template={})
     out = normalize_metrics({"bits_up": torch.tensor(3.0),
