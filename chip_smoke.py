@@ -4,16 +4,22 @@
     python3 chip_smoke.py
 
 From the root of a checkout: builds the CUDA kernels of
-``src/repro_torch/kernels/csrc/`` with nvcc, holds each kernel against its
-plain PyTorch version on the card and times both, then drives the port's
-two paths at the paper's MLP width (784-32-10, n=300 clients, s=16):
+``src/repro_torch/kernels/csrc/`` with nvcc (one compiler per source, all
+started together), holds each kernel against its plain PyTorch version on
+the card and times both, then drives the port's three paths:
 
-* QuAFL (paper Algorithm 1) through ``make_algorithm`` and ``simulate``,
-  once with the 8-bit ``lattice`` codec and once with a ``lattice_packed:
-  bits=4`` uplink;
-* the paper's baselines through ``compare``: FedAvg, compressed FedAvg
-  (lattice and scalar uplinks), FedBuff (lattice and qsgd deltas) and the
-  sequential node, 30 rounds each.
+* QuAFL (paper Algorithm 1) at the paper's MLP width (784-32-10, n=300
+  clients, s=16) through ``make_algorithm`` and ``simulate``, once with the
+  8-bit ``lattice`` codec and once with a ``lattice_packed:bits=4`` uplink;
+* the paper's baselines through ``compare`` at the same width: FedAvg,
+  compressed FedAvg (lattice and scalar uplinks), FedBuff (lattice and qsgd
+  deltas) and the sequential node, 30 rounds each;
+* LM serving of gemma2-2b at full width (26 layers, random weights from
+  seed 0) through ``ServeEngine``: two batches of four prompts (longest 512
+  and 4,608 tokens), 32 greedy tokens each, twice, then one batch sampled
+  at temperature 0.8; every prefill attention on the flash-attention
+  kernel. Then a prefill/decode consistency check in fp32 and bf16, and the
+  serve CLI (``repro_torch.launch.serve --full``) once.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It prints JSON lines per phase, a ``kernels`` line, the card's name
@@ -31,21 +37,27 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SOURCE = "src/repro_torch/kernels/csrc/exchange.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
     "fused_encode": "src/repro/kernels/exchange.py:322",
     "fused_rotate": "src/repro/kernels/exchange.py:266",
     "quantize_codes": "src/repro/kernels/exchange.py:371",
     "snap_codes": "src/repro/kernels/exchange.py:417",
     "fused_decode": "src/repro/kernels/exchange.py:464",
+    "flash_attention": "src/repro/kernels/flash_attention.py:74",
 }
+SOURCES = {k: FLASH_SOURCE if k == "flash_attention" else SOURCE
+           for k in REPLACES}
 # fp32 operations per coordinate, for the operation bound: the butterfly's
 # log2(b) adds plus the sign and scale multiplies; the quantize's div, add,
 # floor, div, floor, mul and sub; the snap's div, sub, div, rint, mul, add
@@ -55,6 +67,7 @@ QUANTIZE_OPS, SNAP_OPS = 7, 7
 PEAK_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                     ("H200", 4.8e12), ("H100", 3.35e12))
 PEAK_FP32_OPS_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12      # H100 SXM, bf16 dense on the tensor cores
 
 BENCH_M, BENCH_D = 32, 1 << 20    # benchmarks/bench_exchange.py's D_FULL
 N_CLIENTS, S, K, LR, SWT, ROUNDS = 300, 16, 5, 0.3, 10.0, 30
@@ -100,11 +113,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(bytes_moved: int, ops: float, peak_bw: float):
+def bound(bytes_moved: int, ops: float, peak_bw: float,
+          ops_rate: float = PEAK_FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the fp32 rate."""
+    operations over the rate of their type (fp32 unless given)."""
     t_bytes = bytes_moved / peak_bw * 1e3
-    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -591,6 +605,345 @@ def profile_rounds(alg, state, data, gen, rounds: int = 5):
             "ported_device_ms_per_launch": per_launch}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: flash attention against its plain version, and the serve path
+# ---------------------------------------------------------------------------
+
+GEMMA = "gemma2-2b"
+SERVE_BATCH, SERVE_SEQ, SERVE_NEW = 4, 8192, 32
+BF16, FP32 = torch.bfloat16, torch.float32
+FLASH_TOL = {FP32: 2e-5, BF16: 3e-2}    # the JAX package's own tolerances
+# (label, b, t, h, kv, dh, window, softcap, dtype): gemma2-2b's two serve
+# batches in its global and local (window 4096) layers, llama3.2-1b's and
+# olmo-1b's heads, a window that binds, MQA, and two fp32 cases
+FLASH_CASES = [
+    ("gemma2_A_global", 4, 512, 8, 4, 256, 0, 50.0, BF16),
+    ("gemma2_A_local", 4, 512, 8, 4, 256, 4096, 50.0, BF16),
+    ("gemma2_B_global", 4, 4608, 8, 4, 256, 0, 50.0, BF16),
+    ("gemma2_B_local", 4, 4608, 8, 4, 256, 4096, 50.0, BF16),
+    ("llama3.2-1b", 4, 512, 32, 8, 64, 0, 0.0, BF16),
+    ("olmo-1b", 4, 512, 16, 16, 128, 0, 0.0, BF16),
+    ("window_binds", 4, 1024, 8, 4, 256, 256, 50.0, BF16),
+    ("mqa", 4, 512, 8, 1, 128, 0, 0.0, BF16),
+    ("gemma2_A_global_fp32", 4, 512, 8, 4, 256, 0, 50.0, FP32),
+    ("llama3.2-1b_fp32", 4, 512, 32, 8, 64, 0, 0.0, FP32),
+]
+FLASH_TIMED = ("gemma2_A_global", "gemma2_A_local", "gemma2_B_global",
+               "gemma2_B_local")
+FLASH_MAIN = "gemma2_B_global"    # the kernels line's shape
+CONSIST_TOL = 1e-3                # fp32 prefill vs decode, x max|logit|
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, shared memory and spills of each kernel from nvcc's
+    -Xptxas=-v output; flash_kernel instantiations named <type,dh>."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        hit = re.search(r"Compiling entry function '.*?([a-z]+_kernel)"
+                        r"(I(f|13__nv_bfloat16)Li(\d+)E)?", ln)
+        if hit:
+            fn = hit.group(1)
+            if hit.group(2):
+                fn += (f"<{'f32' if hit.group(3) == 'f' else 'bf16'},"
+                       f"{hit.group(4)}>")
+        elif fn and ("registers" in ln or "spill" in ln):
+            info = ln.split(":", 1)[-1].strip()
+            out[fn] = f"{out[fn]}; {info}" if fn in out else info
+    return out
+
+
+def visible_pairs(t: int, window: int) -> int:
+    """(query, key) pairs inside the causal band (and the window)."""
+    if not window or window >= t:
+        return t * (t + 1) // 2
+    return window * (window + 1) // 2 + (t - window) * window
+
+
+def flash_case(fa, dev, gen, b, t, h, kv, dh, window, cap, dtype):
+    """The kernel against flash_attention_plain on unit-normal inputs."""
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, t, h, dh), (b, t, kv, dh), (b, t, kv, dh)))
+    out = fa.flash_attention(q, k, v, window=window, softcap=cap)
+    want = fa.flash_attention_plain(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    res = {"b": b, "t": t, "h": h, "kv": kv, "dh": dh, "window": window,
+           "softcap": cap, "dtype": str(dtype).split(".")[1],
+           "max_abs_err": float((out.float() - want.float()).abs().max()),
+           "finite": bool(torch.isfinite(out.float()).all()),
+           "tol": FLASH_TOL[dtype]}
+    assert res["finite"] and res["max_abs_err"] <= FLASH_TOL[dtype], res
+    return res, (q, k, v)
+
+
+def time_flash(fa, q, k, v, window, cap, peak_bw):
+    """ms, plain_ms, bound_ms, bound_by and the SDPA yardstick (causal,
+    no softcap, no window: windowed shapes get null)."""
+    b, t, h, dh = q.shape
+    out = fa.flash_attention(q, k, v, window=window, softcap=cap)
+    rate = PEAK_BF16_OPS_PER_S if q.dtype == BF16 else PEAK_FP32_OPS_PER_S
+    ops = 4 * b * h * dh * visible_pairs(t, window)
+    bnd, by = bound(nbytes(q, k, v, out), ops, peak_bw, rate)
+    iters = 20 if t <= 1024 else 5
+    lib = None
+    if not window:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+    return dict(
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, window=window,
+                                              softcap=cap), iters),
+        plain_ms=time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, window=window, softcap=cap), 3),
+        bound_ms=bnd, bound_by=by, library_ms=lib, flops=ops,
+        shape=[b, t, h, k.shape[2], dh], window=window)
+
+
+def serve_prompts(rng, lo: int, hi: int, vocab: int):
+    """SERVE_BATCH prompts with lengths drawn from [lo, hi), the longest
+    set to exactly hi."""
+    lens = rng.integers(lo, hi, SERVE_BATCH)
+    lens[int(np.argmax(lens))] = hi
+    return [rng.integers(1, vocab, int(n)).tolist() for n in lens]
+
+
+def recording(eng):
+    """Wrap an engine's prefill and decode: per-step logits and host-clock
+    times (synchronised), per batch."""
+    rec = {"logits": [], "prefill_ms": [], "decode_ms": []}
+    prefill, decode = eng._prefill, eng._decode
+
+    def _prefill(prompts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = prefill(prompts)
+        torch.cuda.synchronize()
+        rec["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["decode_ms"].append([])
+        rec["logits"].append(last.clone())
+        return last, cache
+
+    def _decode(tok, pos, cache):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = decode(tok, pos, cache)
+        torch.cuda.synchronize()
+        rec["decode_ms"][-1].append((time.perf_counter() - t0) * 1e3)
+        rec["logits"].append(lg.clone())
+        return lg, cache
+
+    eng._prefill, eng._decode = _prefill, _decode
+    return rec
+
+
+def serve_run(cfg, params, batches, temperature=0.0, generator=None,
+              max_new=SERVE_NEW, record=True):
+    """One engine run over the batches; (requests, record or None, wall
+    seconds)."""
+    from repro_torch.serving import Request, ServeEngine
+    eng = ServeEngine(cfg, params, max_batch=SERVE_BATCH, max_seq=SERVE_SEQ,
+                      temperature=temperature)
+    rec = recording(eng) if record else None
+    for batch in batches:
+        for p in batch:
+            eng.submit(Request(prompt=p, max_new_tokens=max_new))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(generator)
+    torch.cuda.synchronize()
+    return done, rec, time.perf_counter() - t0
+
+
+def check_requests(done, batches, vocab, max_new=SERVE_NEW):
+    assert len(done) == sum(len(b) for b in batches), len(done)
+    for r in done:
+        assert len(r.out_tokens) == max_new, (len(r.prompt), r.out_tokens)
+        assert all(0 <= t < vocab for t in r.out_tokens), r.out_tokens
+
+
+def batch_stats(done, rec, batches):
+    """Prefill ms, decode ms per step and tokens/s of each batch of one
+    recorded run (tokens over prefill + decode time)."""
+    out = []
+    for i, (batch, name) in enumerate(zip(batches, "AB")):
+        steps = rec["decode_ms"][i]
+        tokens = sum(len(r.out_tokens)
+                     for r in done[SERVE_BATCH * i:SERVE_BATCH * (i + 1)])
+        busy_ms = rec["prefill_ms"][i] + sum(steps)
+        out.append({
+            "batch": name, "prompt_lens": [len(p) for p in batch],
+            "prefill_ms": rec["prefill_ms"][i], "decode_steps": len(steps),
+            "decode_ms_per_step": sum(steps) / len(steps),
+            "decode_ms_min": min(steps), "decode_ms_max": max(steps),
+            "tokens": tokens, "tokens_per_s": tokens / busy_ms * 1e3})
+    return out
+
+
+def profile_serve(cfg, params, prompts, max_new):
+    """torch.profiler over one engine run (one prefill and max_new - 1
+    decode steps): wall, device time, busy share, kernel launches, the
+    flash kernel's device time per launch, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_run(cfg, params, [prompts], max_new=max_new, record=False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    flash = [e for e in kernels if "flash_kernel" in e.key]
+    n_flash = sum(e.count for e in flash)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"decode_steps": max_new - 1, "wall_ms": wall_us / 1e3,
+            "device_ms": device_us / 1e3,
+            "device_busy_share": device_us / wall_us,
+            "kernel_launches": sum(e.count for e in kernels),
+            "flash_launches": n_flash,
+            "flash_device_ms_per_launch": (
+                sum(e.self_device_time_total for e in flash) / n_flash / 1e3
+                if n_flash else None),
+            "top_kernels": [(e.key[:60], e.count,
+                             e.self_device_time_total / 1e3) for e in top]}
+
+
+def prefill_decode_consistency(cfg, params, dev, dtype: str, b=2, t=640,
+                               t_pre=512):
+    """Logits of a kernel prefill of t tokens against a kernel prefill of
+    t_pre plus t - t_pre teacher-forced decode steps (plain sdpa over the
+    cache): (max |Δ|, max |logit|, flash launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import decode_step, forward, init_cache
+    c = cfg.replace(dtype=dtype)
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(1, c.vocab_size, (b, t))).to(dev)
+    fa.reset_launches()
+    full, _, _ = forward(c, params, {"tokens": toks})
+    want = full[:, t_pre:].clone()
+    del full
+    cache = init_cache(c, b, t, dev)
+    _, cache, _ = forward(c, params, {"tokens": toks[:, :t_pre]}, cache=cache)
+    err = 0.0
+    for i in range(t - t_pre):
+        lg, cache = decode_step(c, params, toks[:, t_pre + i:t_pre + i + 1],
+                                t_pre + i, cache)
+        err = max(err, float((lg[:, 0] - want[:, i]).abs().max()))
+    torch.cuda.synchronize()
+    return err, float(want.abs().max()), fa.LAUNCHES["flash_attention"]
+
+
+def run_serve_path(dev, smi, fa):
+    """gemma2-2b at full width through ServeEngine: two greedy runs of
+    batches A and B (launches counted over the first), a sampled run,
+    profiles, the consistency check. Returns the flash launches of the
+    path and the profile of batch B's prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_lm
+    cfg = get_config(GEMMA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _ = init_lm(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(int(v.numel()) for v in params.values())
+    emit({"phase": "serve_init", "arch": GEMMA, "params": n_params,
+          "seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(SEED)
+    batch_a = serve_prompts(rng, 64, 512, cfg.vocab_size)
+    batch_b = serve_prompts(rng, 1000, 4608, cfg.vocab_size)
+    batches = [batch_a, batch_b]
+
+    # the main path: counts from 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    done, rec, wall = serve_run(cfg, params, batches)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    check_requests(done, batches, cfg.vocab_size)
+    assert launches == 2 * cfg.n_layers, launches
+    assert all(bool(torch.isfinite(x).all()) for x in rec["logits"])
+    emit({"phase": "serve", "arch": GEMMA, "run": "greedy_1",
+          "max_batch": SERVE_BATCH, "max_seq": SERVE_SEQ,
+          "max_new_tokens": SERVE_NEW, "flash_launches": launches,
+          "requests": len(done), "wall_s": wall,
+          "tokens_per_s": sum(len(r.out_tokens) for r in done) / wall,
+          "peak_memory_bytes": peak,
+          "batches": batch_stats(done, rec, batches),
+          "tokens": [r.out_tokens for r in done], "nvidia_smi": smi})
+
+    done2, rec2, wall2 = serve_run(cfg, params, batches)
+    check_requests(done2, batches, cfg.vocab_size)
+    same_tokens = ([r.out_tokens for r in done2]
+                   == [r.out_tokens for r in done])
+    logit_diff = max(float((a - b).abs().max())
+                     for a, b in zip(rec["logits"], rec2["logits"]))
+    emit({"phase": "serve", "arch": GEMMA, "run": "greedy_2",
+          "wall_s": wall2,
+          "tokens_per_s": sum(len(r.out_tokens) for r in done2) / wall2,
+          "batches": batch_stats(done2, rec2, batches),
+          "same_tokens": same_tokens,
+          "max_abs_logit_diff_vs_run_1": logit_diff,
+          "logit_steps_compared": len(rec["logits"])})
+    assert same_tokens and logit_diff == 0.0, (same_tokens, logit_diff)
+    del rec, rec2
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    done3, _, wall3 = serve_run(cfg, params, [batch_a], temperature=0.8,
+                                generator=gen)
+    check_requests(done3, [batch_a], cfg.vocab_size)
+    emit({"phase": "serve", "arch": GEMMA, "run": "temperature_0.8",
+          "batch": "A", "wall_s": wall3,
+          "tokens": [r.out_tokens for r in done3],
+          "differs_from_greedy": [r.out_tokens for r in done3]
+          != [r.out_tokens for r in done[:4]]})
+
+    profiles = {}
+    for name, prompts, max_new in (("A_prefill", batch_a, 1),
+                                   ("A_prefill_8_decode", batch_a, 9),
+                                   ("B_prefill", batch_b, 1)):
+        profiles[name] = profile_serve(cfg, params, prompts, max_new)
+    pa, pad = profiles["A_prefill"], profiles["A_prefill_8_decode"]
+    emit({"phase": "serve_profile", "arch": GEMMA, "nvidia_smi": smi,
+          "decode_launches_per_step":
+              (pad["kernel_launches"] - pa["kernel_launches"]) / 8,
+          "decode_device_ms_per_step":
+              (pad["device_ms"] - pa["device_ms"]) / 8,
+          **profiles})
+
+    for dtype in ("float32", "bfloat16"):
+        err, scale, n = prefill_decode_consistency(cfg, params, dev, dtype)
+        emit({"phase": "prefill_decode_consistency", "arch": GEMMA,
+              "dtype": dtype, "prefill": 640, "split": 512,
+              "decode_steps": 128, "max_abs_diff": err,
+              "max_abs_logit": scale, "rel": err / scale,
+              "flash_launches": n})
+        assert n == 2 * cfg.n_layers, n
+        if dtype == "float32":
+            assert err <= CONSIST_TOL * scale, (err, scale)
+    del params
+    torch.cuda.empty_cache()
+    return launches, profiles["B_prefill"]
+
+
+def run_serve_cli(fa):
+    """``python -m repro_torch.launch.serve --arch gemma2-2b --full``, in
+    this process: 8 requests of 4-24 tokens (the plain prefill branch)."""
+    from repro_torch.launch import serve
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    done = serve.main(["--arch", GEMMA, "--full"])
+    torch.cuda.synchronize()
+    row = {"phase": "serve_cli", "argv": ["--arch", GEMMA, "--full"],
+           "requests": len(done), "seconds": time.perf_counter() - t0,
+           "tokens": [len(r.out_tokens) for r in done],
+           "flash_launches": fa.LAUNCHES["flash_attention"]}
+    emit(row)
+    assert len(done) == 8 and all(n == 12 for n in row["tokens"]), row
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -598,6 +951,7 @@ def main() -> int:
     from repro_torch import default_device
     from repro_torch.kernels import build
     from repro_torch.kernels import exchange as kx
+    from repro_torch.kernels import flash_attention as fa
 
     dev = default_device()
     name = torch.cuda.get_device_name(0)
@@ -609,19 +963,21 @@ def main() -> int:
           "nvidia_smi": smi, "peak_bytes_per_s": peak_bw})
     print(smi, flush=True)
 
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    path, nvcc_s, log = build.build("exchange")
+    names = ("exchange", "flash_attention")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build.build, names)))
     kx.library()
-    ptxas, fn = {}, None
-    for ln in log.splitlines():
-        hit = re.search(r"Compiling entry function '.*?([a-z]+_kernel)", ln)
-        if hit:
-            fn = hit.group(1)
-        elif "registers" in ln and fn:
-            ptxas[fn] = ln.split(":", 1)[1].strip()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": nvcc_s, "library": str(path.relative_to(ROOT)),
-          "ptxas": ptxas})
+    fa.library()
+    for lib_name, (path, nvcc_s, log) in built.items():
+        emit({"phase": "build", "source": f"src/repro_torch/kernels/csrc/"
+              f"{lib_name}.cu", "arch": "sm_90a",
+              "flags": " ".join(build.NVCC_FLAGS),
+              "seconds_all": time.perf_counter() - t0,
+              "nvcc_seconds": nvcc_s,
+              "library": str(path.relative_to(ROOT)),
+              "ptxas": ptxas_summary(log)})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -676,6 +1032,23 @@ def main() -> int:
         del io
         torch.cuda.empty_cache()
     timings["fused_decode"] = decode_times[(S, 32_768)]
+
+    # flash attention against its plain version at the serve path's shapes
+    for label, b, t, h, kv, dh, window, cap, dtype in FLASH_CASES:
+        res, (q, k, v) = flash_case(fa, dev, gen, b, t, h, kv, dh, window,
+                                    cap, dtype)
+        emit({"phase": "flash_check", "case": label, **res})
+        if label.startswith("gemma2_") and dtype == BF16:
+            errors["flash_attention"] = max(errors.get("flash_attention", 0.0),
+                                            res["max_abs_err"])
+        if label in FLASH_TIMED:
+            ft = time_flash(fa, q, k, v, window, cap, peak_bw)
+            emit({"phase": "flash_times", "case": label, "nvidia_smi": smi,
+                  **ft})
+            if label == FLASH_MAIN:
+                timings["flash_attention"] = ft
+        del q, k, v
+        torch.cuda.empty_cache()
 
     # path 1, QuAFL: counts from 0 just before, read just after
     kx.reset_launches()
@@ -738,7 +1111,16 @@ def main() -> int:
             device_ms["fused_decode"] = p["ported_device_ms_per_launch"][
                 "fused_decode"]
 
-    emit({"kernels": [dict(name=k, route="cuda", source=SOURCE,
+    # path 3, LM serving: counts from 0 just before, read just after
+    # (inside run_serve_path)
+    launches["flash_attention"], prof_b = run_serve_path(dev, smi, fa)
+    emit({"phase": "launches", "path": "serve",
+          "launches": {"flash_attention": launches["flash_attention"]}})
+    assert launches["flash_attention"] > 0
+    device_ms["flash_attention"] = prof_b["flash_device_ms_per_launch"]
+    run_serve_cli(fa)
+
+    emit({"kernels": [dict(name=k, route="cuda", source=SOURCES[k],
                            replaces=REPLACES[k], launches=launches[k],
                            max_abs_err=errors[k], **timings[k],
                            device_ms=device_ms[k])

@@ -1,1 +1,51 @@
-"""Configurations (port of ``repro.configs``)."""
+"""Architecture registry (port of ``repro.configs``).
+
+Each ported architecture lives in its own module exposing ``config()`` (the
+exact published numbers) and ``reduced()`` (a 2-layer, narrow member of the
+same family for the CPU tests). The port runs the dense decoders; asking for
+an architecture of the reference's zoo that is not ported raises
+``KeyError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import (  # noqa: F401 (re-export)
+    ATTN_CHUNKED, ATTN_FULL, ATTN_MLA, ATTN_SLIDING, KIND_ATTN, KIND_MAMBA,
+    FedConfig, LayerSpec, ModelConfig,
+)
+
+# arch id -> module name
+_ARCHS: Dict[str, str] = {
+    "gemma2-2b": "gemma2_2b",
+    "olmo-1b": "olmo_1b",
+    "llama3.2-1b": "llama3_2_1b",
+    "paper-mlp": "paper_mlp",
+}
+
+# the reference's architectures that need blocks the port does not have yet
+_NOT_PORTED = ("llama4-scout-17b-a16e", "deepseek-v2-236b", "mamba2-370m",
+               "llava-next-34b", "seamless-m4t-medium",
+               "jamba-1.5-large-398b", "gemma3-12b")
+
+
+def list_archs() -> List[str]:
+    return list(_ARCHS)
+
+
+def _module(arch: str):
+    if arch in _NOT_PORTED:
+        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP Queue 1 "
+                       f"item 12); ported: {list(_ARCHS)}")
+    if arch not in _ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; choose from {list(_ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).config()
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    return _module(arch).reduced()

@@ -1,8 +1,81 @@
-"""Federation configuration (port of ``FedConfig`` from
-``repro.configs.base``)."""
+"""Configuration dataclasses (port of ``repro.configs.base``): the layer
+schedule and model architecture of the LM zoo, and the federation knobs.
+The port's model runs the dense decoders; the MoE, Mamba and MLA blocks'
+configs (``moe``, ``mamba``, ``mla``) are not ported (ROADMAP Queue 1 item
+12) and stay None."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# attention kinds
+ATTN_FULL = "full"
+ATTN_SLIDING = "sliding"
+ATTN_CHUNKED = "chunked"   # llama4-style local chunked attention
+ATTN_MLA = "mla"           # deepseek multi-head latent attention
+KIND_ATTN = "attn"
+KIND_MAMBA = "mamba"
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One layer inside the repeating period of the network."""
+    kind: str = KIND_ATTN          # 'attn' | 'mamba'
+    attn: str = ATTN_FULL          # attention flavour (if kind == 'attn')
+    window: int = 0                # sliding-window / chunk size (0 = n/a)
+    mlp: str = "dense"             # 'dense' | 'moe'
+    use_rope: bool = True          # NoPE layers (llama4 global) set False
+    rope_theta: float = 0.0        # per-layer override (0 = model default)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                 # dense | moe | ssm | hybrid | vlm | audio
+    source: str                    # citation for the numbers
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    # layer layout: n_layers == len(prefix) + n_periods * len(schedule)
+    schedule: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    prefix: Tuple[LayerSpec, ...] = ()
+    moe: Optional[object] = None
+    mamba: Optional[object] = None
+    mla: Optional[object] = None
+    rope_theta: float = 10_000.0
+    logit_softcap: float = 0.0
+    attn_softcap: float = 0.0
+    qk_norm: bool = False
+    nonparametric_ln: bool = False # OLMo-style LN without learnable affine
+    tie_embeddings: bool = False
+    encdec: bool = False
+    n_enc_layers: int = 0
+    frontend: str = ""             # '' | 'vision' | 'audio'
+    n_frontend_tokens: int = 0
+    long_500k_ok: bool = False
+    long_ctx_window: int = 0
+    long_500k_note: str = ""
+    dtype: str = "bfloat16"        # activation / compute dtype
+    param_dtype: str = "float32"
+    notes: str = ""
+
+    @property
+    def n_periods(self) -> int:
+        body = self.n_layers - len(self.prefix)
+        if body % len(self.schedule):
+            raise ValueError(
+                f"{self.name}: {self.n_layers} layers, prefix "
+                f"{len(self.prefix)}, period {len(self.schedule)} does not "
+                f"divide")
+        return body // len(self.schedule)
+
+    def replace(self, **kw) -> ModelConfig:
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)

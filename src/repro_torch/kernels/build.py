@@ -16,6 +16,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -81,3 +83,41 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+# ---------------------------------------------------------------------------
+# what every wrapper does around a launch
+# ---------------------------------------------------------------------------
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU (take the plain version);
+    False when all lie on the current CUDA device, where the kernels launch;
+    raises on any other device or a mix."""
+    devices = {t.device for t in tensors if t is not None}
+    kinds = {d.type for d in devices}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len(devices) == 1:
+        (dev,) = devices
+        if dev.index != torch.cuda.current_device():
+            raise ValueError(f"tensors on {dev}, but the kernels launch on "
+                             f"the current device cuda:"
+                             f"{torch.cuda.current_device()}")
+        return False
+    raise ValueError(f"the kernels take tensors all on the CPU or all on "
+                     f"one CUDA device; got {sorted(map(str, devices))}")
+
+
+def check(rc: int, fn: str):
+    """Raise if a C entry point returned a nonzero ``cudaError_t``."""
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: cudaError_t {rc}")
+
+
+def stream():
+    """PyTorch's current CUDA stream, for a launch."""
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def ptr(t):
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())

@@ -24,6 +24,10 @@ import torch
 from repro_torch.compression.rotation import (DEFAULT_BLOCK, _block_size,
                                               _factor, pad_len)
 from repro_torch.kernels import build
+from repro_torch.kernels.build import check as _check
+from repro_torch.kernels.build import on_cpu as _on_cpu
+from repro_torch.kernels.build import ptr as _ptr
+from repro_torch.kernels.build import stream as _stream
 
 # Launches of each kernel since the last reset_launches(); a wrapper adds
 # one where it launches its kernel and nowhere else.
@@ -206,25 +210,6 @@ def library():
     return build.load("exchange", _SIGNATURES)
 
 
-def _on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU (take the plain version);
-    False when all lie on the current CUDA device, where the kernels launch;
-    raises on any other device or a mix."""
-    devices = {t.device for t in tensors if t is not None}
-    kinds = {d.type for d in devices}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len(devices) == 1:
-        (dev,) = devices
-        if dev.index != torch.cuda.current_device():
-            raise ValueError(f"tensors on {dev}, but the kernels launch on "
-                             f"the current device cuda:"
-                             f"{torch.cuda.current_device()}")
-        return False
-    raise ValueError(f"exchange kernels take tensors all on the CPU or all "
-                     f"on one CUDA device; got {sorted(map(str, devices))}")
-
-
 def _require(t, name, dtype, shape):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -268,19 +253,6 @@ def _geometry(d_pad, block, bits, pack):
         raise ValueError(f"bits={bits} outside 1..16")
     _check_pack(pack, bits, r)
     return b, c
-
-
-def _check(rc: int, fn: str):
-    if rc != 0:
-        raise RuntimeError(f"{fn} failed: cudaError_t {rc}")
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _ptr(t):
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
 def fused_rotate(x2, signs, *, block=DEFAULT_BLOCK, inverse=False):

@@ -1,0 +1,125 @@
+"""Causal GQA flash attention: the CUDA kernel and its plain version (port
+of ``repro.kernels.flash_attention``).
+
+``flash_attention`` launches the kernel of ``csrc/flash_attention.cu`` on
+CUDA tensors, on PyTorch's current stream; on CPU tensors it runs
+:func:`flash_attention_plain`, the math of the reference's
+``repro.kernels.ref.flash_attention_ref``; it raises on anything else. It
+counts its launches in :data:`LAUNCHES`. There is no backward kernel, as in
+the reference, so a CUDA input that requires grad is refused.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+# head dims the kernel is instantiated for: the reduced configs (16, 32),
+# llama3.2-1b (64), olmo-1b (128) and gemma2-2b (256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+# Launches since the last reset_launches(); the wrapper adds one where it
+# launches the kernel and nowhere else.
+LAUNCHES = {"flash_attention": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _I, _F, _F, _I, _I, _P]}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def library():
+    """The built and loaded ``csrc/flash_attention.cu``."""
+    return build.load("flash_attention", _SIGNATURES)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0):
+    """q: (b, tq, h, dh); k, v: (b, tk, kv, dh). GQA by head grouping; fp32
+    inside, out in q's dtype."""
+    b, tq, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, tq, kvh, g, dh).to(torch.float32)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k.to(torch.float32))
+    scores = scores / float(np.sqrt(dh))
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    tk = k.shape[1]
+    qpos = torch.arange(tq, device=q.device)[:, None]
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", p, v.to(torch.float32))
+    return out.reshape(b, tq, h, dh).to(q.dtype)
+
+
+def _check_inputs(q, k, v, window):
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: expected {q.dtype} like q, got "
+                            f"{t.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"expected q (b, tq, h, dh) and k, v (b, tk, kv, "
+                         f"dh); got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, _, h, dh = q.shape
+    if k.shape[0] != b or k.shape[3] != dh or h % k.shape[2]:
+        raise ValueError(f"k, v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (h % kv must be 0)")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head_dim {dh} not taken by the kernel; it takes "
+                         f"{HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.requires_grad:
+            raise ValueError(f"{name} requires grad: the kernel has no "
+                             f"backward")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """Causal GQA attention with an online softmax, optional sliding
+    window and logit softcap. q: (b, tq, h, dh); k, v: (b, tk, kv, dh) with
+    h % kv == 0; query head i reads kv head i // (h // kv). Out in q's
+    dtype.
+
+    Replaces ``repro/kernels/flash_attention.py`` · ``flash_attention``
+    (``_flash_kernel``, grid (b·h, tq/128, tk/128) over VMEM tiles). Bound
+    on the H100 at the serve shapes: operations (4·dh flops per visible
+    query-key pair). Design: one CTA per (b·h, 64-query tile) walks the kv
+    tiles of its causal/window band with fp32 FMAs, scores and accumulator
+    in registers, K/V tiles in shared memory (``csrc/flash_attention.cu``).
+    """
+    if build.on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+    _check_inputs(q, k, v, window)
+    b, tq, h, dh = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    LAUNCHES["flash_attention"] += 1
+    build.check(library().flash_attention_fwd(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, tq, tk,
+        h, kvh, dh, int(q.dtype == torch.bfloat16),
+        float(np.float32(1.0 / np.sqrt(dh))), float(softcap), int(causal),
+        int(window), build.stream()), "flash_attention_fwd")
+    return out

@@ -1,1 +1,4 @@
-"""The paper's MLP classifier (port of ``repro.models``)."""
+"""Models of the port (port of ``repro.models``): the paper's MLP
+classifier and the dense LM decoders."""
+from repro_torch.models.model import (decode_step, forward,  # noqa: F401
+                                      init_cache, init_lm, lm_loss)

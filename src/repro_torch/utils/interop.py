@@ -22,7 +22,13 @@ FEDAVG_ROWS = ("lam", "group")
 
 
 def _tensor(a, device, dtype=None):
-    t = torch.from_numpy(np.array(a, copy=True))
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        # the reference's bf16 arrays arrive as ml_dtypes' bfloat16, which
+        # torch.from_numpy does not take: carry the bits across
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype) if dtype else t.to(device)
 
 
@@ -95,3 +101,17 @@ def fedbuff_state_from_numpy(*, server, start_model: Sequence[np.ndarray],
         buffer=[_tensor(v, device, torch.float32) for v in buffer],
         sim_time=float(sim_time), t=int(t), bits_up=float(bits_up),
         bits_down=float(bits_down), rng=new_rng)
+
+
+def lm_params_from_numpy(params: Dict[str, np.ndarray], device
+                         ) -> Dict[str, torch.Tensor]:
+    """The reference's LM params (``init_lm``'s flat dict, numpy leaves) as
+    tensors of the same keys, shapes and dtypes."""
+    return {k: _tensor(v, device) for k, v in params.items()}
+
+
+def cache_from_numpy(cache: Dict[str, np.ndarray], device
+                     ) -> Dict[str, torch.Tensor]:
+    """The reference's KV cache (``init_cache`` / ``forward`` / ``decode_step``
+    flat dict, numpy leaves, bf16 included) as tensors of the same keys."""
+    return {k: _tensor(v, device) for k, v in cache.items()}

@@ -1,5 +1,6 @@
 """Flatten a parameter dict to one fp32 vector and back (port of
-``tree_flatten_vector`` / ``tree_unflatten_vector`` of ``repro.utils.tree``).
+``tree_flatten_vector`` / ``tree_unflatten_vector`` of ``repro.utils.tree``),
+and the per-path seed of the LM inits (port of ``fold_in_str``).
 
 The reference flattens a pytree, and JAX orders dict leaves by sorted key,
 so the flat layout here is the same: for the MLP ``b1, b2, w1, w2``, each
@@ -7,6 +8,7 @@ leaf row-major.
 """
 from __future__ import annotations
 
+import zlib
 from typing import Dict
 
 import torch
@@ -39,3 +41,11 @@ def tree_unflatten_vector(template: Dict[str, torch.Tensor],
         raise ValueError(f"vector of length {vec.shape[-1]} does not match "
                          f"the template's {off} parameters")
     return out
+
+
+def fold_in_str(seed: int, s: str) -> int:
+    """A seed for one parameter path, derived from the run's ``seed`` and the
+    crc32 of ``s`` (the hash the reference folds into its key). Feed it to
+    ``torch.Generator.manual_seed``; the draws differ from threefry's."""
+    return ((int(seed) & 0xFFFFFFFF) << 31) | (zlib.crc32(s.encode())
+                                               & 0x7FFFFFFF)

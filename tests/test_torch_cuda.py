@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.compression.rotation import signs
 from repro_torch.kernels import exchange as kx
+from repro_torch.kernels import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +183,55 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     torch.cuda.synchronize()
     assert kx.LAUNCHES["fused_rotate"] == 0
     assert kx.LAUNCHES["fused_encode"] == 0
+
+
+# (b, t, h, kv, dh, window, softcap): the serve path's shapes, cut in
+# length, and the head dims of the reduced configs
+FLASH_CASES = [(2, 512, 8, 4, 256, 0, 50.0), (2, 512, 8, 4, 256, 128, 50.0),
+               (1, 384, 32, 8, 64, 0, 0.0), (1, 256, 16, 16, 128, 0, 0.0),
+               (2, 200, 4, 1, 32, 64, 30.0), (1, 128, 4, 2, 16, 0, 0.0)]
+
+
+def _qkv(dev, b, t, h, kv, dh, dtype, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((b, t, h, dh), (b, t, kv, dh), (b, t, kv, dh)))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,t,h,kv,dh,window,cap", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(dev, b, t, h, kv, dh, window,
+                                            cap, dtype, tol):
+    q, k, v = _qkv(dev, b, t, h, kv, dh, dtype)
+    fa.reset_launches()
+    out = fa.flash_attention(q, k, v, window=window, softcap=cap)
+    want = fa.flash_attention_plain(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 1}
+    assert out.dtype == dtype and out.shape == q.shape
+    assert float((out.float() - want.float()).abs().max()) <= tol
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, k, v = _qkv(dev, 1, 128, 4, 2, 64, torch.float32)
+    fa.reset_launches()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="like q"):
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="h % kv"):
+        fa.flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError, match="grad"):
+        fa.flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(ValueError, match="CPU or all"):
+        fa.flash_attention(q.detach(), k.cpu(), v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0
