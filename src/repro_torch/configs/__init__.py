@@ -21,7 +21,6 @@ _ARCHS: Dict[str, str] = {
     "gemma2-2b": "gemma2_2b",
     "olmo-1b": "olmo_1b",
     "llama3.2-1b": "llama3_2_1b",
-    "paper-mlp": "paper_mlp",
 }
 
 # the reference's architectures that need blocks the port does not have yet

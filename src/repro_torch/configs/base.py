@@ -1,13 +1,14 @@
 """Configuration dataclasses (port of ``repro.configs.base``): the layer
 schedule and model architecture of the LM zoo, and the federation knobs.
-The port's model runs the dense decoders; the MoE, Mamba and MLA blocks'
-configs (``moe``, ``mamba``, ``mla``) are not ported (ROADMAP Queue 1 item
-12) and stay None."""
+The port's model runs the dense decoders, so ``ModelConfig`` holds only the
+fields they read; the MoE, Mamba and MLA blocks' configs and the reference's
+long-context and frontend sizes come with the slice that ports those blocks
+(ROADMAP Queue 1 item 12)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 # attention kinds
 ATTN_FULL = "full"
@@ -44,9 +45,6 @@ class ModelConfig:
     # layer layout: n_layers == len(prefix) + n_periods * len(schedule)
     schedule: Tuple[LayerSpec, ...] = (LayerSpec(),)
     prefix: Tuple[LayerSpec, ...] = ()
-    moe: Optional[object] = None
-    mamba: Optional[object] = None
-    mla: Optional[object] = None
     rope_theta: float = 10_000.0
     logit_softcap: float = 0.0
     attn_softcap: float = 0.0
@@ -54,15 +52,9 @@ class ModelConfig:
     nonparametric_ln: bool = False # OLMo-style LN without learnable affine
     tie_embeddings: bool = False
     encdec: bool = False
-    n_enc_layers: int = 0
     frontend: str = ""             # '' | 'vision' | 'audio'
-    n_frontend_tokens: int = 0
-    long_500k_ok: bool = False
-    long_ctx_window: int = 0
-    long_500k_note: str = ""
     dtype: str = "bfloat16"        # activation / compute dtype
     param_dtype: str = "float32"
-    notes: str = ""
 
     @property
     def n_periods(self) -> int:

@@ -15,10 +15,6 @@ def config() -> ModelConfig:
         schedule=(LayerSpec(attn=ATTN_FULL),),
         nonparametric_ln=True,
         tie_embeddings=True,
-        long_500k_ok=True,
-        long_ctx_window=8192,
-        long_500k_note="run with the explicit sliding-window variant "
-                       "(window 8192); the source model is full-attention.",
     )
 
 

@@ -2,8 +2,6 @@
 ``repro.configs.paper_mlp``."""
 from __future__ import annotations
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
-
 D_IN = 784
 D_HIDDEN = 32
 N_CLASSES = 10
@@ -12,22 +10,3 @@ N_CLASSES = 10
 def dims() -> tuple:
     """(d_in, d_hidden, n_classes) of the paper's MLP."""
     return D_IN, D_HIDDEN, N_CLASSES
-
-
-def config() -> ModelConfig:
-    # (784, 32, 10) MLP analogue: d_model doubles as the hidden width.
-    return ModelConfig(
-        name="paper-mlp",
-        arch_type="mlp",
-        source="QuAFL paper App. A.3 (MNIST MLP 784-32-10)",
-        n_layers=1, d_model=D_HIDDEN, n_heads=1, n_kv_heads=1, head_dim=1,
-        d_ff=D_HIDDEN, vocab_size=N_CLASSES,
-        schedule=(LayerSpec(),),
-        param_dtype="float32", dtype="float32",
-        notes="Consumed by the federated algorithms via "
-              "repro_torch.models.mlp, not the transformer stack.",
-    )
-
-
-def reduced() -> ModelConfig:
-    return config()

@@ -24,10 +24,6 @@ import torch
 from repro_torch.compression.rotation import (DEFAULT_BLOCK, _block_size,
                                               _factor, pad_len)
 from repro_torch.kernels import build
-from repro_torch.kernels.build import check as _check
-from repro_torch.kernels.build import on_cpu as _on_cpu
-from repro_torch.kernels.build import ptr as _ptr
-from repro_torch.kernels.build import stream as _stream
 
 # Launches of each kernel since the last reset_launches(); a wrapper adds
 # one where it launches its kernel and nowhere else.
@@ -265,7 +261,7 @@ def fused_rotate(x2, signs, *, block=DEFAULT_BLOCK, inverse=False):
     butterfly stages, so each coordinate crosses device memory once each
     way.
     """
-    if _on_cpu(x2, signs):
+    if build.on_cpu(x2, signs):
         return rotate_plain(x2, signs, block=block, inverse=inverse)
     m, d_pad = x2.shape
     b, _ = _geometry(d_pad, block, 8, 1)
@@ -273,9 +269,9 @@ def fused_rotate(x2, signs, *, block=DEFAULT_BLOCK, inverse=False):
     _require(signs, "signs", torch.float32, (d_pad,))
     out = torch.empty_like(x2)
     LAUNCHES["fused_rotate"] += 1
-    _check(library().exch_rotate(_ptr(x2), _ptr(signs), _ptr(out), m, d_pad, b,
-                              int(inverse), _scale(b), _stream()),
-           "exch_rotate")
+    build.check(library().exch_rotate(
+        build.ptr(x2), build.ptr(signs), build.ptr(out), m, d_pad, b,
+        int(inverse), _scale(b), build.stream()), "exch_rotate")
     return out
 
 
@@ -304,7 +300,7 @@ def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
     memory from the butterfly to the quantize and the packing, so y is
     written once (for the decode reference) and never read back.
     """
-    if _on_cpu(x2, signs, u2, gammas, levels2):
+    if build.on_cpu(x2, signs, u2, gammas, levels2):
         return encode_plain(x2, signs, u2, gammas, bits=bits, block=block,
                             want_rotated=want_rotated, pack=pack,
                             levels2=levels2)
@@ -320,11 +316,11 @@ def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
     codes32, codes8 = _code_outputs(m, d_pad, pack, x2.device)
     y = torch.empty_like(x2) if want_rotated else None
     LAUNCHES["fused_encode"] += 1
-    _check(library().exch_encode(
-        _ptr(x2), _ptr(signs), s_stride, _ptr(u2), _ptr(gammas), g_stride,
-        _ptr(lv),
-        lv_stride, lv_default, _ptr(codes32), _ptr(codes8), _ptr(y), m,
-        d_pad, b, c, bits, pack, _scale(b), _stream()), "exch_encode")
+    build.check(library().exch_encode(
+        build.ptr(x2), build.ptr(signs), s_stride, build.ptr(u2),
+        build.ptr(gammas), g_stride, build.ptr(lv), lv_stride, lv_default,
+        build.ptr(codes32), build.ptr(codes8), build.ptr(y), m, d_pad, b, c,
+        bits, pack, _scale(b), build.stream()), "exch_encode")
     codes = codes32 if pack == 1 else codes8
     return (y, codes) if want_rotated else codes
 
@@ -339,7 +335,7 @@ def quantize_codes(y2, u2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     consecutive threads on consecutive columns; the arithmetic is
     ``fused_encode``'s, bit for bit.
     """
-    if _on_cpu(y2, u2, gammas, levels2):
+    if build.on_cpu(y2, u2, gammas, levels2):
         return quantize_plain(y2, u2, gammas, bits=bits, block=block,
                               pack=pack, levels2=levels2)
     m, d_pad = y2.shape
@@ -350,10 +346,11 @@ def quantize_codes(y2, u2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     lv, lv_stride, lv_default = _levels_args(levels2, bits, m)
     codes32, codes8 = _code_outputs(m, d_pad, pack, y2.device)
     LAUNCHES["quantize_codes"] += 1
-    _check(library().exch_quantize(
-        _ptr(y2), _ptr(u2), _ptr(gammas), g_stride, _ptr(lv), lv_stride,
-        lv_default, _ptr(codes32), _ptr(codes8), m, d_pad, b, c, bits, pack,
-        _stream()), "exch_quantize")
+    build.check(library().exch_quantize(
+        build.ptr(y2), build.ptr(u2), build.ptr(gammas), g_stride,
+        build.ptr(lv), lv_stride, lv_default, build.ptr(codes32),
+        build.ptr(codes8), m, d_pad, b, c, bits, pack, build.stream()),
+        "exch_quantize")
     return codes32 if pack == 1 else codes8
 
 
@@ -369,7 +366,7 @@ def snap_codes(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     the broadcast side read once. Design: one thread per output
     coordinate, packed codes unpacked inline.
     """
-    if _on_cpu(codes2, wrot2, gammas, levels2):
+    if build.on_cpu(codes2, wrot2, gammas, levels2):
         return snap_plain(codes2, wrot2, gammas, bits=bits, block=block,
                           pack=pack, levels2=levels2)
     mc, d_padp = codes2.shape
@@ -387,10 +384,11 @@ def snap_codes(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     out = torch.empty((m, d_pad), dtype=torch.float32, device=wrot2.device)
     c32, c8 = (codes2, None) if pack == 1 else (None, codes2)
     LAUNCHES["snap_codes"] += 1
-    _check(library().exch_snap(
-        _ptr(c32), _ptr(c8), mc, _ptr(wrot2), mw, _ptr(gammas), g_stride,
-        _ptr(lv), lv_stride, lv_default, _ptr(out), m, d_pad, b, c, bits,
-        pack, _stream()), "exch_snap")
+    build.check(library().exch_snap(
+        build.ptr(c32), build.ptr(c8), mc, build.ptr(wrot2), mw,
+        build.ptr(gammas), g_stride, build.ptr(lv), lv_stride, lv_default,
+        build.ptr(out), m, d_pad, b, c, bits, pack, build.stream()),
+        "exch_snap")
     return out
 
 
@@ -413,7 +411,7 @@ def fused_decode(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
     two butterflies of log2(b) stages, so neither the rotated reference nor
     the snapped point touches device memory.
     """
-    if _on_cpu(codes2, ref2, signs, gammas, levels2):
+    if build.on_cpu(codes2, ref2, signs, gammas, levels2):
         return decode_plain(codes2, ref2, signs, gammas, bits=bits,
                             block=block, pack=pack, levels2=levels2)
     mc, d_padp = codes2.shape
@@ -432,8 +430,9 @@ def fused_decode(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
     out = torch.empty((m, d_pad), dtype=torch.float32, device=ref2.device)
     c32, c8 = (codes2, None) if pack == 1 else (None, codes2)
     LAUNCHES["fused_decode"] += 1
-    _check(library().exch_decode(
-        _ptr(c32), _ptr(c8), mc, _ptr(ref2), mr, _ptr(signs), s_stride,
-        _ptr(gammas), g_stride, _ptr(lv), lv_stride, lv_default, _ptr(out),
-        m, d_pad, b, c, bits, pack, _scale(b), _stream()), "exch_decode")
+    build.check(library().exch_decode(
+        build.ptr(c32), build.ptr(c8), mc, build.ptr(ref2), mr,
+        build.ptr(signs), s_stride, build.ptr(gammas), g_stride, build.ptr(lv),
+        lv_stride, lv_default, build.ptr(out), m, d_pad, b, c, bits, pack,
+        _scale(b), build.stream()), "exch_decode")
     return out

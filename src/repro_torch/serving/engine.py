@@ -10,7 +10,7 @@ model of a federated run: inference of the federated result.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -77,11 +77,15 @@ class ServeEngine:
                                 - torch.log(-torch.log(u)), dim=-1)
         return torch.argmax(logits, dim=-1)
 
-    def run(self, generator: Optional[torch.Generator] = None
+    def run(self, generator: Optional[torch.Generator] = None,
+            on_step: Optional[Callable[[int, torch.Tensor], None]] = None
             ) -> List[Request]:
         """Serve everything in the queue; returns completed requests.
         Sampling draws from ``generator`` (one seeded 0 on the engine's
-        device when None)."""
+        device when None). ``on_step(step, logits)``, when given, is called
+        after each prefill (step 0) and decode step of a batch, once the
+        step's tokens are back on the host, with the (b, V) fp32 logits they
+        were drawn from."""
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
@@ -100,6 +104,8 @@ class ServeEngine:
             steps = max(r.max_new_tokens for r in batch)
             for r, t in zip(batch, tok.tolist()):
                 r.out_tokens.append(t)
+            if on_step is not None:
+                on_step(0, last_logits)
             pos = plen
             for _ in range(min(steps - 1, self.max_seq - plen - 1)):
                 logits, cache = self._decode(tok, pos, cache)
@@ -112,6 +118,8 @@ class ServeEngine:
                         r.out_tokens.append(t)
                     if t == r.eos_id or len(r.out_tokens) >= r.max_new_tokens:
                         alive[i] = False
+                if on_step is not None:
+                    on_step(pos - plen, logits)
                 if not any(alive):
                     break
             done.extend(batch)

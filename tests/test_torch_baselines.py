@@ -312,3 +312,89 @@ def test_registry_builds_the_baselines():
         make_algorithm("fedbuff_device", fed, **kw)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         make_algorithm("quafl", fed, uplink="scalar", **kw)
+
+
+# FedBuff at the width of chip_smoke.py's baselines: the MLP 784-32-10,
+# n=300 clients (by-class split), s=16, K=5, lr=0.3, Z=10, batch 32
+CHIP_FED = dict(n_clients=300, s=16, local_steps=5, lr=0.3, bits=8, swt=10.0)
+CHIP_BATCH = 32
+CURVE_TOL = 1.2e-3   # the injected server's largest gap over 30 flushes
+
+
+def fedbuff_curves(quant: str = "lattice", rounds: int = 30):
+    """FedBuff's test loss and accuracy, flush by flush, from one seed:
+    the reference; the port with the reference's draws injected into every
+    flush (its server held against the reference's); the port drawing from
+    its own generator. Yields one dict per flush (round 0 is the start) with
+    (loss, accuracy) of each run on 4,096 test points and, from round 1,
+    the injected run's largest server difference."""
+    part, test = ref_data(0, CHIP_FED["n_clients"], d=784, n_classes=10,
+                          iid=False, test_samples=4096)
+    params, _ = ref_init(jax.random.PRNGKey(0), 784, 32, 10)
+    template = interop.params_from_numpy(
+        {k: npy(v) for k, v in params.items()}, "cpu")
+    data = interop.data_from_numpy({k: npy(v) for k, v in part.items()},
+                                   "cpu")
+    ptest = interop.data_from_numpy({k: npy(v) for k, v in test.items()},
+                                    "cpu")
+    kw = dict(quantize=quant != "none",
+              quantizer="lattice" if quant == "none" else quant)
+    ref = ref_make_algorithm(
+        "fedbuff", RefFedConfig(**CHIP_FED), loss_fn=ref_mlp_loss,
+        template=params,
+        batch_fn=lambda d, k: ref_client_batch(k, d, CHIP_BATCH), **kw)
+    port, free = (make_algorithm("fedbuff", FedConfig(**CHIP_FED),
+                                 loss_fn=mlp_loss_batched, template=template,
+                                 batch_size=CHIP_BATCH, device="cpu", **kw)
+                  for _ in range(2))
+
+    def ev_ref(st):
+        loss, aux = ref_mlp_loss(ref.eval_params(st), test)
+        return float(loss), float(aux["acc"])
+
+    def ev_port(alg, st):
+        loss, aux = mlp_loss(alg.eval_params(st), ptest)
+        return float(loss), float(aux["acc"])
+
+    m = data["y"].shape[1]
+    s_ref, s_port, s_free = (ref.init(params), port.init(template),
+                             free.init(template))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    yield {"codec": quant, "round": 0, "ref": ev_ref(s_ref),
+           "port_injected": ev_port(port, s_port),
+           "port_free": ev_port(free, s_free)}
+    for r in range(rounds):
+        key = jax.random.fold_in(jax.random.PRNGKey(1), r)
+        draws = reference_fedbuff_draws(ref, s_ref, key, CHIP_BATCH, m, port)
+        s_ref, _ = ref.round(s_ref, part, key)
+        s_port, _ = port.round(s_port, data, None, draws=draws)
+        s_free, _ = free.round(s_free, data, gen)
+        yield {"codec": quant, "round": r + 1, "ref": ev_ref(s_ref),
+               "port_injected": ev_port(port, s_port),
+               "port_free": ev_port(free, s_free),
+               "server_max_abs_diff": float(np.abs(
+                   npy(s_port.server) - npy(s_ref.server)).max()),
+               "server_max_abs": float(np.abs(npy(s_ref.server)).max())}
+
+
+def test_fedbuff_curve_tracks_reference_at_chip_width():
+    """The first flushes of the curve that settled whether FedBuff's rising
+    test loss is the port's or the algorithm's: with the reference's draws
+    injected, the port's server and test loss track the reference's."""
+    rows = list(fedbuff_curves("lattice", rounds=4))
+    assert rows[0]["ref"] == pytest.approx(rows[0]["port_injected"],
+                                           abs=1e-5)
+    for row in rows[1:]:
+        assert row["server_max_abs_diff"] <= CURVE_TOL, row
+        assert abs(row["ref"][0] - row["port_injected"][0]) <= 1e-3, row
+        assert np.isfinite(row["port_free"][0]), row
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=src python tests/test_torch_baselines.py [lattice|qsgd|none]
+    # prints the 30-flush curves as JSON lines (about a minute on a CPU)
+    import json
+    import sys
+    for row in fedbuff_curves(*sys.argv[1:]):
+        print(json.dumps(row), flush=True)

@@ -63,6 +63,7 @@ def test_config_numbers_match_reference(arch):
 
 
 def test_registry_refuses_unported_archs():
+    assert sorted(configs.list_archs()) == sorted(ARCHS)
     with pytest.raises(KeyError, match="Queue 1 item 12"):
         configs.get_config("deepseek-v2-236b")
     with pytest.raises(KeyError, match="unknown arch"):

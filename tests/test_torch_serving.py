@@ -6,10 +6,11 @@ decoding echoes the last prompt token and equal tokens would prove little.
 Both packages therefore serve the same weights with ``embed/tok`` scaled
 by 0.02, where the tokens vary, and the test holds the logits of every
 prefill and decode step (≤ 1e-4 absolute, fp32 configs) as well as the
-tokens. The reference's logits are recorded by wrapping its engine's
-``_prefill`` and replacing its jitted greedy ``_decode`` with one that
-returns the same argmax and keeps the logits; a second, unpatched
-reference engine gives the tokens.
+tokens. The port's logits come from ``ServeEngine.run``'s ``on_step``
+hook. The reference's are recorded by wrapping its engine's ``_prefill``
+and replacing its jitted greedy ``_decode`` with one that returns the same
+argmax and keeps the logits; a second, unpatched reference engine gives the
+tokens.
 """
 from functools import partial
 
@@ -64,23 +65,21 @@ def record_port(cfg, p, ps, max_new, max_seq, eos=-1, temperature=0.0,
                 generator=None):
     eng = ServeEngine(cfg, p, max_batch=4, max_seq=max_seq,
                       temperature=temperature)
-    logits = []
-    prefill, decode = eng._prefill, eng._decode
+    logits, steps = [], []
 
-    def rec_prefill(prompts_t):
-        last, cache = prefill(prompts_t)
-        logits.append(npy(last))
-        return last, cache
-
-    def rec_decode(tok, pos, cache):
-        lg, cache = decode(tok, pos, cache)
+    def on_step(step, lg):
+        steps.append(step)
         logits.append(npy(lg))
-        return lg, cache
 
-    eng._prefill, eng._decode = rec_prefill, rec_decode
     for q in ps:
         eng.submit(Request(prompt=q, max_new_tokens=max_new, eos_id=eos))
-    return eng.run(generator), logits
+    done = eng.run(generator, on_step=on_step)
+    # each batch: its prefill (step 0), then its decode steps 1, 2, ...
+    starts = [i for i, st in enumerate(steps) if st == 0]
+    assert starts[0] == 0 and len(starts) == -(-len(ps) // 4)
+    assert all(steps[i] == steps[i - 1] + 1 for i in range(1, len(steps))
+               if i not in starts)
+    return done, logits
 
 
 @pytest.mark.parametrize("arch,extra", [("gemma2-2b", (128,)),
