@@ -6,8 +6,14 @@
 From the root of a checkout: builds the CUDA kernels of
 ``src/repro_torch/kernels/csrc/`` with nvcc (one compiler per source, all
 started together), holds each kernel against its plain PyTorch version on
-the card and times both, then drives the port's three paths:
+the card and times both, then drives the port's four paths:
 
+* the kernels' public API (``kernels/ops.py``) as a user calls it:
+  ``rotate_blocks``, ``lattice_encode``, ``lattice_decode`` and the inverse
+  rotation on flat vectors of 2^25, 10,000,000 and 25,450 coordinates (the
+  exchange bench size, ``bench_kernels.py``'s ``rotate_10M`` and the
+  paper's MLP), every rotation equal to the exchange's ``fused_rotate``,
+  every decode within 1.001 γ;
 * QuAFL (paper Algorithm 1) at the paper's MLP width (784-32-10, n=300
   clients, s=16) through ``make_algorithm`` and ``simulate``, once with the
   8-bit ``lattice`` codec and once with a ``lattice_packed:bits=4`` uplink;
@@ -46,8 +52,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-SOURCE = "src/repro_torch/kernels/csrc/exchange.cu"
-FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
 REPLACES = {
     "fused_encode": "src/repro/kernels/exchange.py:322",
     "fused_rotate": "src/repro/kernels/exchange.py:266",
@@ -55,9 +60,15 @@ REPLACES = {
     "snap_codes": "src/repro/kernels/exchange.py:417",
     "fused_decode": "src/repro/kernels/exchange.py:464",
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
+    "hadamard_blocks": "src/repro/kernels/hadamard.py:31",
+    "lattice_encode": "src/repro/kernels/lattice_quant.py:47",
+    "lattice_decode": "src/repro/kernels/lattice_quant.py:69",
 }
-SOURCES = {k: FLASH_SOURCE if k == "flash_attention" else SOURCE
-           for k in REPLACES}
+SOURCES = {k: CSRC + "exchange.cu" for k in REPLACES} | {
+    "flash_attention": CSRC + "flash_attention.cu",
+    "hadamard_blocks": CSRC + "hadamard.cu",
+    "lattice_encode": CSRC + "lattice_quant.cu",
+    "lattice_decode": CSRC + "lattice_quant.cu"}
 # fp32 operations per coordinate, for the operation bound: the butterfly's
 # log2(b) adds plus the sign and scale multiplies; the quantize's div, add,
 # floor, div, floor, mul and sub; the snap's div, sub, div, rint, mul, add
@@ -571,6 +582,25 @@ KERNEL_SYMBOLS = {"fused_encode": "encode_kernel",
                   "fused_decode": "decode_kernel"}
 
 
+def device_events(prof):
+    """The profiler's averages of the kernels that ran on the card."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def ms_per_launch(kernels, symbols: dict) -> dict:
+    """Mean device ms per launch of each named kernel (None if it never
+    ran), from ``device_events``; ``symbols`` maps names to a substring of
+    the kernel's symbol."""
+    out = {}
+    for name, sym in symbols.items():
+        hits = [e for e in kernels if sym in e.key]
+        count = sum(e.count for e in hits)
+        out[name] = (sum(e.self_device_time_total for e in hits) / count
+                     / 1e3 if count else None)
+    return out
+
+
 def profile_rounds(alg, state, data, gen, rounds: int = 5):
     """torch.profiler over a few main-path rounds: wall time, device time
     summed over kernels, the top kernels by device time, and the mean
@@ -584,16 +614,10 @@ def profile_rounds(alg, state, data, gen, rounds: int = 5):
             state, _ = alg.round(state, data, gen)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    per_launch = {}
-    for name, sym in KERNEL_SYMBOLS.items():
-        hits = [e for e in kernels if sym in e.key]
-        count = sum(e.count for e in hits)
-        per_launch[name] = (sum(e.self_device_time_total for e in hits)
-                            / count / 1e3 if count else None)
+    per_launch = ms_per_launch(kernels, KERNEL_SYMBOLS)
     return {"rounds": rounds, "wall_ms_per_round": wall_us / rounds / 1e3,
             "device_ms_per_round": device_us / rounds / 1e3,
             "device_busy_share": device_us / wall_us,
@@ -647,16 +671,17 @@ CONSIST_TOL = 1e-3                # fp32 prefill vs decode, x max|logit|
 
 def ptxas_summary(log: str) -> dict:
     """Registers, shared memory and spills of each kernel from nvcc's
-    -Xptxas=-v output; flash_kernel instantiations named <type,dh>."""
+    -Xptxas=-v output; template instantiations named <type> or
+    <type,dh>."""
     out, fn = {}, None
     for ln in log.splitlines():
-        hit = re.search(r"Compiling entry function '.*?([a-z]+_kernel)"
-                        r"(I(f|13__nv_bfloat16)Li(\d+)E)?", ln)
+        hit = re.search(r"Compiling entry function '.*?([a-z][a-z_]*_kernel)"
+                        r"(I(f|13__nv_bfloat16)(Li(\d+))?E)?", ln)
         if hit:
             fn = hit.group(1)
             if hit.group(2):
-                fn += (f"<{'f32' if hit.group(3) == 'f' else 'bf16'},"
-                       f"{hit.group(4)}>")
+                fn += f"<{'f32' if hit.group(3) == 'f' else 'bf16'}"
+                fn += f",{hit.group(5)}>" if hit.group(5) else ">"
         elif fn and ("registers" in ln or "spill" in ln):
             info = ln.split(":", 1)[-1].strip()
             out[fn] = f"{out[fn]}; {info}" if fn in out else info
@@ -808,8 +833,7 @@ def profile_serve(cfg, params, prompts, max_new):
         serve_run(cfg, params, [prompts], max_new=max_new, record=False)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     device_us = sum(e.self_device_time_total for e in kernels)
     flash = [e for e in kernels if "flash_kernel" in e.key]
     n_flash = sum(e.count for e in flash)
@@ -962,6 +986,182 @@ def run_serve_cli(fa):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7 (run before path 1): the kernels' public API (kernels/ops.py)
+# ---------------------------------------------------------------------------
+
+# (d, d_pad): the exchange bench size, 2^25 (2,048 blocks of 128 x 128),
+# bench_kernels.py's rotate_10M (611 blocks) and the paper's MLP
+OPS_SIZES = ((BENCH_M * BENCH_D, BENCH_M * BENCH_D), (10_000_000, 10_010_624),
+             (D_MLP, 32_768))
+OPS_BITS = (4, 8, 12, 16)
+# the JAX test's Hadamard shapes, and the largest block one CTA takes
+HADAMARD_SHAPES = [(1, 128, 128), (3, 128, 128), (4, 64, 64), (2, 128, 64),
+                   (7, 16, 16), (4, 256, 128)]
+LATTICE_TEST_CASES = [(1024, 4), (8192, 8), (4096, 12), (65536, 8)]
+OPS_GAMMA = 0.02                  # the JAX test's lattice step
+OPS_SYMBOLS = {"hadamard_blocks": "hadamard_kernel",
+               "lattice_encode": "lattice_enc_kernel",
+               "lattice_decode": "lattice_dec_kernel"}
+
+
+def ops_checks(hd, lq, dev, gen):
+    """Each kernel of the API against its plain version, torch.equal:
+    hadamard_blocks on fp32 and bf16 input at the JAX test's shapes, at
+    rc = 32,768 and at the three sizes as (n, 128, 128); lattice_encode and
+    lattice_decode at bits 4-16 on y straddling 0 (γ where y/γ spans the
+    ring twice) at the three sizes and the JAX test's (d, bits), γ on the
+    device and as a number. Returns the largest |Δ| of each kernel."""
+    err = {k: 0.0 for k in OPS_SYMBOLS}
+    for shape in HADAMARD_SHAPES + [(dp // 16_384, 128, 128)
+                                    for _, dp in OPS_SIZES]:
+        x = torch.randn(shape, generator=gen, device=dev)
+        for dtype in (FP32, BF16):
+            out = hd.hadamard_blocks(x.to(dtype))
+            want = hd.hadamard_plain(x.to(dtype))
+            res = {"kernel": "hadamard_blocks", "shape": list(shape),
+                   "dtype": str(dtype).split(".")[1],
+                   "max_abs_err": float((out - want).abs().max()),
+                   "equal": torch.equal(out, want)}
+            emit({"phase": "ops_check", **res})
+            assert res["equal"], res
+            err["hadamard_blocks"] = max(err["hadamard_blocks"],
+                                         res["max_abs_err"])
+        del x, out, want
+    cases = ([(dp, bits) for _, dp in OPS_SIZES for bits in OPS_BITS]
+             + LATTICE_TEST_CASES)
+    for d, bits in cases:
+        y = torch.randn(d, generator=gen, device=dev)
+        u = torch.rand(d, generator=gen, device=dev)
+        g = float(y.abs().max()) / (1 << bits) / 2
+        g_dev = torch.tensor(g, device=dev)
+        w = y + 0.1 * g * torch.randn(d, generator=gen, device=dev)
+        codes = lq.lattice_encode(y, u, g_dev, bits=bits)
+        want_c = lq.lattice_encode_plain(y, u, g, bits=bits)
+        out = lq.lattice_decode(codes, w, g_dev, bits=bits)
+        want_o = lq.lattice_decode_plain(codes, w, g, bits=bits)
+        res = {"kernel": "lattice_encode+lattice_decode", "d": d,
+               "bits": bits, "gamma": g,
+               "encode_max_abs_err": float((codes - want_c).abs().max()),
+               "encode_equal": torch.equal(codes, want_c),
+               "encode_gamma_number_equal": torch.equal(
+                   codes, lq.lattice_encode(y, u, g, bits=bits)),
+               "decode_max_abs_err": float((out - want_o).abs().max()),
+               "decode_equal": torch.equal(out, want_o),
+               "decode_gamma_number_equal": torch.equal(
+                   out, lq.lattice_decode(codes, w, g, bits=bits)),
+               "codes_min_max": [int(codes.min()), int(codes.max())]}
+        emit({"phase": "ops_check", **res})
+        assert (res["encode_equal"] and res["decode_equal"]
+                and res["encode_gamma_number_equal"]
+                and res["decode_gamma_number_equal"]), res
+        err["lattice_encode"] = max(err["lattice_encode"],
+                                    res["encode_max_abs_err"])
+        err["lattice_decode"] = max(err["lattice_decode"],
+                                    res["decode_max_abs_err"])
+    torch.cuda.synchronize()
+    return err
+
+
+def run_ops_path(ops, kx, dev, gen):
+    """The API as a user calls it, at each size: rotate a flat vector
+    (rotate_blocks), rotate it back, encode the rotated coordinates at 8
+    bits with γ = 0.02 on the device (lattice_encode), decode them against
+    w = y + 0.001·N(0,1) (lattice_decode) and inverse-rotate the decode.
+    Each rotation is held to fused_rotate bit for bit, the round trip to
+    ROT_TOL, the decode to 1.001·γ (the JAX test's check)."""
+    from repro_torch.compression.rotation import signs
+    g_dev = torch.tensor(OPS_GAMMA, device=dev)
+    rows = []
+    for d, d_pad in OPS_SIZES:
+        x = torch.randn(d, generator=gen, device=dev)
+        sg = signs(gen, d_pad)
+        y = ops.rotate_blocks(x, sg)
+        back = ops.rotate_blocks(y, sg, inverse=True)[:d]
+        u = torch.rand(d_pad, generator=gen, device=dev)
+        codes = ops.lattice_encode(y, u, g_dev)
+        w = y + 0.001 * torch.randn(d_pad, generator=gen, device=dev)
+        x_hat = ops.lattice_decode(codes, w, g_dev)
+        x_out = ops.rotate_blocks(x_hat, sg, inverse=True)
+        x_pad = torch.nn.functional.pad(x, (0, d_pad - d))[None]
+        res = {"d": d, "d_pad": d_pad, "blocks": d_pad // 16_384,
+               "rotate_equals_fused_rotate": torch.equal(
+                   y, kx.fused_rotate(x_pad, sg)[0]),
+               "inverse_equals_fused_rotate": torch.equal(
+                   x_out, kx.fused_rotate(x_hat[None], sg, inverse=True)[0]),
+               "round_trip_rel_err": float((back - x).abs().max()
+                                           / x.abs().max()),
+               "decode_max_err_over_gamma": float((x_hat - y).abs().max())
+               / OPS_GAMMA,
+               "decoded_vs_x_max": float((x_out[:d] - x).abs().max()),
+               "finite": bool(torch.isfinite(x_out).all())}
+        rows.append(res)
+        emit({"phase": "ops", **res})
+        assert (res["rotate_equals_fused_rotate"]
+                and res["inverse_equals_fused_rotate"] and res["finite"]), res
+        assert res["round_trip_rel_err"] <= ROT_TOL, res
+        assert res["decode_max_err_over_gamma"] <= 1.001, res
+        del x, y, back, u, codes, w, x_hat, x_out, x_pad
+    torch.cuda.synchronize()
+    return rows
+
+
+def time_ops(hd, lq, dev, gen, peak_bw):
+    """ms, plain_ms, bound_ms, bound_by, library_ms and device_ms of the
+    three kernels at 2^25 coordinates (2,048 blocks of 128 x 128), and of
+    hadamard_blocks on bf16 input; the yardstick of hadamard_blocks is one
+    fp32 einsum with H_128 on both sides, TF32 off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.compression.rotation import hadamard_matrix
+    n = BENCH_M * BENCH_D
+    x = torch.randn((n // 16_384, 128, 128), generator=gen, device=dev)
+    xb = x.to(BF16)
+    h = hd.hadamard_blocks(x)
+    y = h.reshape(-1)
+    u = torch.rand(n, generator=gen, device=dev)
+    g = torch.tensor(OPS_GAMMA, device=dev)
+    codes = lq.lattice_encode(y, u, g)
+    w = y + 0.001 * torch.randn(n, generator=gen, device=dev)
+    x_hat = lq.lattice_decode(codes, w, g)
+    h128 = torch.from_numpy(hadamard_matrix(128)).to(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h_ops = n * (int(math.log2(16_384)) + 1)     # the stages' adds, scale
+    calls = {
+        "hadamard_blocks": (lambda: hd.hadamard_blocks(x),
+                            lambda: hd.hadamard_plain(x),
+                            bound(nbytes(x, h), h_ops, peak_bw),
+                            lambda: torch.einsum("ij,bjk,kl->bil", h128, x,
+                                                 h128)),
+        "hadamard_blocks_bf16": (lambda: hd.hadamard_blocks(xb),
+                                 lambda: hd.hadamard_plain(xb),
+                                 bound(nbytes(xb, h), h_ops, peak_bw), None),
+        "lattice_encode": (lambda: lq.lattice_encode(y, u, g),
+                           lambda: lq.lattice_encode_plain(y, u, g),
+                           bound(nbytes(y, u, g, codes), n * QUANTIZE_OPS,
+                                 peak_bw), None),
+        "lattice_decode": (lambda: lq.lattice_decode(codes, w, g),
+                           lambda: lq.lattice_decode_plain(codes, w, g),
+                           bound(nbytes(codes, w, g, x_hat), n * SNAP_OPS,
+                                 peak_bw), None)}
+    out = {}
+    for name, (kernel, plain, (b_ms, b_by), lib) in calls.items():
+        out[name] = dict(ms=time_ms(kernel), plain_ms=time_ms(plain, 5),
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=time_ms(lib) if lib else None,
+                         shape=[n])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name in OPS_SYMBOLS:
+            for _ in range(5):
+                calls[name][0]()
+        torch.cuda.synchronize()
+    for name, ms in ms_per_launch(device_events(prof), OPS_SYMBOLS).items():
+        out[name]["device_ms"] = ms
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -970,6 +1170,9 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import exchange as kx
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hadamard as hd
+    from repro_torch.kernels import lattice_quant as lq
+    from repro_torch.kernels import ops
 
     dev = default_device()
     name = torch.cuda.get_device_name(0)
@@ -983,11 +1186,11 @@ def main() -> int:
 
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    names = ("exchange", "flash_attention")
+    names = ("exchange", "flash_attention", "hadamard", "lattice_quant")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build.build, names)))
-    kx.library()
-    fa.library()
+    for module in (kx, fa, hd, lq):
+        module.library()
     for lib_name, (path, nvcc_s, log) in built.items():
         emit({"phase": "build", "source": f"src/repro_torch/kernels/csrc/"
               f"{lib_name}.cu", "arch": "sm_90a",
@@ -1068,6 +1271,28 @@ def main() -> int:
         del q, k, v
         torch.cuda.empty_cache()
 
+    # the kernels' public API: each kernel against its plain version, then
+    # path 4, the API as a user calls it (counts from 0 just before, read
+    # just after), then its times
+    errors.update(ops_checks(hd, lq, dev, gen))
+    hd.reset_launches()
+    lq.reset_launches()
+    run_ops_path(ops, kx, dev, gen)
+    torch.cuda.synchronize()
+    ops_launches = {**hd.LAUNCHES, **lq.LAUNCHES}
+    emit({"phase": "launches", "path": "ops", "launches": ops_launches})
+    n_sizes = len(OPS_SIZES)
+    assert ops_launches == {"hadamard_blocks": 3 * n_sizes,
+                            "lattice_encode": n_sizes,
+                            "lattice_decode": n_sizes}, ops_launches
+    ops_times = time_ops(hd, lq, dev, gen, peak_bw)
+    emit({"phase": "ops_times", "d": BENCH_M * BENCH_D, "nvidia_smi": smi,
+          "kernels": ops_times})
+    for k in OPS_SYMBOLS:
+        timings[k] = {f: v for f, v in ops_times[k].items()
+                      if f != "device_ms"}
+    torch.cuda.empty_cache()
+
     # path 1, QuAFL: counts from 0 just before, read just after
     kx.reset_launches()
     runs = {}
@@ -1137,6 +1362,8 @@ def main() -> int:
     assert launches["flash_attention"] > 0
     device_ms["flash_attention"] = prof_b["flash_device_ms_per_launch"]
     run_serve_cli(fa)
+    launches.update(ops_launches)
+    device_ms.update({k: ops_times[k]["device_ms"] for k in OPS_SYMBOLS})
 
     emit({"kernels": [dict(name=k, route="cuda", source=SOURCES[k],
                            replaces=REPLACES[k], launches=launches[k],

@@ -58,3 +58,24 @@ def signs(generator: torch.Generator, n: int) -> torch.Tensor:
     bits = torch.randint(0, 2, (n,), generator=generator,
                          device=generator.device)
     return (bits * 2 - 1).to(torch.float32)
+
+
+def rotate(x: torch.Tensor, signs: torch.Tensor, block: int = DEFAULT_BLOCK,
+           inverse: bool = False) -> torch.Tensor:
+    """x: flat (d,) -> rotated, padded to a block multiple (the reference's
+    ``rotate``, with its ±1 signs passed in as the (pad_len(d, block),)
+    tensor :func:`signs` makes).
+
+    forward:  y = (H x*s) / sqrt(b)   (per block)
+    inverse:  x = (H y) / sqrt(b) * s
+    Plain PyTorch on any device. The caller keeps the padded length.
+    """
+    # imported here: kernels.exchange imports this module
+    from repro_torch.kernels.exchange import rotate_plain
+    d = x.shape[0]
+    padded = pad_len(d, block)
+    if tuple(signs.shape) != (padded,):
+        raise ValueError(f"signs: expected ({padded},), got "
+                         f"{tuple(signs.shape)}")
+    x = torch.nn.functional.pad(x.to(torch.float32), (0, padded - d))
+    return rotate_plain(x[None], signs, block=block, inverse=inverse)[0]

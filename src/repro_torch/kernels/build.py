@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build
 takes seconds). The library lands in ``build/repro_torch/`` at the root of
-the checkout, named by a hash of its source and flags, at first use; a later
-process reuses it.
+the checkout, named by a hash of its source, the shared headers and the
+flags, at first use; a later process reuses it.
 """
 from __future__ import annotations
 
@@ -43,10 +43,15 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, of
+    every header in ``csrc/`` (the sources include ``common.cuh``; hashing
+    all headers rebuilds a library after any header edit) and of the
+    flags."""
+    digest = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple:

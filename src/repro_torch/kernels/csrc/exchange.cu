@@ -42,60 +42,11 @@
 // codes, quantize_codes' codes and the plain version's codes are the same
 // function of the same y. rintf rounds half to even, as jnp.round does.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
-
-constexpr int kMaxThreads = 1024;
-constexpr int kEltThreads = 256;
-
-int block_threads(int b) {
-  int t = b / 2;
-  if (t > kMaxThreads) t = kMaxThreads;
-  if (t < 32) t = 32;
-  return t;
-}
-
-int elt_blocks(size_t n) {
-  size_t blocks = (n + kEltThreads - 1) / kEltThreads;
-  const size_t cap = 132 * 32;  // enough CTAs to fill every SM
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
-// floor(y / g + u) taken modulo L with the floored modulo of jnp.mod
-// (q is negative for about half the coordinates, so C's % and fmodf are
-// wrong). L is a power of two, so q / L and L * floor(q / L) are exact.
-__device__ __forceinline__ unsigned quantize_one(float y, float g, float u,
-                                                 float L) {
-  float q = floorf(__fadd_rn(__fdiv_rn(y, g), u));
-  float r = __fsub_rn(q, __fmul_rn(L, floorf(__fdiv_rn(q, L))));
-  return (unsigned)r;
-}
-
-// gamma * (c + L * round((w / gamma - c) / L)), round half to even.
-__device__ __forceinline__ float snap_one(float code, float w, float g,
-                                          float L) {
-  float t = __fdiv_rn(__fsub_rn(__fdiv_rn(w, g), code), L);
-  float q = __fadd_rn(code, __fmul_rn(L, rintf(t)));
-  return __fmul_rn(q, g);
-}
-
-// In-place Sylvester transform of the b floats in shared memory.
-__device__ __forceinline__ void fwht_shared(float* sm, int b) {
-  const int half = b >> 1;
-  for (int h = 1; h < b; h <<= 1) {
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const int i0 = ((p & ~(h - 1)) << 1) | (p & (h - 1));
-      const int i1 = i0 + h;
-      const float a = sm[i0];
-      const float c = sm[i1];
-      sm[i0] = __fadd_rn(a, c);
-      sm[i1] = __fsub_rn(a, c);
-    }
-    __syncthreads();
-  }
-}
 
 // Loads block j of message i (times the signs unless `inverse`) into shared
 // memory and applies H_b, unscaled.
@@ -287,14 +238,6 @@ decode_kernel(const int32_t* __restrict__ codes32,
   const size_t obase = (size_t)i * d_pad + (size_t)j * b;
   for (int e = threadIdx.x; e < b; e += blockDim.x)
     out[obase + e] = __fmul_rn(__fmul_rn(sm[e], scale), s[e]);
-}
-
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 }  // namespace

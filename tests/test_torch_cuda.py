@@ -9,9 +9,12 @@ without the suite's conftest:
 import pytest
 import torch
 
-from repro_torch.compression.rotation import signs
+from repro_torch.compression.rotation import pad_len, signs
 from repro_torch.kernels import exchange as kx
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import hadamard as hd
+from repro_torch.kernels import lattice_quant as lq
+from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.cuda
 
@@ -235,3 +238,116 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
         fa.flash_attention(q.detach(), k.cpu(), v)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels' public API: hadamard_blocks, lattice_encode, lattice_decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,r,c", [(3, 128, 128), (2, 128, 64),
+                                   (7, 16, 16), (2, 256, 128)])
+def test_hadamard_kernel_matches_plain_version(dev, n, r, c, dtype):
+    g = torch.Generator(device=dev)
+    g.manual_seed(n * r * c)
+    x = torch.randn((n, r, c), generator=g, device=dev).to(dtype)
+    hd.reset_launches()
+    out = hd.hadamard_blocks(x)
+    torch.cuda.synchronize()
+    assert hd.LAUNCHES == {"hadamard_blocks": 1}
+    assert out.dtype == torch.float32
+    assert torch.equal(out, hd.hadamard_plain(x))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("d", [2762, 25_450, 50_000])
+def test_rotate_blocks_equals_fused_rotate(dev, d, inverse):
+    g = torch.Generator(device=dev)
+    g.manual_seed(d)
+    padded = pad_len(d)
+    x = torch.randn((padded,), generator=g, device=dev)
+    x[d:] = 0
+    sg = signs(g, padded)
+    assert torch.equal(ops.rotate_blocks(x[:d], sg, inverse=inverse),
+                       kx.fused_rotate(x[None], sg, inverse=inverse)[0])
+
+
+def _lattice(dev, d, bits, seed=0):
+    """y straddling 0 at a γ where y/γ spans the ring twice, U(0,1) noise,
+    and a reference w within a tenth of γ of y."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    y = torch.randn((d,), generator=g, device=dev)
+    u = torch.rand((d,), generator=g, device=dev)
+    gamma = float(y.abs().max()) / (1 << bits) / 2
+    w = y + 0.1 * gamma * torch.randn((d,), generator=g, device=dev)
+    return y, u, w, gamma
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8, 12, 16])
+@pytest.mark.parametrize("d", [1024, 32_768, 1 << 20])
+def test_lattice_kernels_match_plain_versions(dev, d, bits):
+    y, u, w, gamma = _lattice(dev, d, bits)
+    lq.reset_launches()
+    codes = lq.lattice_encode(y, u, gamma, bits=bits)
+    out = lq.lattice_decode(codes, w, gamma, bits=bits)
+    torch.cuda.synchronize()
+    assert lq.LAUNCHES == {"lattice_encode": 1, "lattice_decode": 1}
+    assert torch.equal(codes, lq.lattice_encode_plain(y, u, gamma, bits=bits))
+    assert torch.equal(out, lq.lattice_decode_plain(codes, w, gamma,
+                                                    bits=bits))
+    assert int(codes.min()) >= 0 and int(codes.max()) < 1 << bits
+
+
+def test_lattice_unaligned_views_take_the_scalar_path(dev):
+    """Views at a 4-byte offset cannot take float4 loads; the scalar pass
+    gives the same values."""
+    y, u, w, gamma = _lattice(dev, 32_768, 8)
+    n = 32_768 - 1024
+    codes = lq.lattice_encode(y, u, gamma)
+    out = lq.lattice_decode(codes, w, gamma)
+    assert torch.equal(lq.lattice_encode(y[1:1 + n], u[1:1 + n], gamma),
+                       codes[1:1 + n])
+    assert torch.equal(lq.lattice_decode(codes[1:1 + n], w[1:1 + n], gamma),
+                       out[1:1 + n])
+
+
+@pytest.mark.parametrize("shape", [(), (1,)])
+def test_lattice_gamma_on_the_device_equals_a_number(dev, shape):
+    y, u, w, gamma = _lattice(dev, 32_768, 8, seed=1)
+    g_dev = torch.full(shape, gamma, dtype=torch.float32, device=dev)
+    codes = lq.lattice_encode(y, u, g_dev)
+    assert torch.equal(codes, lq.lattice_encode(y, u, gamma))
+    assert torch.equal(lq.lattice_decode(codes, w, g_dev),
+                       lq.lattice_decode(codes, w, gamma))
+
+
+def test_api_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    y, u, w, gamma = _lattice(dev, 4096, 8)
+    codes = lq.lattice_encode(y, u, gamma)
+    hd.reset_launches()
+    lq.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        lq.lattice_encode(y[:1000], u[:1000], gamma)
+    with pytest.raises(ValueError, match="bits"):
+        lq.lattice_decode(codes, w, gamma, bits=17)
+    with pytest.raises(ValueError, match="codes"):
+        lq.lattice_decode(codes.long(), w, gamma)
+    with pytest.raises(ValueError, match="CPU or all"):
+        lq.lattice_encode(y, u.cpu(), gamma)
+    with pytest.raises(ValueError, match="CPU or all"):
+        lq.lattice_encode(y, u, torch.tensor(gamma))
+    with pytest.raises(ValueError, match="contiguous"):
+        lq.lattice_encode(torch.stack((y, y), 1).reshape(-1)[::2], u, gamma)
+    with pytest.raises(ValueError, match="power of two"):
+        hd.hadamard_blocks(torch.zeros((2, 96, 128), device=dev))
+    with pytest.raises(ValueError, match="exceeds"):
+        hd.hadamard_blocks(torch.zeros((1, 256, 256), device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        hd.hadamard_blocks(torch.zeros((2, 64, 64), device=dev)
+                           .transpose(1, 2))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        hd.hadamard_blocks(torch.zeros((2, 64, 64), device=dev).half())
+    torch.cuda.synchronize()
+    assert hd.LAUNCHES == {"hadamard_blocks": 0}
+    assert lq.LAUNCHES == {"lattice_encode": 0, "lattice_decode": 0}

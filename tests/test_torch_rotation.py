@@ -1,5 +1,7 @@
-"""Rotation geometry: the port's Hadamard blocks and padding against
-``repro.compression.rotation``."""
+"""Rotation geometry and the single-vector rotation: the port's Hadamard
+blocks, padding and ``rotate`` against ``repro.compression.rotation``."""
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -40,3 +42,25 @@ def test_signs_are_rademacher():
     assert s.dtype == torch.float32 and s.shape == (10_000,)
     assert set(torch.unique(s).tolist()) == {-1.0, 1.0}
     assert abs(float(s.mean())) < 0.05
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("d", [2762, 25_450, 50_000])
+def test_rotate_matches_reference(d, inverse):
+    """The single-vector rotation, the reference's signs passed across;
+    within 1e-5·max|y| (butterfly against two matmuls)."""
+    key = jax.random.PRNGKey(d)
+    x = np.random.default_rng(d).standard_normal(d).astype(np.float32)
+    if inverse:   # the inverse takes the padded rotated vector
+        x = np.asarray(ref.rotate(jnp.asarray(x), key))
+    sg = np.asarray(ref._signs(key, port.pad_len(x.shape[0])))
+    want = np.asarray(ref.rotate(jnp.asarray(x), key, inverse=inverse))
+    got = port.rotate(torch.from_numpy(x), torch.from_numpy(sg),
+                      inverse=inverse).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_rotate_refuses_signs_of_the_wrong_length():
+    with pytest.raises(ValueError, match="signs"):
+        port.rotate(torch.zeros(5000), torch.ones(5000))
