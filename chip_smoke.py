@@ -23,8 +23,9 @@ the card and times both, then drives the port's four paths:
 * LM serving of gemma2-2b at full width (26 layers, random weights from
   seed 0) through ``ServeEngine``: two batches of four prompts (longest 512
   and 4,608 tokens), 32 greedy tokens each, twice, then one batch sampled
-  at temperature 0.8; every prefill attention on the flash-attention
-  kernel. Then a prefill/decode consistency check in fp32 and bf16, and the
+  at temperature 0.8; every prefill attention on the bf16 tensor-core
+  flash-attention kernel (``csrc/flash_wgmma.cu``). Then a prefill/decode
+  consistency check in fp32 (the CUDA-core flash kernel) and bf16, and the
   serve CLI (``repro_torch.launch.serve --full``) once.
 
 Each path runs with the launch counts set to 0 just before it and read just
@@ -65,7 +66,7 @@ REPLACES = {
     "lattice_decode": "src/repro/kernels/lattice_quant.py:69",
 }
 SOURCES = {k: CSRC + "exchange.cu" for k in REPLACES} | {
-    "flash_attention": CSRC + "flash_attention.cu",
+    "flash_attention": CSRC + "flash_wgmma.cu",    # bf16, the serve path
     "hadamard_blocks": CSRC + "hadamard.cu",
     "lattice_encode": CSRC + "lattice_quant.cu",
     "lattice_decode": CSRC + "lattice_quant.cu"}
@@ -665,23 +666,26 @@ FLASH_CASES = [
 ]
 FLASH_TIMED = ("gemma2_A_global", "gemma2_A_local", "gemma2_B_global",
                "gemma2_B_local")
-FLASH_MAIN = "gemma2_B_global"    # the kernels line's shape
+FLASH_MAIN = "gemma2_B_global"    # the kernels line's shape, also timed
+                                  # at softcap 0 beside SDPA
+FLASH_SYMBOL = r"flash_(wgmma_)?kernel"   # either flash kernel, profiled
 CONSIST_TOL = 1e-3                # fp32 prefill vs decode, x max|logit|
 
 
 def ptxas_summary(log: str) -> dict:
     """Registers, shared memory and spills of each kernel from nvcc's
-    -Xptxas=-v output; template instantiations named <type> or
-    <type,dh>."""
+    -Xptxas=-v output; template instantiations named <type>, <type,dh>
+    or <dh>."""
     out, fn = {}, None
     for ln in log.splitlines():
         hit = re.search(r"Compiling entry function '.*?([a-z][a-z_]*_kernel)"
-                        r"(I(f|13__nv_bfloat16)(Li(\d+))?E)?", ln)
+                        r"(I(f|13__nv_bfloat16)?(Li(\d+))?E)?", ln)
         if hit:
             fn = hit.group(1)
             if hit.group(2):
-                fn += f"<{'f32' if hit.group(3) == 'f' else 'bf16'}"
-                fn += f",{hit.group(5)}>" if hit.group(5) else ">"
+                dtype = {"f": "f32", "13__nv_bfloat16": "bf16"}.get(
+                    hit.group(3))
+                fn += f"<{','.join(a for a in (dtype, hit.group(5)) if a)}>"
         elif fn and ("registers" in ln or "spill" in ln):
             info = ln.split(":", 1)[-1].strip()
             out[fn] = f"{out[fn]}; {info}" if fn in out else info
@@ -725,8 +729,9 @@ def flash_case(fa, dev, gen, b, t, h, kv, dh, window, cap, dtype):
 
 
 def time_flash(fa, q, k, v, window, cap, peak_bw):
-    """ms, plain_ms, bound_ms, bound_by and the SDPA yardstick (causal,
-    no softcap, no window: windowed shapes get null)."""
+    """ms, plain_ms, bound_ms, bound_by, TFLOP/s, the share of the bound
+    and the SDPA yardstick (causal, no softcap, no window: windowed shapes
+    get null)."""
     b, t, h, dh = q.shape
     out = fa.flash_attention(q, k, v, window=window, softcap=cap)
     rate = PEAK_BF16_OPS_PER_S if q.dtype == BF16 else PEAK_FP32_OPS_PER_S
@@ -738,13 +743,15 @@ def time_flash(fa, q, k, v, window, cap, peak_bw):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, window=window,
+                                            softcap=cap), iters)
     return dict(
-        ms=time_ms(lambda: fa.flash_attention(q, k, v, window=window,
-                                              softcap=cap), iters),
+        ms=ms,
         plain_ms=time_ms(lambda: fa.flash_attention_plain(
             q, k, v, window=window, softcap=cap), 3),
         bound_ms=bnd, bound_by=by, library_ms=lib, flops=ops,
-        shape=[b, t, h, k.shape[2], dh], window=window)
+        tflops_per_s=ops / ms / 1e9, bound_share=bnd / ms,
+        shape=[b, t, h, k.shape[2], dh], window=window, softcap=cap)
 
 
 def serve_prompts(rng, lo: int, hi: int, vocab: int):
@@ -835,7 +842,7 @@ def profile_serve(cfg, params, prompts, max_new):
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = device_events(prof)
     device_us = sum(e.self_device_time_total for e in kernels)
-    flash = [e for e in kernels if "flash_kernel" in e.key]
+    flash = [e for e in kernels if re.search(FLASH_SYMBOL, e.key)]
     n_flash = sum(e.count for e in flash)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return {"decode_steps": max_new - 1, "wall_ms": wall_us / 1e3,
@@ -1186,19 +1193,29 @@ def main() -> int:
 
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    names = ("exchange", "flash_attention", "hadamard", "lattice_quant")
+    names = ("exchange", "flash_attention", "flash_wgmma", "hadamard",
+             "lattice_quant")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build.build, names)))
     for module in (kx, fa, hd, lq):
         module.library()
+    # ptxas -v names no dynamic shared memory: the bf16 flash kernel's, a
+    # CTA of each instantiation, from its own plan
+    wgmma_smem = {f"flash_wgmma_kernel<{dh}>":
+                  fa.library(BF16).flash_wgmma_smem_bytes(dh)
+                  for dh in fa.HEAD_DIMS}
     for lib_name, (path, nvcc_s, log) in built.items():
+        ptxas = ptxas_summary(log)
+        for fn, smem in wgmma_smem.items():
+            if fn in ptxas:
+                ptxas[fn] += f"; {smem} bytes dynamic shared memory a CTA"
         emit({"phase": "build", "source": f"src/repro_torch/kernels/csrc/"
               f"{lib_name}.cu", "arch": "sm_90a",
               "flags": " ".join(build.NVCC_FLAGS),
               "seconds_all": time.perf_counter() - t0,
               "nvcc_seconds": nvcc_s,
               "library": str(path.relative_to(ROOT)),
-              "ptxas": ptxas_summary(log)})
+              "ptxas": ptxas})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -1268,6 +1285,9 @@ def main() -> int:
                   **ft})
             if label == FLASH_MAIN:
                 timings["flash_attention"] = ft
+                emit({"phase": "flash_times", "case": f"{label}_softcap0",
+                      "nvidia_smi": smi,
+                      **time_flash(fa, q, k, v, window, 0.0, peak_bw)})
         del q, k, v
         torch.cuda.empty_cache()
 

@@ -1,12 +1,15 @@
-// Causal GQA flash attention for Hopper (sm_90a).
+// Causal GQA flash attention in fp32 on Hopper's CUDA cores (sm_90a).
 //
 // CUDA counterpart of the Pallas TPU kernel in
-// src/repro/kernels/flash_attention.py (flash_attention / _flash_kernel):
-// softmax(softcap(q k^T / sqrt(dh)) masked) v with an online softmax, for
-// the prefill of every full and sliding-window attention layer.
+// src/repro/kernels/flash_attention.py (flash_attention / _flash_kernel)
+// for fp32 inputs: softmax(softcap(q k^T / sqrt(dh)) masked) v with an
+// online softmax. bf16 inputs take the tensor-core kernel of
+// flash_wgmma.cu; fp32 stays here, where every product is a full fp32 FMA
+// (TF32 would round q and k to 10 mantissa bits), so the reference's 2e-5
+// tolerance holds.
 //
-// Layout. q, o: (b, tq, h, dh); k, v: (b, tk, kv, dh), row-major, fp32 or
-// bf16, the output in q's dtype. Query head hi of batch bi reads kv head
+// Layout. q, o: (b, tq, h, dh); k, v: (b, tk, kv, dh), row-major fp32.
+// Query head hi of batch bi reads kv head
 // hi / (h / kv), the reference's index map (ih // h) * kv + (ih % h) // g.
 // The kernel reads the (b, t, heads, dh) layout in place: no transposes.
 //
@@ -15,8 +18,7 @@
 // one kv step to the next. Here CTAs run in parallel and in no order, so one
 // CTA owns one (b*h, 64-query tile) and loops over the kv tiles itself:
 //
-//   * the Q tile, one K tile and one V tile sit in shared memory as fp32
-//     (converted once on load), Q and K with a padded row stride dh + 1 so
+//   * the Q tile, one K tile and one V tile sit in shared memory, Q and K with a padded row stride dh + 1 so
 //     the column reads of the score product are free of bank conflicts;
 //   * 256 threads; thread (rg, cg) = (tid / 16, tid % 16) owns rows
 //     4 rg .. 4 rg + 3 of the tile, score columns cg + 16 j (j < 4) and
@@ -32,21 +34,17 @@
 //
 // Numerics, as the reference: s = (q . k) * scale, then the softcap
 // cap * tanh(s / cap), then the mask; fp32 softmax and accumulation; the
-// denominator floored at 1e-30; bf16 output rounded to nearest even. No
-// --use_fast_math (expf and tanhf stay accurate).
+// denominator floored at 1e-30. No --use_fast_math (expf and tanhf stay accurate).
 //
 // Bound. At the gemma2-2b serve shapes (dh 256, t 512-4608) the work is
 // 4 dh flops per visible (query, key) pair against 2 bytes per element of
 // q, k, v and o: far above the card's ridge, so it is bound by operations.
-// This first version runs them as fp32 FMAs on the CUDA cores (67 TFLOP/s
-// peak), not on the tensor cores (989 TFLOP/s bf16): wgmma with a TMA
-// pipeline is the work of a later change.
+// In fp32 they run as FMAs on the CUDA cores (67 TFLOP/s peak).
 //
 // Shared memory: 4 (2 * 64 (dh + 1) + 64 dh + 64 * 65) bytes, 213,760 at
 // dh = 256, above the 48 KB default, so each instantiation raises its
 // dynamic limit with cudaFuncSetAttribute before the launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -59,13 +57,7 @@ constexpr int kThreads = 256;
 constexpr float kMaskFill = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -266,18 +258,14 @@ int dispatch(int dh, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // o = attention(q, k, v). q, o: (b, tq, h, dh); k, v: (b, tk, kvh, dh);
-// all fp32 (bf16 == 0) or all bf16 (bf16 == 1), contiguous. dh in
-// {16, 32, 64, 128, 256}; h % kvh == 0; window 0 means none.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int b, int tq, int tk, int h, int kvh, int dh,
-                        int bf16, float scale, float cap, int causal,
-                        int window, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return dispatch<__nv_bfloat16>(dh, q, k, v, o, b, tq, tk, h, kvh, scale,
-                                   cap, causal, window, st);
+// all fp32, contiguous. dh in {16, 32, 64, 128, 256}; h % kvh == 0; window
+// 0 means none.
+int flash_attention_f32_fwd(const void* q, const void* k, const void* v,
+                            void* o, int b, int tq, int tk, int h, int kvh,
+                            int dh, float scale, float cap, int causal,
+                            int window, void* stream) {
   return dispatch<float>(dh, q, k, v, o, b, tq, tk, h, kvh, scale, cap,
-                         causal, window, st);
+                         causal, window, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,15 @@
-"""Causal GQA flash attention: the CUDA kernel and its plain version (port
-of ``repro.kernels.flash_attention``).
+"""Causal GQA flash attention: two CUDA kernels and their plain version
+(port of ``repro.kernels.flash_attention``).
 
-``flash_attention`` launches the kernel of ``csrc/flash_attention.cu`` on
-CUDA tensors, on PyTorch's current stream; on CPU tensors it runs
-:func:`flash_attention_plain`, the math of the reference's
-``repro.kernels.ref.flash_attention_ref``; it raises on anything else. It
-counts its launches in :data:`LAUNCHES`. There is no backward kernel, as in
-the reference, so a CUDA input that requires grad is refused.
+``flash_attention`` launches a kernel on CUDA tensors, on PyTorch's current
+stream, chosen by dtype alone: bf16 takes the tensor-core kernel of
+``csrc/flash_wgmma.cu`` (wgmma, TMA, mbarriers), fp32 the CUDA-core kernel
+of ``csrc/flash_attention.cu``. Neither falls back to the other or to the
+plain version: a kernel that fails to build or launch raises. On CPU tensors
+it runs :func:`flash_attention_plain`, the math of the reference's
+``repro.kernels.ref.flash_attention_ref``; it raises on anything else. Both
+kernels count in :data:`LAUNCHES`. There is no backward kernel, as in the
+reference, so a CUDA input that requires grad is refused.
 """
 from __future__ import annotations
 
@@ -27,8 +30,12 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 LAUNCHES = {"flash_attention": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _I, _F, _F, _I, _I, _P]}
+# (q, k, v, o, b, tq, tk, h, kv, dh, scale, softcap, causal, window, stream)
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
+# dtype -> (source under csrc/, C entry point)
+_KERNELS = {torch.float32: ("flash_attention", "flash_attention_f32_fwd"),
+            torch.bfloat16: ("flash_wgmma", "flash_attention_bf16_fwd")}
+TMA_ALIGN = 16    # bytes: a TMA tensor map's base address
 
 
 def reset_launches() -> None:
@@ -36,9 +43,12 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def library():
-    """The built and loaded ``csrc/flash_attention.cu``."""
-    return build.load("flash_attention", _SIGNATURES)
+def library(dtype=torch.float32):
+    """The built and loaded library of ``dtype``'s kernel:
+    ``csrc/flash_attention.cu`` for fp32, ``csrc/flash_wgmma.cu`` for
+    bf16."""
+    name, fn = _KERNELS[dtype]
+    return build.load(name, {fn: _ARGS})
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -93,6 +103,13 @@ def _check_inputs(q, k, v, window):
                              f"backward")
     if window < 0:
         raise ValueError(f"window {window} < 0")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % TMA_ALIGN:
+                raise ValueError(
+                    f"{name}: base address not {TMA_ALIGN}-byte aligned (a "
+                    f"view with an offset?); the bf16 kernel's TMA loads "
+                    f"need it")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -104,10 +121,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     Replaces ``repro/kernels/flash_attention.py`` · ``flash_attention``
     (``_flash_kernel``, grid (b·h, tq/128, tk/128) over VMEM tiles). Bound
-    on the H100 at the serve shapes: operations (4·dh flops per visible
-    query-key pair). Design: one CTA per (b·h, 64-query tile) walks the kv
-    tiles of its causal/window band with fp32 FMAs, scores and accumulator
-    in registers, K/V tiles in shared memory (``csrc/flash_attention.cu``).
+    on the H100 at the serve shapes: operations, 4·dh flops per visible
+    query-key pair (0.352 ms of bf16 tensor-core work at b=4, t=4,608, h=8,
+    dh=256). Design for bf16 (``csrc/flash_wgmma.cu``): one CTA per
+    (b·h, 128-query tile), longest tiles first; a producer warpgroup
+    streams 64-key K/V tiles by TMA through a 2-stage mbarrier ring; two
+    consumer warpgroups run S = Q Kᵀ and O += P V on wgmma (P rounded to
+    bf16 in registers, the denominator summed from that rounded P), the
+    softmax on the accumulators in registers; the tensor maps are encoded
+    on the host for each call. fp32 (``csrc/flash_attention.cu``): one
+    CTA per (b·h, 64-query tile) walks the kv tiles of its causal/window
+    band with fp32 FMAs on the CUDA cores, exact to the reference's 2e-5.
     """
     if build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -116,10 +140,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     b, tq, h, dh = q.shape
     tk, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    fn = _KERNELS[q.dtype][1]
     LAUNCHES["flash_attention"] += 1
-    build.check(library().flash_attention_fwd(
+    build.check(getattr(library(q.dtype), fn)(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, tq, tk,
-        h, kvh, dh, int(q.dtype == torch.bfloat16),
-        float(np.float32(1.0 / np.sqrt(dh))), float(softcap), int(causal),
-        int(window), build.stream()), "flash_attention_fwd")
+        h, kvh, dh, float(np.float32(1.0 / np.sqrt(dh))), float(softcap),
+        int(causal), int(window), build.stream()), fn)
     return out

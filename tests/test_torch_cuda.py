@@ -217,6 +217,86 @@ def test_flash_kernel_matches_plain_version(dev, b, t, h, kv, dh, window,
     assert float((out.float() - want.float()).abs().max()) <= tol
 
 
+def _assert_bf16_gates(out, want):
+    """chip_smoke.py's bf16 gates: max |Δ| ≤ 3e-2, per row of dh outputs
+    max |Δ| ≤ 2^-7·max|want_row| + 1e-3, ‖Δ‖ ≤ 1e-2·‖want‖."""
+    out, want = out.float(), want.float()
+    err = (out - want).abs()
+    row_excess = err.amax(-1) - (2.0 ** -7 * want.abs().amax(-1) + 1e-3)
+    rel = float(torch.linalg.vector_norm(err)
+                / torch.linalg.vector_norm(want))
+    assert bool(torch.isfinite(out).all())
+    assert float(err.max()) <= 3e-2 and float(row_excess.max()) <= 0.0 \
+        and rel <= 1e-2, (float(err.max()), float(row_excess.max()), rel)
+
+
+# (b, t, h, kv, dh, window, softcap) for the tensor-core kernel's tiling:
+# ragged lengths (200, 320: the last 128-query and 64-key tiles cut short),
+# window edges that cross a 64-key tile, GQA groups 1, 2, 4 and 8
+WGMMA_CASES = [(2, 200, 8, 4, 256, 0, 50.0), (1, 320, 8, 4, 256, 0, 50.0),
+               (2, 320, 8, 4, 256, 100, 50.0), (1, 512, 8, 4, 256, 160, 50.0),
+               (1, 320, 4, 2, 128, 37, 30.0)] + [
+    (2, 256, 8, kv, 128, 0, 50.0) for kv in (8, 4, 2, 1)]
+
+
+@pytest.mark.parametrize("b,t,h,kv,dh,window,cap", WGMMA_CASES)
+def test_flash_bf16_kernel_tiles_and_groups(dev, b, t, h, kv, dh, window,
+                                            cap):
+    q, k, v = _qkv(dev, b, t, h, kv, dh, torch.bfloat16, seed=3)
+    fa.reset_launches()
+    out = fa.flash_attention(q, k, v, window=window, softcap=cap)
+    want = fa.flash_attention_plain(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 1}
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _assert_bf16_gates(out, want)
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_flash_bf16_every_head_dim(dev, dh):
+    """Each head dim's panels and swizzle (128, 64 and 32 bytes) on a
+    ragged length with a window edge inside a key tile."""
+    q, k, v = _qkv(dev, 2, 320, 4, 2, dh, torch.bfloat16, seed=dh)
+    out = fa.flash_attention(q, k, v, window=100, softcap=50.0)
+    want = fa.flash_attention_plain(q, k, v, window=100, softcap=50.0)
+    torch.cuda.synchronize()
+    _assert_bf16_gates(out, want)
+
+
+def test_flash_bf16_kernel_is_deterministic(dev):
+    q, k, v = _qkv(dev, 2, 1024, 8, 4, 256, torch.bfloat16, seed=9)
+    one = fa.flash_attention(q, k, v, window=300, softcap=50.0)
+    two = fa.flash_attention(q, k, v, window=300, softcap=50.0)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+def _shifted(x, elems):
+    """A contiguous copy of x whose base lies ``elems`` elements into its
+    storage."""
+    flat = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    out = flat[elems:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def test_flash_bf16_refuses_unaligned_base(dev):
+    """The bf16 kernel loads by TMA, whose tensor maps need a 16-byte
+    aligned base: a contiguous view with an offset is refused, unlaunched."""
+    q, k, v = _qkv(dev, 1, 128, 4, 2, 64, torch.bfloat16)
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="q: base address"):
+        fa.flash_attention(_shifted(q, 1), k, v)
+    with pytest.raises(ValueError, match="k: base address"):
+        fa.flash_attention(q, _shifted(k, 4), v)
+    with pytest.raises(ValueError, match="v: base address"):
+        fa.flash_attention(q, k, _shifted(v, 2))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 0
+    out = fa.flash_attention(q, k, _shifted(v, 8))   # 16 bytes: taken
+    _assert_bf16_gates(out, fa.flash_attention_plain(q, k, v))
+
+
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
     q, k, v = _qkv(dev, 1, 128, 4, 2, 64, torch.float32)
     fa.reset_launches()

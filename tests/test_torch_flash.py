@@ -88,3 +88,109 @@ def test_cpu_wrapper_runs_plain_version_and_counts_nothing():
     want = fa.flash_attention_plain(q, k, v, window=32, softcap=10.0)
     assert torch.equal(out, want)
     assert fa.LAUNCHES == {"flash_attention": 0}
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernel's arithmetic (csrc/flash_wgmma.cu), emulated
+# ---------------------------------------------------------------------------
+
+# the card's bf16 gates in chip_smoke.py: max |Δ| ≤ 3e-2; per row of dh
+# outputs max |Δ| ≤ 2^-7·max|want_row| + 1e-3; ‖Δ‖ ≤ 1e-2·‖want‖
+ROW_TOL, REL_TOL = (2.0 ** -7, 1e-3), 1e-2
+EMU_BQ, EMU_BK = 128, 64      # the kernel's query and key tiles
+
+
+def _emulate_wgmma_kernel(q, k, v, *, window=0, softcap=0.0, round_p=True):
+    """What the bf16 kernel computes, step by step: one 128-query tile at a
+    time walks the 64-key tiles of its causal/window band; scores in fp32
+    (products of bf16 values are exact), scale, softcap, -1e30 for masked
+    entries and -inf for keys past tk; online max and sum in fp32 from
+    m = -1e30; P rounded to bf16 before P V, the denominator summed from
+    that rounded P; floored at 1e-30; output rounded to bf16. q: (b, tq, h,
+    dh), k, v: (b, tk, kv, dh) bf16 tensors. ``round_p=False`` keeps P in
+    fp32."""
+    b, tq, h, dh = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = float(np.float32(1.0 / np.sqrt(dh)))
+    qf = q.float().reshape(b, tq, kvh, g, dh)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, tq, kvh, g, dh))
+    for q0 in range(0, tq, EMU_BQ):
+        q1 = min(q0 + EMU_BQ, tq)
+        rows = torch.arange(q0, q1)[:, None]
+        k_begin = max(0, q0 - window + 1) if window else 0
+        m = torch.full((b, kvh, g, q1 - q0), -1e30)
+        den = torch.zeros_like(m)
+        acc = torch.zeros((b, kvh, g, q1 - q0, dh))
+        for k0 in range(k_begin // EMU_BK * EMU_BK, min(tk, q1), EMU_BK):
+            k1 = min(k0 + EMU_BK, tk)
+            keys = torch.arange(k0, k0 + EMU_BK)[None, :]
+            s = torch.einsum("btkgd,bskd->bkgts", qf[:, q0:q1],
+                             kf[:, k0:k1]) * scale
+            s = torch.nn.functional.pad(s, (0, k0 + EMU_BK - k1))
+            if softcap:
+                s = softcap * torch.tanh(s / softcap)
+            keep = rows >= keys
+            if window:
+                keep &= keys > rows - window
+            s = torch.where(keep, s, -1e30)
+            s = torch.where(keys < tk, s, -torch.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            if round_p:
+                p = p.to(torch.bfloat16).float()
+            den = alpha * den + p.sum(-1)
+            vt = torch.nn.functional.pad(vf[:, k0:k1],
+                                         (0, 0, 0, 0, 0, k0 + EMU_BK - k1))
+            acc = alpha[..., None] * acc + torch.einsum("bkgts,bskd->bkgtd",
+                                                        p, vt)
+            m = m_new
+        o = acc / torch.clamp(den, min=1e-30)[..., None]
+        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, tq, h, dh).to(torch.bfloat16)
+
+
+def _gate_stats(got, want):
+    err = np.abs(got - want)
+    rel, floor = ROW_TOL
+    row_excess = err.max(-1) - (rel * np.abs(want).max(-1) + floor)
+    return (float(err.max()), float(row_excess.max()),
+            float(np.linalg.norm(err) / np.linalg.norm(want)))
+
+
+@pytest.mark.parametrize("b,t,h,kv,dh,window,cap", [
+    (1, 512, 8, 4, 256, 0, 50.0),      # gemma2-2b global, cut in length
+    (1, 512, 8, 4, 256, 160, 50.0),    # a window that binds, mid-tile edge
+    (2, 256, 8, 1, 256, 0, 50.0),      # MQA
+    (1, 320, 4, 2, 256, 100, 50.0),    # ragged q tile, window
+    (1, 256, 8, 4, 64, 0, 0.0)])       # llama-like heads, no softcap
+def test_wgmma_arithmetic_meets_the_card_gates(b, t, h, kv, dh, window,
+                                                cap):
+    """bf16 P (the one rounding the tensor-core kernel adds) keeps the
+    output within the card's three bf16 gates of the JAX reference."""
+    q, k, v = _qkv(b, t, h, kv, dh, seed=21)
+    qb, kb, vb = (tt(a, torch.bfloat16) for a in (q, k, v))
+    got = npy(_emulate_wgmma_kernel(qb, kb, vb, window=window,
+                                    softcap=cap).float())
+    want = np.asarray(ref.flash_attention_ref(
+        *(jnp.asarray(npy(x.float())).astype(jnp.bfloat16)
+          for x in (qb, kb, vb)), window=window, softcap=cap), np.float32)
+    max_err, row_excess, rel = _gate_stats(got, want)
+    assert max_err <= BF16_TOL and row_excess <= 0.0 and rel <= REL_TOL, \
+        (max_err, row_excess, rel)
+
+
+def test_wgmma_emulation_is_the_plain_version_but_for_bf16_p():
+    """With P kept in fp32 the emulation's online softmax over 64-key tiles
+    is the plain version up to fp32 summation order: the tiling, masks and
+    -1e30/-inf fills add no error of their own."""
+    q, k, v = (tt(a, torch.bfloat16) for a in _qkv(1, 320, 4, 2, 64, 23))
+    emu = _emulate_wgmma_kernel(q, k, v, window=100, softcap=30.0,
+                                round_p=False).float()
+    plain = fa.flash_attention_plain(q, k, v, window=100,
+                                     softcap=30.0).float()
+    # one bf16 ulp of each output at most: both round an fp32 result
+    ulp = 2.0 ** -7 * plain.abs().clamp(min=2.0 ** -126)
+    assert bool(((emu - plain).abs() <= ulp).all())
