@@ -6,7 +6,9 @@
 From the root of a checkout: builds the CUDA kernels of
 ``src/repro_torch/kernels/csrc/`` with nvcc (one compiler per source, all
 started together), holds each kernel against its plain PyTorch version on
-the card and times both, then drives the port's four paths:
+the card and times both (``fused_encode`` and ``fused_decode`` also with
+their profiled device time a launch, their cluster size and CTA count, and
+their mismatch counts), then drives the port's four paths:
 
 * the kernels' public API (``kernels/ops.py``) as a user calls it:
   ``rotate_blocks``, ``lattice_encode``, ``lattice_decode`` and the inverse
@@ -121,6 +123,19 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, symbol: str, iters: int = 20) -> float:
+    """Mean device ms a launch of the kernel whose symbol holds ``symbol``,
+    from torch.profiler over ``iters`` calls of ``fn`` after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return ms_per_launch(device_events(prof), {"k": symbol})["k"]
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -161,7 +176,8 @@ def kernel_cases(kx, dev, gen, m, d_pad, bits, pack, levels=None):
     # scales at which y/γ spans the ring a few times: codes wrap
     gam = (y_plain.abs().amax(dim=1) / L_col[:, 0] / 2).contiguous()
     res = {"m": m, "d_pad": d_pad, "bits": bits, "pack": pack,
-           "levels": levels is not None}
+           "levels": levels is not None,
+           "encode_launch": kx.launch_geometry(m, d_pad, pack=pack)}
 
     # rotation, both directions
     rot_err = 0.0
@@ -249,10 +265,30 @@ def time_kernels(kx, io, m, d_pad, bits, pack, peak_bw):
                                            **kw)),
         plain_ms=time_ms(lambda: kx.encode_plain(x, sg, u, gam,
                                                  want_rotated=True, **kw)),
-        bound_ms=eb, bound_by=eby, library_ms=None, shape=[m, d_pad])
+        bound_ms=eb, bound_by=eby, library_ms=None, shape=[m, d_pad],
+        launch=kx.launch_geometry(m, d_pad, pack=pack),
+        kernel_device_ms=kernel_device_ms(
+            lambda: kx.fused_encode(x, sg, u, gam, want_rotated=True, **kw),
+            KERNEL_SYMBOLS["fused_encode"]))
+
+    # fused_encode of one message with its own sign row, no y: a baseline's
+    # uplink (FedBuff's delta)
+    x1, u1, g1 = x[:1].contiguous(), u[:1].contiguous(), gam[:1].contiguous()
+    s1 = sg[None].contiguous()
+    c1 = kx.fused_encode(x1, s1, u1, g1, **kw)
+    e1b, e1by = bound(nbytes(x1, s1, u1, g1) + nbytes(c1),
+                      d_pad * (log_b + 2 + QUANTIZE_OPS), peak_bw)
+    out["fused_encode_1"] = dict(
+        ms=time_ms(lambda: kx.fused_encode(x1, s1, u1, g1, **kw)),
+        plain_ms=time_ms(lambda: kx.encode_plain(x1, s1, u1, g1, **kw)),
+        bound_ms=e1b, bound_by=e1by, library_ms=None, shape=[1, d_pad],
+        launch=kx.launch_geometry(1, d_pad, pack=pack),
+        kernel_device_ms=kernel_device_ms(
+            lambda: kx.fused_encode(x1, s1, u1, g1, **kw),
+            KERNEL_SYMBOLS["fused_encode"]))
 
     # quantize_codes: the downlink Enc(X_t), one message
-    y1, u1, g1 = y[:1].contiguous(), u[:1].contiguous(), gam[:1].contiguous()
+    y1 = y[:1].contiguous()
     c1 = kx.quantize_codes(y1, u1, g1, bits=bits, pack=pack)
     qb, qby = bound(nbytes(y1, u1, g1) + nbytes(c1), d_pad * QUANTIZE_OPS,
                     peak_bw)
@@ -302,6 +338,8 @@ def decode_case(kx, dev, gen, m, d_pad, bits, pack, *, mr=1, sign_rows=False,
     err = float((out - want).abs().max())
     res = {"m": m, "mr": mr, "d_pad": d_pad, "bits": bits, "pack": pack,
            "sign_rows": sign_rows, "levels": levels is not None,
+           "launch": kx.launch_geometry(m, d_pad, pack=pack),
+           "decode_mismatches": int((out != want).sum()),
            "decode_max_abs_err": err,
            "decode_rel_err": err / float(x.abs().max()),
            "decode_vs_x_max": float((out - x).abs().max()),
@@ -328,11 +366,15 @@ def time_decode(kx, io, peak_bw):
                     m * d_pad * (2 * log_b + 4 + SNAP_OPS), peak_bw)
     return dict(ms=time_ms(lambda: kx.fused_decode(codes, ref, sg, gam,
                                                    **kw)),
+                kernel_device_ms=kernel_device_ms(
+                    lambda: kx.fused_decode(codes, ref, sg, gam, **kw),
+                    KERNEL_SYMBOLS["fused_decode"]),
                 plain_ms=time_ms(lambda: kx.decode_plain(codes, ref, sg, gam,
                                                          **kw)),
                 bound_ms=db, bound_by=dby, library_ms=None,
                 shape=[m, d_pad], ref_rows=int(ref.shape[0]),
-                sign_rows=int(sg.dim() == 2))
+                sign_rows=int(sg.dim() == 2),
+                launch=kx.launch_geometry(m, d_pad, pack=kw["pack"]))
 
 
 # ---------------------------------------------------------------------------
@@ -576,11 +618,11 @@ def injected_cfa_round(dev, alg_cuda, state, data, gen):
     return float((servers[0] - servers[1]).abs().max()), max(steps)
 
 
-KERNEL_SYMBOLS = {"fused_encode": "encode_kernel",
+KERNEL_SYMBOLS = {"fused_encode": "encode_cluster_kernel",
                   "fused_rotate": "rotate_kernel",
                   "quantize_codes": "quantize_kernel",
                   "snap_codes": "snap_kernel",
-                  "fused_decode": "decode_kernel"}
+                  "fused_decode": "decode_cluster_kernel"}
 
 
 def device_events(prof):
@@ -674,18 +716,22 @@ CONSIST_TOL = 1e-3                # fp32 prefill vs decode, x max|logit|
 
 def ptxas_summary(log: str) -> dict:
     """Registers, shared memory and spills of each kernel from nvcc's
-    -Xptxas=-v output; template instantiations named <type>, <type,dh>
-    or <dh>."""
+    -Xptxas=-v output; template instantiations named <type>, <type,dh>,
+    <dh> (<dh,empty_rows> for the bf16 flash kernel that checks for query
+    rows that see no key) or, for the exchange's cluster kernels, <cluster
+    size>."""
     out, fn = {}, None
     for ln in log.splitlines():
         hit = re.search(r"Compiling entry function '.*?([a-z][a-z_]*_kernel)"
-                        r"(I(f|13__nv_bfloat16)?(Li(\d+))?E)?", ln)
+                        r"(I(f|13__nv_bfloat16)?(Li(\d+))?E(Lb1E)?)?", ln)
         if hit:
             fn = hit.group(1)
             if hit.group(2):
                 dtype = {"f": "f32", "13__nv_bfloat16": "bf16"}.get(
                     hit.group(3))
-                fn += f"<{','.join(a for a in (dtype, hit.group(5)) if a)}>"
+                flag = "empty_rows" if hit.group(6) else None
+                args = (a for a in (dtype, hit.group(5), flag) if a)
+                fn += f"<{','.join(args)}>"
         elif fn and ("registers" in ln or "spill" in ln):
             info = ln.split(":", 1)[-1].strip()
             out[fn] = f"{out[fn]}; {info}" if fn in out else info
@@ -1207,8 +1253,10 @@ def main() -> int:
     for lib_name, (path, nvcc_s, log) in built.items():
         ptxas = ptxas_summary(log)
         for fn, smem in wgmma_smem.items():
-            if fn in ptxas:
-                ptxas[fn] += f"; {smem} bytes dynamic shared memory a CTA"
+            for key in (fn, fn[:-1] + ",empty_rows>"):
+                if key in ptxas:
+                    ptxas[key] += (f"; {smem} bytes dynamic shared memory"
+                                   " a CTA")
         emit({"phase": "build", "source": f"src/repro_torch/kernels/csrc/"
               f"{lib_name}.cu", "arch": "sm_90a",
               "flags": " ".join(build.NVCC_FLAGS),

@@ -30,7 +30,12 @@
 //     skipped. Masked entries inside a visited tile get -1e30, as in the
 //     reference: a row fully masked in one tile takes p = exp(0) there,
 //     and the next tile's alpha = exp(-1e30 - m) = 0 wipes it. Keys past
-//     tk (a ragged last tile) get -inf and so weigh nothing.
+//     tk (a ragged last tile) get -inf and so weigh nothing;
+//   * a query tile that holds a row whose band is empty (has_empty_row)
+//     walks every kv tile instead: that row's scores are all -1e30, so it
+//     comes out the mean of V over all tk keys, as in the reference, and
+//     the other rows do not change (alpha = 0 at their first visible tile,
+//     p = 0 past their band).
 //
 // Numerics, as the reference: s = (q . k) * scale, then the softcap
 // cap * tanh(s / cap), then the mask; fp32 softmax and accumulation; the
@@ -57,6 +62,14 @@ constexpr int kThreads = 256;
 constexpr float kMaskFill = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+
+// True when a query row up to q_last sees no key: with a window, rows
+// qi >= tk + window - 1 lie past the band of every key (causal or not).
+// Prefill (tq == tk) never has one.
+__device__ __forceinline__ bool has_empty_row(int q_last, int tk,
+                                              int window) {
+  return window > 0 && q_last >= tk + window - 1;
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 template <int DH>
@@ -111,10 +124,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  // the kv tiles that hold a key some query of this tile may see
+  // the kv tiles that hold a key some query of this tile may see, or all
+  // of them for a tile with an empty-band row
   const int q_last = min(q0 + kBQ, tq) - 1;
-  const int k_end = causal ? min(tk, q_last + 1) : tk;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const bool walk_all = has_empty_row(q_last, tk, window);
+  const int k_end = causal && !walk_all ? min(tk, q_last + 1) : tk;
+  const int k_begin =
+      window > 0 && !walk_all ? max(0, q0 - window + 1) : 0;
   const int kt_begin = k_begin / kBK;
   const int kt_end = (k_end + kBK - 1) / kBK;
 

@@ -37,7 +37,15 @@
 //     RS form, no trip through shared memory), V is read MN-major (the
 //     transpose bit), m64n{dh}k16;
 //   * kv tiles wholly outside the causal/window band of the CTA are not
-//     loaded; a warpgroup skips the tiles outside its own rows' band.
+//     loaded; a warpgroup skips the tiles outside its own rows' band. A
+//     CTA that holds a row whose band is empty (has_empty_row) loads every
+//     kv tile and neither warpgroup skips one: that row's scores are all
+//     -1e30, so it comes out the mean of V over all tk keys, as in the
+//     reference, and the other rows do not change (alpha = 0 at their
+//     first visible tile, p = 0 past their band). Only a launch that can
+//     have such a row (tq > tk + window - 1) takes the EMPTY_ROWS
+//     instantiation that checks for one; prefill (tq == tk) runs the one
+//     without the check, where walk_all folds to false;
 //   * no split-KV and no atomics: the result is deterministic.
 //
 // Numerics, as the reference: s = (q . k) * scale, then cap * tanh(s /
@@ -71,6 +79,7 @@ constexpr int kConsumers = 256;  // two consumer warpgroups
 // consumers, 256 x (240 - 168); the pool is the CTA's own
 constexpr int kThreads = kConsumers + 128;
 constexpr float kMaskFill = -1e30f;
+constexpr int kFarRow = 1 << 29;  // past any row or key index, no overflow
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory plan of one CTA for head dim DH (bytes, from a 1024-aligned
@@ -89,6 +98,14 @@ struct Plan {
   static constexpr int BYTES = BARS + 7 * 8 + 1024;  // + alignment slack
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
 };
+
+// True when a query row up to q_last sees no key: with a window, rows
+// qi >= tk + window - 1 lie past the band of every key (causal or not).
+// Prefill (tq == tk) never has one.
+__host__ __device__ __forceinline__ bool has_empty_row(int q_last, int tk,
+                                                       int window) {
+  return window > 0 && q_last >= tk + window - 1;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -359,7 +376,7 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int DH>
+template <int DH, bool EMPTY_ROWS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -378,10 +395,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kvi = hi / (nh / kvh);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
 
-  // the kv tiles that hold a key some query of this CTA may see
+  // the kv tiles that hold a key some query of this CTA may see, or all
+  // of them for a CTA with an empty-band row
   const int q_last = min(q0 + kBQ, tq) - 1;
-  const int k_end = causal ? min(tk, q_last + 1) : tk;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const bool walk_all = EMPTY_ROWS && has_empty_row(q_last, tk, window);
+  const int k_end = causal && !walk_all ? min(tk, q_last + 1) : tk;
+  const int k_begin =
+      window > 0 && !walk_all ? max(0, q0 - window + 1) : 0;
   const int kt_begin = k_begin / kBK;
   const int n_tiles = max(0, (k_end + kBK - 1) / kBK - kt_begin);
 
@@ -431,7 +451,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // each group of 8: col0 and col0 + 1
     const int row0 = q0 + 64 * wg + 16 * warp + (lane >> 2);
     const int col0 = 2 * (lane & 3);
-    const int qw0 = q0 + 64 * wg, qw1 = qw0 + 63;
+    // the warpgroup's rows, for skipping tiles outside their band and
+    // masking tiles across its edges; unbounded in a CTA that walks every
+    // tile, so that none is skipped and every one is masked
+    const int qw0 = walk_all ? -kFarRow : q0 + 64 * wg;
+    const int qw1 = walk_all ? kFarRow : q0 + 64 * wg + 63;
     const float inv_cap = cap != 0.f ? 1.f / cap : 0.f;
     const uint32_t qa = base + P::Q + wg * P::TILE;
     constexpr uint32_t kSBO = 8 * P::SW;  // 8 rows of a panel
@@ -626,13 +650,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (res == CUDA_SUCCESS) res = encode_map<DH>(fn, &kmap, k, b, tk, kvh);
   if (res == CUDA_SUCCESS) res = encode_map<DH>(fn, &vmap, v, b, tk, kvh);
   if (res != CUDA_SUCCESS) return kEncodeFailed + (int)res;
+  auto kernel = has_empty_row(tq - 1, tk, window)
+                    ? flash_wgmma_kernel<DH, true>
+                    : flash_wgmma_kernel<DH, false>;
   constexpr int smem = Plan<DH>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(b * h, (tq + kBQ - 1) / kBQ);
-  flash_wgmma_kernel<DH><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       qmap, kmap, vmap, (__nv_bfloat16*)o, tq, tk, h, kvh, scale, cap, causal,
       window);
   return (int)cudaGetLastError();

@@ -189,16 +189,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "exch_rotate": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "exch_encode": [_P, _P, _I, _P, _P, _I, _P, _I, _F, _P, _P, _P, _I, _I,
-                    _I, _I, _I, _I, _F, _P],
+                    _I, _I, _I, _I, _F, _I, _P],
     "exch_quantize": [_P, _P, _P, _I, _P, _I, _F, _P, _P, _I, _I, _I, _I,
                       _I, _I, _P],
     "exch_snap": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _F, _P, _I, _I, _I,
                   _I, _I, _I, _P],
     "exch_decode": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _F, _P, _I,
-                    _I, _I, _I, _I, _I, _F, _P],
+                    _I, _I, _I, _I, _I, _F, _I, _P],
 }
 # the largest block one CTA holds in shared memory (227 KB on Hopper)
 _MAX_SHARED_BLOCK = 232_448 // 4
+# fused_encode and fused_decode split a Hadamard block across a cluster of
+# CTAs, each holding a chunk of _CHUNK coordinates (8 a thread), at most
+# _MAX_CLUSTER of them (the portable cluster size)
+_CHUNK, _MAX_CLUSTER = 2048, 8
 
 
 def library():
@@ -251,6 +255,29 @@ def _geometry(d_pad, block, bits, pack):
     return b, c
 
 
+def cluster_size(b: int, r: int, pack: int) -> int:
+    """CTAs in the cluster that holds one b-block in ``fused_encode`` and
+    ``fused_decode``: b / 2,048, at most 8, and at most r / pack, so that
+    each CTA's chunk of the (r, c) block holds whole groups of ``pack``
+    rows (a packed byte never spans two CTAs); 1 for b <= 2,048."""
+    return max(1, min(_MAX_CLUSTER, b // _CHUNK, r // pack))
+
+
+def launch_geometry(m: int, d_pad: int, *, block=DEFAULT_BLOCK, pack=1):
+    """The grid of a ``fused_encode`` or ``fused_decode`` launch on m
+    messages: cluster size, CTAs, threads a CTA and coordinates a CTA."""
+    b, _, r, _, nb = block_geometry(d_pad, block)
+    cluster = cluster_size(b, r, pack)
+    chunk = b // cluster
+    return {"cluster": cluster, "ctas": m * nb * cluster,
+            "threads": max(32, chunk // 8), "chunk": chunk}
+
+
+@lru_cache(maxsize=64)
+def _cluster(d_pad, block, pack):
+    return launch_geometry(1, d_pad, block=block, pack=pack)["cluster"]
+
+
 def fused_rotate(x2, signs, *, block=DEFAULT_BLOCK, inverse=False):
     """Batched randomized-Hadamard rotation (m, d_pad) -> (m, d_pad).
 
@@ -296,9 +323,13 @@ def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
 
     Replaces ``repro/kernels/exchange.py`` · ``fused_encode``
     (``_encode_kernel``). Bound on the H100: bytes, 16 per coordinate with
-    y kept (x, u, y, int32 codes). Design: the rotated block stays in shared
-    memory from the butterfly to the quantize and the packing, so y is
-    written once (for the decode reference) and never read back.
+    y kept (x, u, y, int32 codes); at the paths' 1-16 messages, latency.
+    Design: a cluster of :func:`cluster_size` CTAs holds each block (2,048
+    coordinates a CTA, 8 a thread), runs the butterfly in registers, across
+    lanes, through shared memory and last across the cluster's shared
+    memory, and keeps the rotated block on the SMs through the quantize and
+    the packing, so y is written once (for the decode reference) and never
+    read back.
     """
     if build.on_cpu(x2, signs, u2, gammas, levels2):
         return encode_plain(x2, signs, u2, gammas, bits=bits, block=block,
@@ -306,6 +337,7 @@ def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
                             levels2=levels2)
     m, d_pad = x2.shape
     b, c = _geometry(d_pad, block, bits, pack)
+    cluster = _cluster(d_pad, block, pack)
     _require(x2, "x2", torch.float32, (m, d_pad))
     s_stride = _sign_stride(signs, m, d_pad)
     _require(u2, "u2", torch.float32, (m, d_pad))
@@ -320,7 +352,7 @@ def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
         build.ptr(x2), build.ptr(signs), s_stride, build.ptr(u2),
         build.ptr(gammas), g_stride, build.ptr(lv), lv_stride, lv_default,
         build.ptr(codes32), build.ptr(codes8), build.ptr(y), m, d_pad, b, c,
-        bits, pack, _scale(b), build.stream()), "exch_encode")
+        bits, pack, _scale(b), cluster, build.stream()), "exch_encode")
     codes = codes32 if pack == 1 else codes8
     return (y, codes) if want_rotated else codes
 
@@ -405,11 +437,13 @@ def fused_decode(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
     Replaces ``repro/kernels/exchange.py`` · ``fused_decode``
     (``_decode_kernel``, four MXU matmuls per (r, c) block). Bound on the
     H100: bytes, 8 per output coordinate (int32 code or packed byte share,
-    fp32 output) plus the broadcast side and the shared signs read once.
-    Design: one CTA per (message, block) holds the block in shared memory
+    fp32 output) plus the broadcast side and the shared signs read once; at
+    the paths' one message, latency. Design: a cluster of
+    :func:`cluster_size` CTAs holds each (message, block) pair on the SMs
     from the reference's rotation through the snap to the inverse rotation,
-    two butterflies of log2(b) stages, so neither the rotated reference nor
-    the snapped point touches device memory.
+    two butterflies as ``fused_encode``'s (each with its own exchange across
+    the cluster), so neither the rotated reference nor the snapped point
+    touches device memory.
     """
     if build.on_cpu(codes2, ref2, signs, gammas, levels2):
         return decode_plain(codes2, ref2, signs, gammas, bits=bits,
@@ -421,6 +455,7 @@ def fused_decode(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
         raise ValueError(f"codes {tuple(codes2.shape)} (pack={pack}) do not "
                          f"broadcast against refs {tuple(ref2.shape)}")
     b, c = _geometry(d_pad, block, bits, pack)
+    cluster = _cluster(d_pad, block, pack)
     _require(codes2, "codes2", torch.int32 if pack == 1 else torch.uint8,
              (mc, d_padp))
     _require(ref2, "ref2", torch.float32, (mr, d_pad))
@@ -434,5 +469,5 @@ def fused_decode(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
         build.ptr(c32), build.ptr(c8), mc, build.ptr(ref2), mr,
         build.ptr(signs), s_stride, build.ptr(gammas), g_stride, build.ptr(lv),
         lv_stride, lv_default, build.ptr(out), m, d_pad, b, c, bits, pack,
-        _scale(b), build.stream()), "exch_decode")
+        _scale(b), cluster, build.stream()), "exch_decode")
     return out

@@ -188,6 +188,113 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     assert kx.LAUNCHES["fused_encode"] == 0
 
 
+# ---------------------------------------------------------------------------
+# the cluster kernels of fused_encode and fused_decode, bit for bit
+# ---------------------------------------------------------------------------
+
+CLUSTER_SHAPES = [(m, d) for m in (1, 16, 300)
+                  for d in (4096, 8192, 32_768, 1 << 20)]
+
+
+def _ref_rows(dev, x, gam, seed=1):
+    """References near x: x + 0.1 γ N(0, 1), one row per message."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return x + 0.1 * gam[:, None] * torch.randn(x.shape, generator=g,
+                                                device=dev)
+
+
+def _decode_cases(codes, ref, gam, lv=None):
+    """(codes, refs, γ, levels): m codes against m references, m codes
+    against one reference, one code row against m references."""
+    one = (lambda t: None if t is None else t[:1].contiguous())
+    return [(codes, ref, gam, lv), (codes, one(ref), gam, lv),
+            (one(codes), ref, one(gam), one(lv))]
+
+
+@pytest.mark.parametrize("bits,pack", WIRES)
+@pytest.mark.parametrize("m,d_pad", CLUSTER_SHAPES)
+def test_cluster_kernels_equal_plain_versions(dev, m, d_pad, bits, pack):
+    x, sg, u, gam = _inputs(dev, m, d_pad, bits)
+    kw = dict(bits=bits, pack=pack)
+    y, codes = kx.fused_encode(x, sg, u, gam, want_rotated=True, **kw)
+    y_p, codes_p = kx.encode_plain(x, sg, u, gam, want_rotated=True, **kw)
+    assert torch.equal(y, y_p) and torch.equal(codes, codes_p)
+    assert torch.equal(kx.fused_encode(x, sg, u, gam, **kw), codes_p)
+    del y, y_p, u
+    ref = _ref_rows(dev, x, gam)
+    for c, r, g, _ in _decode_cases(codes, ref, gam):
+        assert torch.equal(kx.fused_decode(c, r, sg, g, **kw),
+                           kx.decode_plain(c, r, sg, g, **kw))
+    torch.cuda.synchronize()
+
+
+# (m, d_pad, block): every cluster size the wrapper picks (1 at b <= 2,048,
+# then 2, 4, 8) and the 4,096-coordinate chunks of b = 32,768
+CLUSTER_GEOMETRIES = [(3, 32, 16_384), (3, 1024, 16_384), (5, 2048, 16_384),
+                      (5, 4096, 16_384), (5, 8192, 16_384),
+                      (5, 32_768, 16_384), (3, 65_536, 32_768)]
+
+
+@pytest.mark.parametrize("bits,pack", WIRES)
+@pytest.mark.parametrize("m,d_pad,block", CLUSTER_GEOMETRIES)
+def test_cluster_sizes_sign_rows_and_levels(dev, m, d_pad, block, bits,
+                                            pack):
+    b, _, r, _, _ = kx.block_geometry(d_pad, block)
+    geo = kx.launch_geometry(m, d_pad, block=block, pack=pack)
+    assert geo["cluster"] == kx.cluster_size(b, r, pack)
+    x, _, u, gam = _inputs(dev, m, d_pad, bits)
+    g = torch.Generator(device=dev)
+    g.manual_seed(d_pad)
+    sg_rows = signs(g, m * d_pad).reshape(m, d_pad)
+    lv = {8: [256.0, 16.0, 64.0, 2.0, 32.0],
+          4: [16.0, 4.0, 8.0, 2.0, 16.0]}.get(bits)
+    lv = None if lv is None else torch.tensor(lv[:m], device=dev)
+    kw = dict(bits=bits, pack=pack, block=block)
+    for sg in (sg_rows, sg_rows[0].contiguous()):
+        y, codes = kx.fused_encode(x, sg, u, gam, want_rotated=True,
+                                   levels2=lv, **kw)
+        y_p, codes_p = kx.encode_plain(x, sg, u, gam, want_rotated=True,
+                                       levels2=lv, **kw)
+        assert torch.equal(y, y_p) and torch.equal(codes, codes_p)
+        ref = _ref_rows(dev, x, gam)
+        for c, r_, g_, lv_ in _decode_cases(codes, ref, gam, lv):
+            assert torch.equal(
+                kx.fused_decode(c, r_, sg, g_, levels2=lv_, **kw),
+                kx.decode_plain(c, r_, sg, g_, levels2=lv_, **kw))
+    torch.cuda.synchronize()
+
+
+def test_cluster_kernels_are_deterministic(dev):
+    """Two calls give the same bits (a stale read of a peer's shared memory
+    would show as a rare difference)."""
+    for m in (16, 300):
+        x, sg, u, gam = _inputs(dev, m, 32_768, 4, seed=m)
+        ref = _ref_rows(dev, x, gam)
+        kw = dict(bits=4, pack=2)
+        one = kx.fused_encode(x, sg, u, gam, want_rotated=True, **kw)
+        two = kx.fused_encode(x, sg, u, gam, want_rotated=True, **kw)
+        assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+        d1 = kx.fused_decode(one[1], ref, sg, gam, **kw)
+        d2 = kx.fused_decode(one[1], ref, sg, gam, **kw)
+        assert torch.equal(d1, d2)
+    torch.cuda.synchronize()
+
+
+def test_cluster_kernels_refuse_a_block_past_shared_memory(dev):
+    """_MAX_SHARED_BLOCK refuses as before: a 65,536-block, unlaunched."""
+    x, sg, u, gam = _inputs(dev, 2, 65_536, 8)
+    codes = kx.encode_plain(x, sg, u, gam)
+    kx.reset_launches()
+    with pytest.raises(ValueError, match="exceeds"):
+        kx.fused_encode(x, sg, u, gam, block=65_536)
+    with pytest.raises(ValueError, match="exceeds"):
+        kx.fused_decode(codes, x, sg, gam, block=65_536)
+    torch.cuda.synchronize()
+    assert kx.LAUNCHES["fused_encode"] == 0
+    assert kx.LAUNCHES["fused_decode"] == 0
+
+
 # (b, t, h, kv, dh, window, softcap): the serve path's shapes, cut in
 # length, and the head dims of the reduced configs
 FLASH_CASES = [(2, 512, 8, 4, 256, 0, 50.0), (2, 512, 8, 4, 256, 128, 50.0),
@@ -269,6 +376,43 @@ def test_flash_bf16_kernel_is_deterministic(dev):
     two = fa.flash_attention(q, k, v, window=300, softcap=50.0)
     torch.cuda.synchronize()
     assert torch.equal(one, two)
+
+
+# (b, tq, tk, h, kv, dh, window, softcap, causal): tq > tk + window - 1,
+# so query rows qi >= tk + window - 1 see no key and the reference gives
+# each the mean of V over all tk keys; tq = 2 tk + 64 puts such rows in a
+# CTA of their own and beside rows that do see keys
+EMPTY_BAND_CASES = [(1, 256, 128, 2, 1, 32, 64, 0.0, True),
+                    (1, 320, 128, 2, 1, 32, 64, 0.0, True),
+                    (2, 320, 128, 8, 4, 256, 64, 50.0, True),
+                    (1, 320, 128, 2, 1, 32, 64, 0.0, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tq,tk,h,kv,dh,window,cap,causal",
+                         EMPTY_BAND_CASES)
+def test_flash_rows_that_see_no_key(dev, b, tq, tk, h, kv, dh, window, cap,
+                                    causal, dtype):
+    g = torch.Generator(device=dev)
+    g.manual_seed(tq + dh)
+    q = torch.randn((b, tq, h, dh), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, tk, kv, dh), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    fa.reset_launches()
+    out = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 1}
+    if dtype == torch.bfloat16:
+        _assert_bf16_gates(out, want)
+    else:
+        assert float((out - want).abs().max()) <= 2e-5
+    # the empty rows are the mean of V over every key, not 0
+    mean_v = v.float().mean(dim=1, keepdim=True).repeat_interleave(h // kv,
+                                                                   dim=2)
+    tail = out[:, tk + window - 1:].float()
+    assert float((tail - mean_v).abs().max()) <= 3e-2
 
 
 def _shifted(x, elems):

@@ -102,7 +102,8 @@ EMU_BQ, EMU_BK = 128, 64      # the kernel's query and key tiles
 
 def _emulate_wgmma_kernel(q, k, v, *, window=0, softcap=0.0, round_p=True):
     """What the bf16 kernel computes, step by step: one 128-query tile at a
-    time walks the 64-key tiles of its causal/window band; scores in fp32
+    time walks the 64-key tiles of its causal/window band (every tile when
+    one of its rows sees no key: qi >= tk + window - 1); scores in fp32
     (products of bf16 values are exact), scale, softcap, -1e30 for masked
     entries and -inf for keys past tk; online max and sum in fp32 from
     m = -1e30; P rounded to bf16 before P V, the denominator summed from
@@ -119,11 +120,13 @@ def _emulate_wgmma_kernel(q, k, v, *, window=0, softcap=0.0, round_p=True):
     for q0 in range(0, tq, EMU_BQ):
         q1 = min(q0 + EMU_BQ, tq)
         rows = torch.arange(q0, q1)[:, None]
-        k_begin = max(0, q0 - window + 1) if window else 0
+        walk_all = window > 0 and q1 - 1 >= tk + window - 1
+        k_begin = max(0, q0 - window + 1) if window and not walk_all else 0
+        k_end = tk if walk_all else min(tk, q1)
         m = torch.full((b, kvh, g, q1 - q0), -1e30)
         den = torch.zeros_like(m)
         acc = torch.zeros((b, kvh, g, q1 - q0, dh))
-        for k0 in range(k_begin // EMU_BK * EMU_BK, min(tk, q1), EMU_BK):
+        for k0 in range(k_begin // EMU_BK * EMU_BK, k_end, EMU_BK):
             k1 = min(k0 + EMU_BK, tk)
             keys = torch.arange(k0, k0 + EMU_BK)[None, :]
             s = torch.einsum("btkgd,bskd->bkgts", qf[:, q0:q1],
@@ -180,6 +183,28 @@ def test_wgmma_arithmetic_meets_the_card_gates(b, t, h, kv, dh, window,
     max_err, row_excess, rel = _gate_stats(got, want)
     assert max_err <= BF16_TOL and row_excess <= 0.0 and rel <= REL_TOL, \
         (max_err, row_excess, rel)
+
+
+def test_wgmma_arithmetic_rows_that_see_no_key():
+    """tq > tk + window - 1: rows 191-255 see no key, and the reference
+    gives each the mean of V over all tk keys. The kernel's CTA holding them
+    walks every kv tile, which the emulation follows; the other rows keep
+    their band."""
+    b, tq, tk, h, kv, dh, window = 1, 256, 128, 2, 1, 32, 64
+    q = gauss(31, (b, tq, h, dh))
+    k, v = gauss(32, (b, tk, kv, dh)), gauss(33, (b, tk, kv, dh))
+    qb, kb, vb = (tt(a, torch.bfloat16) for a in (q, k, v))
+    got = npy(_emulate_wgmma_kernel(qb, kb, vb, window=window).float())
+    want = np.asarray(ref.flash_attention_ref(
+        *(jnp.asarray(npy(x.float())).astype(jnp.bfloat16)
+          for x in (qb, kb, vb)), window=window), np.float32)
+    max_err, row_excess, rel = _gate_stats(got, want)
+    assert max_err <= BF16_TOL and row_excess <= 0.0 and rel <= REL_TOL, \
+        (max_err, row_excess, rel)
+    # the empty rows are the mean of V, not 0
+    mean_v = npy(vb.float()).mean(axis=1)[:, None]
+    np.testing.assert_allclose(got[:, tk + window - 1:], np.broadcast_to(
+        mean_v, got[:, tk + window - 1:].shape), atol=BF16_TOL, rtol=0)
 
 
 def test_wgmma_emulation_is_the_plain_version_but_for_bf16_p():
