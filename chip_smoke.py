@@ -6,9 +6,11 @@
 From the root of a checkout: builds the CUDA kernels of
 ``src/repro_torch/kernels/csrc/`` with nvcc (one compiler per source, all
 started together), holds each kernel against its plain PyTorch version on
-the card and times both (``fused_encode`` and ``fused_decode`` also with
-their profiled device time a launch, their cluster size and CTA count, and
-their mismatch counts), then drives the port's four paths:
+the card and times both (the exchange's cluster kernels, ``fused_rotate``,
+``fused_encode`` and ``fused_decode``, and ``snap_codes`` also with their
+profiled device time a launch at the paths' shapes and their grid; the
+encode and decode with their mismatch counts), then drives the port's four
+paths:
 
 * the kernels' public API (``kernels/ops.py``) as a user calls it:
   ``rotate_blocks``, ``lattice_encode``, ``lattice_decode`` and the inverse
@@ -187,7 +189,7 @@ def kernel_cases(kx, dev, gen, m, d_pad, bits, pack, levels=None):
         rot_err = max(rot_err, float((yk - yp).abs().max()
                                      / yp.abs().max()))
     res["rotate_rel_err"] = rot_err
-    assert rot_err <= ROT_TOL, res
+    assert rot_err == 0.0, res     # the same stages in the same order
 
     # fused encode vs plain encode
     kw = dict(bits=bits, pack=pack, levels2=lv)
@@ -239,9 +241,11 @@ def time_kernels(kx, io, m, d_pad, bits, pack, peak_bw):
     b = min(d_pad, 16_384)
     log_b = int(math.log2(b))
     n = m * d_pad
+    x1, u1, g1 = x[:1].contiguous(), u[:1].contiguous(), gam[:1].contiguous()
     out = {}
 
-    # fused_rotate: the inverse rotation of the s new client states
+    # fused_rotate: the inverse rotation of the s new client states, and
+    # (fused_rotate_1) the server's forward rotation, one message
     rb, rby = bound(nbytes(x, sg) + nbytes(x), n * (log_b + 2), peak_bw)
     from repro_torch.compression.rotation import _factor, hadamard_matrix
     r, c = _factor(b)
@@ -255,7 +259,21 @@ def time_kernels(kx, io, m, d_pad, bits, pack, peak_bw):
         bound_ms=rb, bound_by=rby,
         library_ms=time_ms(lambda: torch.einsum("ij,bjk,kl->bil", hr, xb,
                                                 hc)),
-        shape=[m, d_pad])
+        shape=[m, d_pad], launch=kx.launch_geometry(m, d_pad),
+        kernel_device_ms=kernel_device_ms(
+            lambda: kx.fused_rotate(x, sg, inverse=True),
+            KERNEL_SYMBOLS["fused_rotate"]))
+    r1b, r1by = bound(nbytes(x1, sg) + nbytes(x1), d_pad * (log_b + 2),
+                      peak_bw)
+    out["fused_rotate_1"] = dict(
+        ms=time_ms(lambda: kx.fused_rotate(x1, sg)),
+        plain_ms=time_ms(lambda: kx.rotate_plain(x1, sg)),
+        bound_ms=r1b, bound_by=r1by,
+        library_ms=time_ms(lambda: torch.einsum("ij,bjk,kl->bil", hr,
+                                                xb[:d_pad // b], hc)),
+        shape=[1, d_pad], launch=kx.launch_geometry(1, d_pad),
+        kernel_device_ms=kernel_device_ms(lambda: kx.fused_rotate(x1, sg),
+                                          KERNEL_SYMBOLS["fused_rotate"]))
 
     # fused_encode with y kept: the uplink of the s sampled clients
     eb, eby = bound(nbytes(x, sg, u, gam) + nbytes(y, codes),
@@ -273,7 +291,6 @@ def time_kernels(kx, io, m, d_pad, bits, pack, peak_bw):
 
     # fused_encode of one message with its own sign row, no y: a baseline's
     # uplink (FedBuff's delta)
-    x1, u1, g1 = x[:1].contiguous(), u[:1].contiguous(), gam[:1].contiguous()
     s1 = sg[None].contiguous()
     c1 = kx.fused_encode(x1, s1, u1, g1, **kw)
     e1b, e1by = bound(nbytes(x1, s1, u1, g1) + nbytes(c1),
@@ -299,17 +316,25 @@ def time_kernels(kx, io, m, d_pad, bits, pack, peak_bw):
                                                    pack=pack)),
         bound_ms=qb, bound_by=qby, library_ms=None, shape=[1, d_pad])
 
-    # snap_codes: the uplink decode, m codes against the one rotated server
-    w1 = w[:1].contiguous()
-    s_out = kx.snap_codes(codes, w1, gam, bits=bits, pack=pack)
-    sb, sby = bound(nbytes(codes, w1, gam) + nbytes(s_out), n * SNAP_OPS,
-                    peak_bw)
-    out["snap_codes"] = dict(
-        ms=time_ms(lambda: kx.snap_codes(codes, w1, gam, bits=bits,
-                                         pack=pack)),
-        plain_ms=time_ms(lambda: kx.snap_plain(codes, w1, gam, bits=bits,
-                                               pack=pack)),
-        bound_ms=sb, bound_by=sby, library_ms=None, shape=[m, d_pad])
+    # snap_codes: the uplink decode, m codes against the one rotated server,
+    # and (snap_codes_down) the downlink decode, the server's one code row
+    # against the m rotated clients
+    w1, cd1 = w[:1].contiguous(), codes[:1].contiguous()
+    for key, args in (("snap_codes", (codes, w1, gam)),
+                      ("snap_codes_down", (cd1, w, g1))):
+        s_out = kx.snap_codes(*args, bits=bits, pack=pack)
+        sb, sby = bound(nbytes(*args) + nbytes(s_out), n * SNAP_OPS, peak_bw)
+        out[key] = dict(
+            ms=time_ms(lambda a=args: kx.snap_codes(*a, bits=bits,
+                                                    pack=pack)),
+            plain_ms=time_ms(lambda a=args: kx.snap_plain(*a, bits=bits,
+                                                          pack=pack)),
+            bound_ms=sb, bound_by=sby, library_ms=None, shape=[m, d_pad],
+            code_rows=int(args[0].shape[0]), ref_rows=int(args[1].shape[0]),
+            launch=kx.snap_geometry(m, d_pad),
+            kernel_device_ms=kernel_device_ms(
+                lambda a=args: kx.snap_codes(*a, bits=bits, pack=pack),
+                KERNEL_SYMBOLS["snap_codes"]))
     return out
 
 
@@ -619,9 +644,9 @@ def injected_cfa_round(dev, alg_cuda, state, data, gen):
 
 
 KERNEL_SYMBOLS = {"fused_encode": "encode_cluster_kernel",
-                  "fused_rotate": "rotate_kernel",
+                  "fused_rotate": "rotate_cluster_kernel",
                   "quantize_codes": "quantize_kernel",
-                  "snap_codes": "snap_kernel",
+                  "snap_codes": "snap_vec_kernel",
                   "fused_decode": "decode_cluster_kernel"}
 
 

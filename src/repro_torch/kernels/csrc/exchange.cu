@@ -25,13 +25,11 @@
 // (a, c) at h apart giving a + c and a - c with a the lower index, so the
 // two agree bit for bit.
 //
-// Two designs of the butterfly. exch_rotate keeps one CTA per (message,
-// block) pair and the whole block in shared memory through log2(b)
-// __syncthreads()-separated stages (fwht_shared). exch_encode and
-// exch_decode, on the federated paths at 1-16 messages of two 16,384-blocks,
-// would start only 2-32 CTAs that way on 132 SMs, each waiting on 14 (decode
-// 28) barriers: latency-bound. So they split a block of b coordinates across
-// a thread-block cluster of C CTAs (Hopper's distributed shared memory), each
+// The butterfly. exch_rotate, exch_encode and exch_decode, on the federated
+// paths at 1-16 messages of two 16,384-blocks, would start only 2-32 CTAs
+// with one CTA a block, each waiting on 14 (decode 28) barriers:
+// latency-bound. So all three split a block of b coordinates across a
+// thread-block cluster of C CTAs (Hopper's distributed shared memory), each
 // holding a chunk of n = b / C contiguous coordinates (2,048 at b = 16,384,
 // C = 8), 8 of them a thread:
 //
@@ -49,7 +47,11 @@
 // of 14 barriers. The wrapper picks C from the geometry: b / 2,048, at most
 // 8 (the portable cluster size), at most r / pack so that every CTA's chunk
 // holds whole groups of `pack` rows of the (r, c) block (a packed byte never
-// spans two CTAs), and C = 1 for b <= 2,048.
+// spans two CTAs; pack is 1 for the rotation), and C = 1 for b <= 2,048.
+//
+// The snap has no butterfly: one thread takes 8 contiguous coordinates of
+// one message row, with 16-byte loads and stores and, for packed codes, one
+// 8-byte load of the 8 bytes that hold them.
 //
 // Bound. All five kernels are memory-bound on an H100: the butterfly does
 // log2(b) <= 14 adds per coordinate against 8-16 bytes moved, far below the
@@ -78,37 +80,8 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-// Loads block j of message i (times the signs unless `inverse`) into shared
-// memory and applies H_b, unscaled.
-__device__ __forceinline__ void load_and_transform(
-    float* sm, const float* __restrict__ x, size_t base,
-    const float* __restrict__ s, int b, bool apply_signs) {
-  for (int e = threadIdx.x; e < b; e += blockDim.x) {
-    const float v = x[base + e];
-    sm[e] = apply_signs ? __fmul_rn(v, s[e]) : v;
-  }
-  __syncthreads();
-  fwht_shared(sm, b);
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-rotate_kernel(const float* __restrict__ x, const float* __restrict__ signs,
-              float* __restrict__ y, int d_pad, int b, float scale,
-              int inverse) {
-  extern __shared__ float sm[];
-  const int j = blockIdx.x;
-  const int i = blockIdx.y;
-  const size_t base = (size_t)i * d_pad + (size_t)j * b;
-  const float* s = signs + (size_t)j * b;
-  load_and_transform(sm, x, base, s, b, !inverse);
-  for (int e = threadIdx.x; e < b; e += blockDim.x) {
-    const float v = __fmul_rn(sm[e], scale);
-    y[base + e] = inverse ? __fmul_rn(v, s[e]) : v;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// the cluster butterfly of exch_encode and exch_decode
+// the cluster butterfly of exch_rotate, exch_encode and exch_decode
 // ---------------------------------------------------------------------------
 
 constexpr int kVals = 8;                   // coordinates a thread holds
@@ -269,6 +242,41 @@ __device__ __forceinline__ void fwht_block(float v[kVals], float* sm, int n,
   if constexpr (C > 1) cluster_stages<C>(sm, n);
 }
 
+// (H_b x*s) / sqrt(b), or s * (H_b x) / sqrt(b) when `inverse`, of one
+// (message i, block j) pair by a cluster of C CTAs (grid (nb * C, m)); CTA
+// `rank` holds block coordinates rank * n .. rank * n + n - 1.
+template <int C>
+__global__ void __launch_bounds__(kMaxChunk / kVals)
+rotate_cluster_kernel(const float* __restrict__ x,
+                      const float* __restrict__ signs, float* __restrict__ y,
+                      int d_pad, int b, float scale, int inverse, int n,
+                      int k) {
+  extern __shared__ float sm[];
+  const int j = blockIdx.x / C;
+  const int rank = blockIdx.x % C;
+  const int t = threadIdx.x;
+  // coordinates this thread holds: 8, or fewer in a chunk under 8, or none
+  // for the threads past a chunk under a warp's span
+  const int nv = kVals * t < n ? min(kVals, n - kVals * t) : 0;
+  // the CTA's chunk within a message, and the message's row
+  const size_t chunk = (size_t)j * b + (size_t)rank * n;
+  const size_t row = (size_t)blockIdx.y * d_pad;
+  float v[kVals], sg[kVals];
+  load8(x + row + chunk, kVals * t, n, v);
+  load8(signs + chunk, kVals * t, n, sg);
+  if (!inverse) {
+#pragma unroll
+    for (int e = 0; e < kVals; ++e) v[e] = __fmul_rn(v[e], sg[e]);
+  }
+  fwht_block<C>(v, sm, n, k, nv);
+#pragma unroll
+  for (int e = 0; e < kVals; ++e) {
+    const float w = __fmul_rn(sm[kVals * t + e], scale);
+    v[e] = inverse ? __fmul_rn(w, sg[e]) : w;
+  }
+  store8(y + row + chunk + kVals * t, nv, v);
+}
+
 // Rotate + stochastic round + wrap of one (message i, block j) pair by a
 // cluster of C CTAs (grid (nb * C, m)); CTA `rank` holds block coordinates
 // rank * n .. rank * n + n - 1.
@@ -375,39 +383,80 @@ __global__ void quantize_kernel(const float* __restrict__ y,
   }
 }
 
-__global__ void snap_kernel(const int32_t* __restrict__ codes32,
-                            const uint8_t* __restrict__ codes8, int mc,
-                            const float* __restrict__ w, int mw,
-                            const float* __restrict__ gam, int gam_stride,
-                            const float* __restrict__ levels, int lev_stride,
-                            float levels_default, float* __restrict__ out,
-                            int m, int d_pad, int b, int c, int bits,
-                            int pack) {
-  const size_t n = (size_t)m * d_pad;
+// code[e] of coordinates e0 .. e0 + nv - 1 of one message from its packed
+// bytes `cb`. With c a multiple of 8 a group of 8 lies in one row of one
+// (r, c) block, and its 8 bytes are contiguous at (row / pack) * c + col:
+// one 8-byte load, each byte shifted by (row % pack) * bits. Otherwise (c <
+// 8, a short group, an unaligned row) byte by byte, every read at or below
+// e0 + nv - 1 (nv >= 1).
+__device__ __forceinline__ void unpack8(const uint8_t* __restrict__ cb,
+                                        int e0, int nv, int b, int c,
+                                        int bits, int pack,
+                                        float code[kVals]) {
   const unsigned mask = (1u << bits) - 1u;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const int i = (int)(idx / d_pad);
-    const int e = (int)(idx - (size_t)i * d_pad);
+  if (nv == kVals && c % kVals == 0) {
+    const int j = e0 / b;
+    const int rem = e0 - j * b;
+    const int row = rem / c;
+    const int col = rem - row * c;
+    const uint8_t* p = cb + (size_t)j * (b / pack) + (size_t)(row / pack) * c
+                       + col;
+    if (((uintptr_t)p & 7) == 0) {
+      const uint2 word = *reinterpret_cast<const uint2*>(p);
+      const int shift = (row % pack) * bits;
+#pragma unroll
+      for (int e = 0; e < kVals; ++e) {
+        const unsigned w4 = e < 4 ? word.x : word.y;
+        code[e] = (float)((w4 >> (8 * (e & 3) + shift)) & mask);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kVals; ++e) {
+    const int at = e0 + min(e, nv - 1);
+    const int j = at / b;
+    const int rem = at - j * b;
+    const int row = rem / c;
+    const int col = rem - row * c;
+    const unsigned byte =
+        cb[(size_t)j * (b / pack) + (size_t)(row / pack) * c + col];
+    code[e] = (float)((byte >> ((row % pack) * bits)) & mask);
+  }
+}
+
+constexpr int kSnapThreads = 256;
+
+// Positional snap: thread t of CTA (x, y) takes coordinates e0 .. e0 + 7,
+// e0 = 8 (x * blockDim.x + t), of message y (and y + gridDim.y, ... past
+// the grid's 65,535 rows). Code row i is codes row (mc == 1 ? 0 : i),
+// reference row (mw == 1 ? 0 : i).
+__global__ void __launch_bounds__(kSnapThreads)
+snap_vec_kernel(const int32_t* __restrict__ codes32,
+                const uint8_t* __restrict__ codes8, int mc,
+                const float* __restrict__ w, int mw,
+                const float* __restrict__ gam, int gam_stride,
+                const float* __restrict__ levels, int lev_stride,
+                float levels_default, float* __restrict__ out, int m,
+                int d_pad, int b, int c, int bits, int pack) {
+  const int e0 = kVals * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (e0 >= d_pad) return;
+  const int nv = min(kVals, d_pad - e0);
+  for (int i = blockIdx.y; i < m; i += gridDim.y) {
     const size_t ci = mc == 1 ? 0 : (size_t)i;
     const size_t wi = mw == 1 ? 0 : (size_t)i;
-    unsigned code;
-    if (pack == 1) {
-      code = (unsigned)codes32[ci * d_pad + e];
-    } else {
-      const int j = e / b;
-      const int rem = e - j * b;
-      const int row = rem / c;
-      const int k = rem - row * c;
-      const unsigned byte =
-          codes8[ci * (d_pad / pack) + (size_t)j * (b / pack) +
-                 (size_t)(row / pack) * c + k];
-      code = (byte >> ((row % pack) * bits)) & mask;
-    }
     const float g = gam[(size_t)i * gam_stride];
     const float L = levels != nullptr ? levels[(size_t)i * lev_stride]
                                       : levels_default;
-    out[idx] = snap_one((float)code, w[wi * d_pad + e], g, L);
+    float code[kVals], wv[kVals], v[kVals];
+    if (pack == 1)
+      load8(codes32 + ci * d_pad, e0, d_pad, code);
+    else
+      unpack8(codes8 + ci * (d_pad / pack), e0, nv, b, c, bits, pack, code);
+    load8(w + wi * d_pad, e0, d_pad, wv);
+#pragma unroll
+    for (int e = 0; e < kVals; ++e) v[e] = snap_one(code[e], wv[e], g, L);
+    store8(out + (size_t)i * d_pad + e0, nv, v);
   }
 }
 
@@ -476,13 +525,17 @@ decode_cluster_kernel(const int32_t* __restrict__ codes32,
   store8(out + (size_t)i * d_pad + in_msg, nv, v);
 }
 
-// Launches kernel<C> on grid (nb * C, m) in clusters of (C, 1, 1), n = b /
-// C coordinates a CTA. C must be 1, 2, 4 or 8, and n at most kMaxChunk and,
-// when C > 1, at least a warp's span.
+// Launches kernel<C>, given as its instantiations k1, k2, k4 and k8, on
+// grid (nb * C, m) in clusters of (C, 1, 1), n = b / C coordinates a CTA.
+// C must be 1, 2, 4 or 8, and n at most kMaxChunk and, when C > 1, at
+// least a warp's span.
 template <typename... Params, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(Params...), int cluster, int nb,
-                           int m, int n, cudaStream_t stream,
-                           Args... args) {
+cudaError_t launch_cluster(void (*k1)(Params...), void (*k2)(Params...),
+                           void (*k4)(Params...), void (*k8)(Params...),
+                           int cluster, int nb, int m, int n,
+                           cudaStream_t stream, Args... args) {
+  void (*kernel)(Params...) =
+      cluster == 1 ? k1 : cluster == 2 ? k2 : cluster == 4 ? k4 : k8;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nb * cluster, m);
   cfg.blockDim = dim3(chunk_threads(n));
@@ -519,16 +572,18 @@ int log2i(int n) {
 extern "C" {
 
 // y = (H_b x*signs) / sqrt(b) per block, or signs * (H_b x) / sqrt(b) when
-// `inverse`. x, y: (m, d_pad) fp32; signs: (d_pad,) fp32.
+// `inverse`. x, y: (m, d_pad) fp32; signs: (d_pad,) fp32; each block split
+// across a cluster of `cluster` CTAs.
 int exch_rotate(const void* x, const void* signs, void* y, int m, int d_pad,
-                int b, int inverse, float scale, void* stream) {
-  const size_t smem = (size_t)b * sizeof(float);
-  cudaError_t err = allow_shared(rotate_kernel, smem);
+                int b, int inverse, float scale, int cluster, void* stream) {
+  if (!cluster_ok(b, cluster)) return (int)cudaErrorInvalidValue;
+  const int n = b / cluster;
+  cudaError_t err = launch_cluster(
+      rotate_cluster_kernel<1>, rotate_cluster_kernel<2>,
+      rotate_cluster_kernel<4>, rotate_cluster_kernel<8>, cluster, d_pad / b,
+      m, n, (cudaStream_t)stream, (const float*)x, (const float*)signs,
+      (float*)y, d_pad, b, scale, inverse, n, log2i(n));
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(d_pad / b, m);
-  rotate_kernel<<<grid, block_threads(b), smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)signs, (float*)y, d_pad, b, scale,
-      inverse);
   return (int)cudaGetLastError();
 }
 
@@ -544,26 +599,14 @@ int exch_encode(const void* x, const void* signs, int sign_stride,
                 int bits, int pack, float scale, int cluster, void* stream) {
   if (!cluster_ok(b, cluster)) return (int)cudaErrorInvalidValue;
   const int n = b / cluster;
-  const int k = log2i(n);
-  const int nb = d_pad / b;
-  cudaStream_t st = (cudaStream_t)stream;
-#define EXCH_ENCODE_ARGS                                                  \
-  (const float*)x, (const float*)signs, sign_stride, (const float*)u,    \
-      (const float*)gam, gam_stride, (const float*)levels, lev_stride,   \
-      levels_default, (int32_t*)codes32, (uint8_t*)codes8, (float*)yout, \
-      d_pad, b, c, bits, pack, scale, n, k
-  cudaError_t err;
-  switch (cluster) {
-    case 1: err = launch_cluster(encode_cluster_kernel<1>, 1, nb, m, n, st,
-                                 EXCH_ENCODE_ARGS); break;
-    case 2: err = launch_cluster(encode_cluster_kernel<2>, 2, nb, m, n, st,
-                                 EXCH_ENCODE_ARGS); break;
-    case 4: err = launch_cluster(encode_cluster_kernel<4>, 4, nb, m, n, st,
-                                 EXCH_ENCODE_ARGS); break;
-    default: err = launch_cluster(encode_cluster_kernel<8>, 8, nb, m, n, st,
-                                  EXCH_ENCODE_ARGS); break;
-  }
-#undef EXCH_ENCODE_ARGS
+  cudaError_t err = launch_cluster(
+      encode_cluster_kernel<1>, encode_cluster_kernel<2>,
+      encode_cluster_kernel<4>, encode_cluster_kernel<8>, cluster, d_pad / b,
+      m, n, (cudaStream_t)stream, (const float*)x, (const float*)signs,
+      sign_stride, (const float*)u, (const float*)gam, gam_stride,
+      (const float*)levels, lev_stride, levels_default, (int32_t*)codes32,
+      (uint8_t*)codes8, (float*)yout, d_pad, b, c, bits, pack, scale, n,
+      log2i(n));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -588,8 +631,9 @@ int exch_snap(const void* codes32, const void* codes8, int mc, const void* w,
               int mw, const void* gam, int gam_stride, const void* levels,
               int lev_stride, float levels_default, void* out, int m,
               int d_pad, int b, int c, int bits, int pack, void* stream) {
-  const size_t n = (size_t)m * d_pad;
-  snap_kernel<<<elt_blocks(n), kEltThreads, 0, (cudaStream_t)stream>>>(
+  const int per_cta = kVals * kSnapThreads;
+  dim3 grid((d_pad + per_cta - 1) / per_cta, m < 65535 ? m : 65535);
+  snap_vec_kernel<<<grid, kSnapThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)codes32, (const uint8_t*)codes8, mc, (const float*)w,
       mw, (const float*)gam, gam_stride, (const float*)levels, lev_stride,
       levels_default, (float*)out, m, d_pad, b, c, bits, pack);
@@ -608,26 +652,14 @@ int exch_decode(const void* codes32, const void* codes8, int mc,
                 int cluster, void* stream) {
   if (!cluster_ok(b, cluster)) return (int)cudaErrorInvalidValue;
   const int n = b / cluster;
-  const int k = log2i(n);
-  const int nb = d_pad / b;
-  cudaStream_t st = (cudaStream_t)stream;
-#define EXCH_DECODE_ARGS                                                   \
-  (const int32_t*)codes32, (const uint8_t*)codes8, mc, (const float*)ref, \
-      mr, (const float*)signs, sign_stride, (const float*)gam, gam_stride, \
-      (const float*)levels, lev_stride, levels_default, (float*)out,      \
-      d_pad, b, c, bits, pack, scale, n, k
-  cudaError_t err;
-  switch (cluster) {
-    case 1: err = launch_cluster(decode_cluster_kernel<1>, 1, nb, m, n, st,
-                                 EXCH_DECODE_ARGS); break;
-    case 2: err = launch_cluster(decode_cluster_kernel<2>, 2, nb, m, n, st,
-                                 EXCH_DECODE_ARGS); break;
-    case 4: err = launch_cluster(decode_cluster_kernel<4>, 4, nb, m, n, st,
-                                 EXCH_DECODE_ARGS); break;
-    default: err = launch_cluster(decode_cluster_kernel<8>, 8, nb, m, n, st,
-                                  EXCH_DECODE_ARGS); break;
-  }
-#undef EXCH_DECODE_ARGS
+  cudaError_t err = launch_cluster(
+      decode_cluster_kernel<1>, decode_cluster_kernel<2>,
+      decode_cluster_kernel<4>, decode_cluster_kernel<8>, cluster, d_pad / b,
+      m, n, (cudaStream_t)stream, (const int32_t*)codes32,
+      (const uint8_t*)codes8, mc, (const float*)ref, mr, (const float*)signs,
+      sign_stride, (const float*)gam, gam_stride, (const float*)levels,
+      lev_stride, levels_default, (float*)out, d_pad, b, c, bits, pack, scale,
+      n, log2i(n));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

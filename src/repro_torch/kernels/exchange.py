@@ -187,7 +187,7 @@ def decode_plain(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "exch_rotate": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "exch_rotate": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "exch_encode": [_P, _P, _I, _P, _P, _I, _P, _I, _F, _P, _P, _P, _I, _I,
                     _I, _I, _I, _I, _F, _I, _P],
     "exch_quantize": [_P, _P, _P, _I, _P, _I, _F, _P, _P, _I, _I, _I, _I,
@@ -199,10 +199,13 @@ _SIGNATURES = {
 }
 # the largest block one CTA holds in shared memory (227 KB on Hopper)
 _MAX_SHARED_BLOCK = 232_448 // 4
-# fused_encode and fused_decode split a Hadamard block across a cluster of
-# CTAs, each holding a chunk of _CHUNK coordinates (8 a thread), at most
-# _MAX_CLUSTER of them (the portable cluster size)
+# fused_rotate, fused_encode and fused_decode split a Hadamard block across
+# a cluster of CTAs, each holding a chunk of _CHUNK coordinates (8 a
+# thread), at most _MAX_CLUSTER of them (the portable cluster size)
 _CHUNK, _MAX_CLUSTER = 2048, 8
+# snap_codes: 8 coordinates a thread, _SNAP_THREADS threads a CTA
+# (kSnapThreads in csrc/exchange.cu)
+_SNAP_THREADS = 256
 
 
 def library():
@@ -256,16 +259,18 @@ def _geometry(d_pad, block, bits, pack):
 
 
 def cluster_size(b: int, r: int, pack: int) -> int:
-    """CTAs in the cluster that holds one b-block in ``fused_encode`` and
-    ``fused_decode``: b / 2,048, at most 8, and at most r / pack, so that
-    each CTA's chunk of the (r, c) block holds whole groups of ``pack``
-    rows (a packed byte never spans two CTAs); 1 for b <= 2,048."""
+    """CTAs in the cluster that holds one b-block in ``fused_rotate``
+    (pack 1), ``fused_encode`` and ``fused_decode``: b / 2,048, at most 8,
+    and at most r / pack, so that each CTA's chunk of the (r, c) block
+    holds whole groups of ``pack`` rows (a packed byte never spans two
+    CTAs); 1 for b <= 2,048."""
     return max(1, min(_MAX_CLUSTER, b // _CHUNK, r // pack))
 
 
 def launch_geometry(m: int, d_pad: int, *, block=DEFAULT_BLOCK, pack=1):
-    """The grid of a ``fused_encode`` or ``fused_decode`` launch on m
-    messages: cluster size, CTAs, threads a CTA and coordinates a CTA."""
+    """The grid of a ``fused_rotate`` (pack 1), ``fused_encode`` or
+    ``fused_decode`` launch on m messages: cluster size, CTAs, threads a CTA
+    and coordinates a CTA."""
     b, _, r, _, nb = block_geometry(d_pad, block)
     cluster = cluster_size(b, r, pack)
     chunk = b // cluster
@@ -278,27 +283,36 @@ def _cluster(d_pad, block, pack):
     return launch_geometry(1, d_pad, block=block, pack=pack)["cluster"]
 
 
+def snap_geometry(m: int, d_pad: int):
+    """The grid of a ``snap_codes`` launch with m output rows: CTAs and
+    threads a CTA, 8 coordinates a thread."""
+    per_cta = 8 * _SNAP_THREADS
+    return {"ctas": m * -(-d_pad // per_cta), "threads": _SNAP_THREADS}
+
+
 def fused_rotate(x2, signs, *, block=DEFAULT_BLOCK, inverse=False):
     """Batched randomized-Hadamard rotation (m, d_pad) -> (m, d_pad).
 
     Replaces ``repro/kernels/exchange.py`` · ``fused_rotate``
     (``_rotate_kernel``, two MXU matmuls per (r, c) block). Bound on the
-    H100: bytes, 8 per coordinate (read x, write y). Design: one CTA per
-    (message, block) holds the block in shared memory through all log2(b)
-    butterfly stages, so each coordinate crosses device memory once each
-    way.
+    H100: bytes, 8 per coordinate (read x, write y); at the paths' 1-16
+    messages, latency. Design: ``fused_encode``'s butterfly alone, a
+    cluster of :func:`cluster_size` CTAs a block (2,048 coordinates a CTA,
+    8 a thread; 16 CTAs for one message of two 16,384-blocks), so each
+    coordinate crosses device memory once each way.
     """
     if build.on_cpu(x2, signs):
         return rotate_plain(x2, signs, block=block, inverse=inverse)
     m, d_pad = x2.shape
     b, _ = _geometry(d_pad, block, 8, 1)
+    cluster = _cluster(d_pad, block, 1)
     _require(x2, "x2", torch.float32, (m, d_pad))
     _require(signs, "signs", torch.float32, (d_pad,))
     out = torch.empty_like(x2)
     LAUNCHES["fused_rotate"] += 1
     build.check(library().exch_rotate(
         build.ptr(x2), build.ptr(signs), build.ptr(out), m, d_pad, b,
-        int(inverse), _scale(b), build.stream()), "exch_rotate")
+        int(inverse), _scale(b), cluster, build.stream()), "exch_rotate")
     return out
 
 
@@ -395,8 +409,11 @@ def snap_codes(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     or max(mc, mw) values. Replaces ``repro/kernels/exchange.py`` ·
     ``snap_codes`` (``_snap_kernel``). Bound on the H100: bytes, 8 per
     output coordinate (int32 code or packed byte share, fp32 output) plus
-    the broadcast side read once. Design: one thread per output
-    coordinate, packed codes unpacked inline.
+    the broadcast side read once. Design: a CTA of 256 threads on one
+    message row, 8 contiguous coordinates a thread, γ and L read once a
+    thread; codes, references and outputs move 16 bytes at a time, and a
+    thread's packed codes (8 columns of one row of an (r, c) block when c
+    is a multiple of 8) in one 8-byte load; byte by byte for c < 8.
     """
     if build.on_cpu(codes2, wrot2, gammas, levels2):
         return snap_plain(codes2, wrot2, gammas, bits=bits, block=block,

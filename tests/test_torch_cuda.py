@@ -295,6 +295,91 @@ def test_cluster_kernels_refuse_a_block_past_shared_memory(dev):
     assert kx.LAUNCHES["fused_decode"] == 0
 
 
+# ---------------------------------------------------------------------------
+# fused_rotate's cluster kernel and snap_codes' vectorised kernel
+# ---------------------------------------------------------------------------
+
+# (d_pad, block): cluster sizes 1 (b = 32 and 2,048), 2, 4 and 8, and the
+# 4,096-coordinate chunks of b = 32,768
+ROTATE_GEOMETRIES = [(128, 32), (2048, 16_384), (4096, 16_384),
+                     (8192, 16_384), (32_768, 16_384), (65_536, 32_768)]
+
+
+@pytest.mark.parametrize("m", [1, 16, 32])
+@pytest.mark.parametrize("d_pad,block", ROTATE_GEOMETRIES)
+def test_cluster_rotate_equals_plain_version(dev, d_pad, block, m):
+    x, sg, _, _ = _inputs(dev, m, d_pad, 8, seed=d_pad + m)
+    kx.reset_launches()
+    for inverse in (False, True):
+        out = kx.fused_rotate(x, sg, block=block, inverse=inverse)
+        assert torch.equal(out, kx.rotate_plain(x, sg, block=block,
+                                                inverse=inverse))
+    torch.cuda.synchronize()
+    assert kx.LAUNCHES["fused_rotate"] == 2
+    b, _, r, _, _ = kx.block_geometry(d_pad, block)
+    assert kx.launch_geometry(m, d_pad, block=block)["cluster"] == \
+        kx.cluster_size(b, r, 1)
+
+
+def _snap_case(dev, m, d_pad, bits, pack, block, levels, seed=0):
+    """m code rows of x's encode (packed when pack > 1), references near
+    the rotated x, γ, and a levels row when asked."""
+    x, sg, u, gam = _inputs(dev, m, d_pad, bits, seed=seed)
+    lv = None
+    if levels:
+        top = torch.tensor([1 << bits, max(1, (1 << bits) // 4),
+                            max(1, (1 << bits) // 2)], device=dev)
+        lv = top.repeat(m)[:m].to(torch.float32)
+    kw = dict(bits=bits, pack=pack, block=block, levels2=lv)
+    y, codes = kx.fused_encode(x, sg, u, gam, want_rotated=True, **kw)
+    return codes, _ref_rows(dev, y, gam, seed=seed + 1), gam, kw
+
+
+@pytest.mark.parametrize("levels", [False, True])
+@pytest.mark.parametrize("d_pad,block", [(128, 32), (32_768, 16_384)])
+@pytest.mark.parametrize("bits,pack", [(8, 1), (4, 2), (1, 8)])
+def test_snap_kernel_equals_plain_version(dev, bits, pack, d_pad, block,
+                                          levels):
+    codes, w, gam, kw = _snap_case(dev, 16, d_pad, bits, pack, block,
+                                   levels)
+    lv = kw.pop("levels2")
+    for c, r, g, lv_ in _decode_cases(codes, w, gam, lv):
+        out = kx.snap_codes(c, r, g, levels2=lv_, **kw)
+        assert out.shape == (16, d_pad)
+        assert torch.equal(out, kx.snap_plain(c, r, g, levels2=lv_, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bits,pack", [(8, 1), (4, 2), (1, 8)])
+def test_snap_unaligned_views_take_the_scalar_path(dev, bits, pack):
+    """Codes and references at offsets that break the 16- and 8-byte loads
+    give the plain version's values."""
+    codes, w, gam, kw = _snap_case(dev, 4, 32_768, bits, pack, 16_384,
+                                   False)
+    kw.pop("levels2")
+    for c, r, g, _ in _decode_cases(codes, w, gam):
+        want = kx.snap_plain(c, r, g, **kw)
+        assert torch.equal(kx.snap_codes(_shifted(c, 1), _shifted(r, 1), g,
+                                         **kw), want)
+    torch.cuda.synchronize()
+
+
+def test_rotate_and_snap_kernels_are_deterministic(dev):
+    """Two calls give the same bits (a stale read of a peer's shared memory
+    would show as a rare difference)."""
+    for m in (1, 16, 32):
+        x, sg, _, _ = _inputs(dev, m, 32_768, 8, seed=m)
+        for inverse in (False, True):
+            assert torch.equal(kx.fused_rotate(x, sg, inverse=inverse),
+                               kx.fused_rotate(x, sg, inverse=inverse))
+    codes, w, gam, kw = _snap_case(dev, 16, 32_768, 4, 2, 16_384, False)
+    kw.pop("levels2")
+    for c, r, g, _ in _decode_cases(codes, w, gam):
+        assert torch.equal(kx.snap_codes(c, r, g, **kw),
+                           kx.snap_codes(c, r, g, **kw))
+    torch.cuda.synchronize()
+
+
 # (b, t, h, kv, dh, window, softcap): the serve path's shapes, cut in
 # length, and the head dims of the reduced configs
 FLASH_CASES = [(2, 512, 8, 4, 256, 0, 50.0), (2, 512, 8, 4, 256, 128, 50.0),

@@ -14,6 +14,16 @@ codes equal to the plain version's bit for bit. Against the JAX reference,
 which rotates by two matmuls (another rounding), the codes are held to the
 tolerance of ``test_torch_exchange.py``: ±1 mod L on at most 1e-4 of the
 coordinates.
+
+``fused_rotate`` runs the same butterfly alone (``rotate_cluster_kernel``):
+its emulation is held ``torch.equal`` to ``rotate_plain`` and, against the
+reference's matmul rotation, within 1e-5·max|y| (the rotation tolerance of
+``test_torch_kernel_ops.py``). ``snap_codes`` (``snap_vec_kernel``) takes 8
+contiguous coordinates of one row a thread, its packed codes in one 8-byte
+load where c is a multiple of 8 and byte by byte where it is not; the
+emulation of that mapping is held ``torch.equal`` to ``snap_plain`` and
+exactly equal to the reference's snap, as ``test_torch_exchange.py`` holds
+the plain version.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +32,7 @@ import torch
 
 from test_torch_harness import circular_gap, gauss, npy, signs_np, tt, uniform
 from repro.kernels import exchange as ref_kx
+from repro_torch.compression.rotation import DEFAULT_BLOCK
 from repro_torch.kernels import exchange as kx
 
 VALS, WARP = 8, 32            # coordinates a thread holds; lanes a warp
@@ -136,6 +147,13 @@ def test_cluster_sizes_the_wrapper_picks():
         1024: 1, 2048: 1, 4096: 2, 8192: 4, 32_768: 8, 1 << 20: 8}
     assert geo[32_768]["ctas"] == 256 and geo[32_768]["threads"] == 256
     assert kx.launch_geometry(1, 32_768)["ctas"] == 16
+    # the rotation (pack 1): 16 CTAs of 256 threads for one message of two
+    # 16,384-blocks, 256 for 16; chunks of 4,096 at b = 32,768
+    rot = kx.launch_geometry(1, 32_768, pack=1)
+    assert (rot["cluster"], rot["ctas"], rot["threads"]) == (8, 16, 256)
+    assert kx.launch_geometry(16, 32_768, pack=1)["ctas"] == 256
+    big = kx.launch_geometry(3, 65_536, block=32_768, pack=1)
+    assert (big["cluster"], big["chunk"], big["threads"]) == (8, 4096, 512)
     # 1-bit codes pack 8 rows a byte: the chunk keeps whole groups
     for d in (4096, 8192, 32_768):
         b, _, r, c, _ = kx.block_geometry(d)
@@ -185,3 +203,141 @@ def test_emulated_decode_is_the_plain_decode(bits, pack):
     out = emulate_decode(codes, ref, tt(sg), tt(g), bits=bits, pack=pack)
     assert torch.equal(out, kx.decode_plain(codes, ref, tt(sg), tt(g),
                                             bits=bits, pack=pack))
+
+
+def emulate_rotate(x2, signs, *, inverse=False, cluster=None,
+                   block=DEFAULT_BLOCK):
+    """fused_rotate as the cluster kernel computes it: the signs before the
+    butterfly (forward) or after the scale (inverse)."""
+    m, d_pad = x2.shape
+    b, _, r, _, _ = kx.block_geometry(d_pad, block)
+    cluster = cluster or kx.cluster_size(b, r, 1)
+    x = x2 if inverse else x2 * signs
+    y = emulate_fwht(x.reshape(-1, b), cluster).reshape(m, d_pad)
+    y = y * kx._scale(b)
+    return y * signs if inverse else y
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("b,cluster", CASES)
+def test_emulated_rotate_is_the_plain_rotation(b, cluster, inverse):
+    d_pad = 2 * b
+    x = tt(gauss(b + 7, (3, d_pad)))
+    sg = tt(signs_np(b + 8, d_pad))
+    y = emulate_rotate(x, sg, inverse=inverse, cluster=cluster, block=b)
+    assert torch.equal(y, kx.rotate_plain(x, sg, block=b, inverse=inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("d_pad", [4096, 32_768])
+def test_emulated_rotate_matches_reference(d_pad, m, inverse):
+    x, sg = gauss(60 + m, (m, d_pad)), signs_np(61, d_pad)
+    y = npy(emulate_rotate(tt(x), tt(sg), inverse=inverse))
+    y_ref = npy(ref_kx.fused_rotate(jnp.asarray(x), jnp.asarray(sg),
+                                    inverse=inverse))
+    assert np.abs(y - y_ref).max() <= 1e-5 * np.abs(y_ref).max()
+
+
+def _word(cb, base):
+    """The 32-bit little-endian words at byte offsets ``base`` and base + 4
+    of each row of cb (an aligned 8-byte load as two halves)."""
+    b32 = cb.to(torch.int64)
+    return [sum(b32[:, base + 4 * h + q] << (8 * q) for q in range(4))
+            for h in range(2)]
+
+
+def emulate_snap(codes2, wrot2, gammas, *, bits, pack, block=DEFAULT_BLOCK,
+                 levels2=None):
+    """snap_codes as snap_vec_kernel computes it: thread g of a row takes
+    coordinates 8g .. 8g + 7; packed codes from one 8-byte word at (row /
+    pack)·c + col shifted by (row % pack)·bits where c is a multiple of 8,
+    else byte by byte at each coordinate's own (row, col)."""
+    mc, mw = codes2.shape[0], wrot2.shape[0]
+    m, d_pad = max(mc, mw), wrot2.shape[1]
+    b, _, _, c, _ = kx.block_geometry(d_pad, block)
+    e0 = torch.arange(0, d_pad, VALS)                   # a thread's first
+    e = torch.arange(VALS)
+    nv = torch.clamp(d_pad - e0, max=VALS)
+    at = e0[:, None] + torch.minimum(e, nv[:, None] - 1)   # clamped
+    codes = codes2.expand(m, -1) if mc == 1 else codes2
+    w = (wrot2.expand(m, -1) if mw == 1 else wrot2)[:, at]
+    mask = (1 << bits) - 1
+    if pack == 1:
+        code = codes[:, at]
+    elif c % VALS == 0:                                 # one 8-byte load
+        j = e0 // b
+        row = (e0 - j * b) // c
+        col = e0 - j * b - row * c
+        base = j * (b // pack) + (row // pack) * c + col
+        assert bool((base % 8 == 0).all()), "the word is aligned"
+        lo, hi = _word(codes, base)
+        shift = (row % pack) * bits
+        code = torch.stack([((lo if q < 4 else hi) >> (8 * (q % 4) + shift))
+                            & mask for q in range(VALS)], dim=-1)
+    else:                                               # byte by byte
+        j = at // b
+        row = (at - j * b) // c
+        col = at - j * b - row * c
+        byte = codes[:, j * (b // pack) + (row // pack) * c + col]
+        code = (byte.to(torch.int64) >> ((row % pack) * bits)) & mask
+    code = code.to(torch.float32)
+    g = gammas.reshape(-1, 1, 1)
+    lv = (float(1 << bits) if levels2 is None else levels2.reshape(-1, 1, 1))
+    v = (code + lv * torch.round((w / g - code) / lv)) * g
+    out = torch.empty((m, d_pad))
+    keep = e < nv[:, None]
+    out[:, at[keep]] = v[:, keep]
+    return out
+
+
+def _snap_inputs(seed, mc, mw, d_pad, bits, pack, block, levels):
+    """Codes covering the ring, references near them, a γ row of max(mc,
+    mw) values, and a levels row when asked."""
+    m = max(mc, mw)
+    rng = np.random.default_rng(seed)
+    lv = (np.maximum(1, (1 << bits) >> np.arange(m) % 3).astype(np.float32)
+          if levels else None)
+    top = (1 << bits) if lv is None else lv[:mc, None].astype(np.int64)
+    codes = (rng.integers(0, 1 << 16, (mc, d_pad)) % top).astype(np.int32)
+    packed = (npy(kx.pack_codes(tt(codes), bits=bits, block=block))
+              if pack > 1 else codes)
+    w = gauss(seed + 1, (mw, d_pad), 0.1)
+    g = (0.01 * (1 + np.arange(m))).astype(np.float32)
+    return packed, w, g, lv
+
+
+@pytest.mark.parametrize("levels", [False, True])
+@pytest.mark.parametrize("mc,mw", [(3, 1), (1, 3)])
+@pytest.mark.parametrize("d_pad,block", [(128, 32), (32_768, 16_384)])
+@pytest.mark.parametrize("bits,pack", [(8, 1), (4, 2), (1, 8)])
+def test_emulated_snap_is_the_plain_snap(bits, pack, d_pad, block, mc, mw,
+                                         levels):
+    packed, w, g, lv = _snap_inputs(70, mc, mw, d_pad, bits, pack, block,
+                                    levels)
+    kw = dict(bits=bits, pack=pack, block=block,
+              levels2=None if lv is None else tt(lv))
+    out = emulate_snap(tt(packed), tt(w), tt(g), **kw)
+    assert out.shape == (max(mc, mw), d_pad)
+    assert torch.equal(out, kx.snap_plain(tt(packed), tt(w), tt(g), **kw))
+
+
+@pytest.mark.parametrize("mc,mw", [(3, 1), (1, 3)])
+@pytest.mark.parametrize("d_pad,block", [(128, 32), (32_768, 16_384)])
+@pytest.mark.parametrize("bits,pack", [(8, 1), (4, 2), (1, 8)])
+def test_emulated_snap_matches_reference(bits, pack, d_pad, block, mc, mw):
+    packed, w, g, _ = _snap_inputs(80, mc, mw, d_pad, bits, pack, block,
+                                   False)
+    out = emulate_snap(tt(packed), tt(w), tt(g), bits=bits, pack=pack,
+                       block=block)
+    ref_codes = packed if pack > 1 else packed.astype(np.uint32)
+    q_ref = ref_kx.snap_codes(jnp.asarray(ref_codes), jnp.asarray(w),
+                              jnp.asarray(g), bits=bits, pack=pack,
+                              block=block)
+    np.testing.assert_array_equal(npy(out), npy(q_ref))
+
+
+def test_snap_grid_the_wrapper_reports():
+    """256 threads of 8 coordinates a CTA: 16 CTAs a 32,768-row."""
+    assert kx.snap_geometry(16, 32_768) == {"ctas": 256, "threads": 256}
+    assert kx.snap_geometry(1, 96) == {"ctas": 1, "threads": 256}

@@ -14,7 +14,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "chip_shapes.py"]
 
 
 def _banned(module: str) -> bool:
