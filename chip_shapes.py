@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time a launch of the exchange's ``fused_rotate`` and
-``snap_codes`` at each shape the QuAFL round launches them with, and at the
-bench shape, from torch.profiler:
+"""Device time a launch of the exchange kernels (``fused_rotate``,
+``fused_encode``, ``quantize_codes``, ``snap_codes``, ``fused_decode``) at
+each shape the federated paths launch them with and at the bench shape, and
+of ``hadamard_blocks`` at the ``ops`` path's sizes, from torch.profiler:
 
     python3 chip_shapes.py [SRC]
 
@@ -9,8 +10,13 @@ SRC is the directory that holds the ``repro_torch`` package to time (this
 checkout's ``src/`` by default). Pointed at an older commit's unpacked
 ``src/``, it times that commit's kernels, so two versions compare on one
 card in one call. Each launch is also held ``torch.equal`` to its plain
-version. Prints one JSON line per shape, then the card's name and power
-limit; exits non-zero without a CUDA card.
+version (the quantize also to ``fused_encode``'s codes), and each row
+carries its byte bound. Where SRC's ``hadamard`` module takes a cluster
+size, ``hadamard_blocks`` at (2,048, 128, 128) fp32 is also timed at each
+cluster size its kernel takes, and where its ``exchange`` module takes a
+count of outputs a thread, ``quantize_codes`` at the paths' shapes and 1 ×
+2^20 at each count. Prints one JSON line per shape, then the card's name
+and power limit; exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
@@ -22,53 +28,166 @@ import torch
 
 import chip_smoke as cs           # puts this checkout's src/ on sys.path
 
-# (kernel, messages, d_pad, bits, pack, what the round does with it); the
-# snap's "down" rows are one code row against m references
+# (kernel, messages, d_pad, bits, pack, what the path does with it); the
+# snap's "down" rows are one code row against m references, "sign_rows" one
+# sign row a message (a baseline's codec), "with_y" keeps the rotated y
 SHAPES = (
     ("fused_rotate", 1, 32_768, 8, 1, "forward"),
     ("fused_rotate", 1, 32_768, 8, 1, "inverse"),
     ("fused_rotate", 16, 32_768, 8, 1, "inverse"),
     ("fused_rotate", cs.BENCH_M, cs.BENCH_D, 8, 1, "inverse"),
+    ("fused_encode", 16, 32_768, 8, 1, "with_y"),
+    ("fused_encode", 1, 32_768, 8, 1, "sign_rows"),
+    ("quantize_codes", 1, 32_768, 8, 1, "down"),
+    ("quantize_codes", 16, 32_768, 4, 2, "packed"),
+    ("quantize_codes", 1, cs.BENCH_D, 8, 1, "down"),
+    ("quantize_codes", cs.BENCH_M, cs.BENCH_D, 8, 1, "bench"),
     ("snap_codes", 16, 32_768, 8, 1, "up"),
     ("snap_codes", 16, 32_768, 8, 1, "down"),
     ("snap_codes", 16, 32_768, 4, 2, "up"),
     ("snap_codes", cs.BENCH_M, cs.BENCH_D, 8, 1, "up"),
     ("snap_codes", cs.BENCH_M, cs.BENCH_D, 8, 1, "down"),
+    ("fused_decode", 1, 32_768, 8, 1, "sign_rows"),
+    ("fused_decode", 16, 32_768, 8, 1, "sign_rows"),
 )
+# (n, r, c, dtype): the ops path's 25,450 and 10^7 coordinates, 2^25 in
+# fp32 and bf16, and the largest block
+HADAMARD_SHAPES = (
+    (2, 128, 128, cs.FP32), (611, 128, 128, cs.FP32),
+    (2048, 128, 128, cs.FP32), (2048, 128, 128, cs.BF16),
+    (1024, 256, 128, cs.FP32),
+)
+CLUSTER_SWEEP = (2048, 128, 128)
+# the quantize's path shapes and a bench row, also timed at each count of
+# outputs a thread its kernel takes
+QUANTIZE_SWEEP = ((1, 32_768), (16, 32_768), (1, cs.BENCH_D))
 # a part of the kernel's symbol, in older commits (rotate_kernel,
-# snap_kernel) and in this one (rotate_cluster_kernel<C>, snap_vec_kernel)
-SYMBOLS = {"fused_rotate": "rotate_", "snap_codes": "snap_"}
+# quantize_kernel, hadamard_kernel<T>) and in this one
+# (rotate_cluster_kernel<C>, quantize_vec_kernel,
+# hadamard_cluster_kernel<C, T>)
+SYMBOLS = {"fused_rotate": "rotate_", "fused_encode": "encode_",
+           "quantize_codes": "quantize_", "snap_codes": "snap_",
+           "fused_decode": "decode_", "hadamard_blocks": "hadamard_"}
 
 
-def shape_row(kx, dev, gen, kernel, m, d_pad, bits, pack, how):
+def exchange_run(kx, dev, gen, kernel, m, d_pad, bits, pack, how):
+    """(run, the plain version's output, bytes moved, forced runs) of one
+    shape; the forced runs, as (launch, run), are the quantize's at each
+    other count of outputs a thread."""
     from repro_torch.compression.rotation import signs
     x = torch.randn((m, d_pad), generator=gen, device=dev)
     sg = signs(gen, d_pad)
+    u = torch.rand((m, d_pad), generator=gen, device=dev)
+    y0 = kx.rotate_plain(x, sg)
+    gam = (y0.abs().amax(dim=1) / (1 << bits) / 2).contiguous()
+    kw = dict(bits=bits, pack=pack)
     if kernel == "fused_rotate":
         inverse = how == "inverse"
 
         def run():
             return kx.fused_rotate(x, sg, inverse=inverse)
-        want = kx.rotate_plain(x, sg, inverse=inverse)
-    else:
-        u = torch.rand((m, d_pad), generator=gen, device=dev)
-        y0 = kx.rotate_plain(x, sg)
-        gam = (y0.abs().amax(dim=1) / (1 << bits) / 2).contiguous()
-        y, codes = kx.fused_encode(x, sg, u, gam, bits=bits, pack=pack,
-                                   want_rotated=True)
-        w = y + 0.25 * gam[:, None] * torch.randn((m, d_pad), generator=gen,
-                                                  device=dev)
-        args = ((codes, w[:1].contiguous(), gam) if how == "up" else
-                (codes[:1].contiguous(), w, gam[:1].contiguous()))
+        return run, kx.rotate_plain(x, sg, inverse=inverse), \
+            cs.nbytes(x, sg, x), []
+    if kernel == "fused_encode":
+        s = sg if how == "with_y" else sg.expand(m, d_pad).contiguous()
+        want_y = how == "with_y"
 
         def run():
-            return kx.snap_codes(*args, bits=bits, pack=pack)
-        want = kx.snap_plain(*args, bits=bits, pack=pack)
-    row = {"kernel": kernel, "shape": [m, d_pad], "bits": bits,
-           "pack": pack, "use": how, "equal": torch.equal(run(), want),
-           "device_ms": cs.kernel_device_ms(run, SYMBOLS[kernel])}
+            return kx.fused_encode(x, s, u, gam, want_rotated=want_y, **kw)
+        want = kx.encode_plain(x, s, u, gam, want_rotated=want_y, **kw)
+        codes = want[1] if want_y else want
+        return run, want, cs.nbytes(x, s, u, gam, codes) + (
+            cs.nbytes(x) if want_y else 0), []
+    if kernel == "quantize_codes":
+        codes = kx.fused_encode(x, sg, u, gam, **kw)
+        assert torch.equal(kx.quantize_codes(y0, u, gam, **kw), codes)
+
+        def run():
+            return kx.quantize_codes(y0, u, gam, **kw)
+        forced = []
+        if (m, d_pad) in QUANTIZE_SWEEP and hasattr(kx, "quantize_geometry"):
+            picked = kx.quantize_geometry(m, d_pad, pack=pack)["per_thread"]
+            forced = [({"per_thread": v, "forced": True},
+                       lambda v=v: kx._launch_quantize(
+                           y0, u, gam, bits, kx.DEFAULT_BLOCK, pack, None, v))
+                      for v in (2, 8) if v != picked]
+        return run, kx.quantize_plain(y0, u, gam, **kw), \
+            cs.nbytes(y0, u, gam, codes), forced
+    y, codes = kx.fused_encode(x, sg, u, gam, want_rotated=True, **kw)
+    if kernel == "fused_decode":
+        s = sg.expand(m, d_pad).contiguous()
+        codes = kx.fused_encode(x, s, u, gam, **kw)
+        ref = x + 0.1 * gam[:, None] * torch.randn(
+            (m, d_pad), generator=gen, device=dev)
+
+        def run():
+            return kx.fused_decode(codes, ref, s, gam, **kw)
+        return run, kx.decode_plain(codes, ref, s, gam, **kw), \
+            cs.nbytes(codes, ref, s, gam, x), []
+    w = y + 0.25 * gam[:, None] * torch.randn((m, d_pad), generator=gen,
+                                              device=dev)
+    args = ((codes, w[:1].contiguous(), gam) if how == "up" else
+            (codes[:1].contiguous(), w, gam[:1].contiguous()))
+
+    def run():
+        return kx.snap_codes(*args, **kw)
+    return run, kx.snap_plain(*args, **kw), cs.nbytes(*args, y), []
+
+
+def equal(got, want):
+    if isinstance(want, tuple):
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+    return torch.equal(got, want)
+
+
+def timed_row(run, want, bytes_moved, peak_bw, symbol, **fields):
+    row = {**fields, "equal": equal(run(), want),
+           "device_ms": cs.kernel_device_ms(run, symbol),
+           "bound_ms": bytes_moved / peak_bw * 1e3}
     assert row["equal"] and row["device_ms"] is not None, row
     return row
+
+
+def run_shapes(kx, hd, dev, smi, peak_bw, src):
+    """Time and check every row of SHAPES and HADAMARD_SHAPES on ``dev``,
+    one JSON line each."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+
+    def emit(row):
+        print(json.dumps({"phase": "kernel_shape", "src": str(src),
+                          "nvidia_smi": smi, **row}), flush=True)
+        torch.cuda.empty_cache()
+
+    for kernel, m, d_pad, bits, pack, how in SHAPES:
+        run, want, nb, forced = exchange_run(kx, dev, gen, kernel, m, d_pad,
+                                             bits, pack, how)
+        row = dict(kernel=kernel, shape=[m, d_pad], bits=bits, pack=pack,
+                   use=how)
+        if kernel == "quantize_codes" and hasattr(kx, "quantize_geometry"):
+            row["launch"] = kx.quantize_geometry(m, d_pad, pack=pack)
+        emit(timed_row(run, want, nb, peak_bw, SYMBOLS[kernel], **row))
+        for launch, f in forced:
+            emit(timed_row(f, want, nb, peak_bw, SYMBOLS[kernel],
+                           **{**row, "launch": launch}))
+        del run, want, forced
+    # an older hadamard module picks no cluster
+    picks = getattr(hd, "launch_geometry", lambda n, r, c: None)
+    for n, r, c, dtype in HADAMARD_SHAPES:
+        x = torch.randn((n, r, c), generator=gen, device=dev).to(dtype)
+        want = hd.hadamard_plain(x)
+        geo = picks(n, r, c)
+        runs = [(geo, lambda x=x: hd.hadamard_blocks(x))]
+        if (n, r, c) == CLUSTER_SWEEP and dtype == cs.FP32 and geo:
+            runs += [({"cluster": cl, "forced": True},
+                      lambda cl=cl, x=x: hd._launch(x, cl))
+                     for cl in (2, 4, 8) if cl != geo["cluster"]]
+        for launch, run in runs:
+            emit(timed_row(run, want, cs.nbytes(x, want), peak_bw,
+                           SYMBOLS["hadamard_blocks"],
+                           kernel="hadamard_blocks", shape=[n, r, c],
+                           dtype=str(dtype).split(".")[1], launch=launch))
+        del x, want, runs
 
 
 def main() -> int:
@@ -79,16 +198,12 @@ def main() -> int:
     src = src.resolve()
     sys.path.insert(0, str(src))
     from repro_torch.kernels import exchange as kx
-    assert Path(kx.__file__).resolve().is_relative_to(src), kx.__file__
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cs.SEED)
+    from repro_torch.kernels import hadamard as hd
+    for module in (kx, hd):
+        assert Path(module.__file__).resolve().is_relative_to(src), module
     smi = cs.smi_line()
-    for shape in SHAPES:
-        row = shape_row(kx, dev, gen, *shape)
-        print(json.dumps({"phase": "kernel_shape", "src": str(src),
-                          "nvidia_smi": smi, **row}), flush=True)
-        torch.cuda.empty_cache()
+    run_shapes(kx, hd, torch.device("cuda", 0), smi,
+               cs.peak_bytes_per_s(torch.cuda.get_device_name(0)), src)
     print(smi, flush=True)
     return 0
 

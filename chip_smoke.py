@@ -7,10 +7,10 @@ From the root of a checkout: builds the CUDA kernels of
 ``src/repro_torch/kernels/csrc/`` with nvcc (one compiler per source, all
 started together), holds each kernel against its plain PyTorch version on
 the card and times both (the exchange's cluster kernels, ``fused_rotate``,
-``fused_encode`` and ``fused_decode``, and ``snap_codes`` also with their
-profiled device time a launch at the paths' shapes and their grid; the
-encode and decode with their mismatch counts), then drives the port's four
-paths:
+``fused_encode`` and ``fused_decode``, and ``quantize_codes`` and
+``snap_codes`` also with their profiled device time a launch at the paths'
+shapes and their grid; the encode and decode with their mismatch counts),
+then drives the port's four paths:
 
 * the kernels' public API (``kernels/ops.py``) as a user calls it:
   ``rotate_blocks``, ``lattice_encode``, ``lattice_decode`` and the inverse
@@ -125,17 +125,23 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, symbol: str, iters: int = 20) -> float:
+def kernel_device_ms(fn, symbol: str, iters: int = 20, tries: int = 3):
     """Mean device ms a launch of the kernel whose symbol holds ``symbol``,
-    from torch.profiler over ``iters`` calls of ``fn`` after a warm-up."""
+    from torch.profiler over ``iters`` calls of ``fn`` after a warm-up;
+    profiled again (up to ``tries`` times) when the trace holds no launch
+    of it, as the profiler now and then returns no kernel events."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return ms_per_launch(device_events(prof), {"k": symbol})["k"]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = ms_per_launch(device_events(prof), {"k": symbol})["k"]
+        if ms is not None:
+            return ms
+    return None
 
 
 def nbytes(*tensors) -> int:
@@ -314,7 +320,11 @@ def time_kernels(kx, io, m, d_pad, bits, pack, peak_bw):
                                              pack=pack)),
         plain_ms=time_ms(lambda: kx.quantize_plain(y1, u1, g1, bits=bits,
                                                    pack=pack)),
-        bound_ms=qb, bound_by=qby, library_ms=None, shape=[1, d_pad])
+        bound_ms=qb, bound_by=qby, library_ms=None, shape=[1, d_pad],
+        launch=kx.quantize_geometry(1, d_pad, pack=pack),
+        kernel_device_ms=kernel_device_ms(
+            lambda: kx.quantize_codes(y1, u1, g1, bits=bits, pack=pack),
+            KERNEL_SYMBOLS["quantize_codes"]))
 
     # snap_codes: the uplink decode, m codes against the one rotated server,
     # and (snap_codes_down) the downlink decode, the server's one code row
@@ -645,7 +655,7 @@ def injected_cfa_round(dev, alg_cuda, state, data, gen):
 
 KERNEL_SYMBOLS = {"fused_encode": "encode_cluster_kernel",
                   "fused_rotate": "rotate_cluster_kernel",
-                  "quantize_codes": "quantize_kernel",
+                  "quantize_codes": "quantize_vec_kernel",
                   "snap_codes": "snap_vec_kernel",
                   "fused_decode": "decode_cluster_kernel"}
 
@@ -743,19 +753,20 @@ def ptxas_summary(log: str) -> dict:
     """Registers, shared memory and spills of each kernel from nvcc's
     -Xptxas=-v output; template instantiations named <type>, <type,dh>,
     <dh> (<dh,empty_rows> for the bf16 flash kernel that checks for query
-    rows that see no key) or, for the exchange's cluster kernels, <cluster
-    size>."""
+    rows that see no key) or, for the cluster kernels, <cluster size> and
+    <cluster size,type>."""
+    dtypes = {"f": "f32", "13__nv_bfloat16": "bf16"}
     out, fn = {}, None
     for ln in log.splitlines():
         hit = re.search(r"Compiling entry function '.*?([a-z][a-z_]*_kernel)"
-                        r"(I(f|13__nv_bfloat16)?(Li(\d+))?E(Lb1E)?)?", ln)
+                        r"(I(f|13__nv_bfloat16)?(?:Li(\d+)E)?"
+                        r"(f|13__nv_bfloat16)?(Lb1E)?)?", ln)
         if hit:
             fn = hit.group(1)
             if hit.group(2):
-                dtype = {"f": "f32", "13__nv_bfloat16": "bf16"}.get(
-                    hit.group(3))
                 flag = "empty_rows" if hit.group(6) else None
-                args = (a for a in (dtype, hit.group(5), flag) if a)
+                args = (a for a in (dtypes.get(hit.group(3)), hit.group(4),
+                                    dtypes.get(hit.group(5)), flag) if a)
                 fn += f"<{','.join(args)}>"
         elif fn and ("registers" in ln or "spill" in ln):
             info = ln.split(":", 1)[-1].strip()
@@ -1073,12 +1084,14 @@ def run_serve_cli(fa):
 OPS_SIZES = ((BENCH_M * BENCH_D, BENCH_M * BENCH_D), (10_000_000, 10_010_624),
              (D_MLP, 32_768))
 OPS_BITS = (4, 8, 12, 16)
-# the JAX test's Hadamard shapes, and the largest block one CTA takes
+# the JAX test's Hadamard shapes, the largest block (8 CTAs of 4,096),
+# blocks under 8 coordinates and a block of one row
 HADAMARD_SHAPES = [(1, 128, 128), (3, 128, 128), (4, 64, 64), (2, 128, 64),
-                   (7, 16, 16), (4, 256, 128)]
+                   (7, 16, 16), (4, 256, 128), (5, 2, 2), (3, 1, 4),
+                   (2, 1, 8192)]
 LATTICE_TEST_CASES = [(1024, 4), (8192, 8), (4096, 12), (65536, 8)]
 OPS_GAMMA = 0.02                  # the JAX test's lattice step
-OPS_SYMBOLS = {"hadamard_blocks": "hadamard_kernel",
+OPS_SYMBOLS = {"hadamard_blocks": "hadamard_cluster_kernel",
                "lattice_encode": "lattice_enc_kernel",
                "lattice_decode": "lattice_dec_kernel"}
 
@@ -1237,6 +1250,10 @@ def time_ops(hd, lq, dev, gen, peak_bw):
         torch.cuda.synchronize()
     for name, ms in ms_per_launch(device_events(prof), OPS_SYMBOLS).items():
         out[name]["device_ms"] = ms
+    out["hadamard_blocks_bf16"]["device_ms"] = kernel_device_ms(
+        calls["hadamard_blocks_bf16"][0], OPS_SYMBOLS["hadamard_blocks"], 5)
+    for name in ("hadamard_blocks", "hadamard_blocks_bf16"):
+        out[name]["launch"] = hd.launch_geometry(*x.shape)
     return out
 
 

@@ -1,23 +1,16 @@
-// Device helpers shared by the lattice kernels (exchange.cu, hadamard.cu,
-// lattice_quant.cu): launch geometry, the quantize and snap arithmetic and
-// the shared-memory butterfly. One definition here keeps the kernels that
-// must agree bit for bit on the same rounding. kernels/build.py hashes this
-// header into every library's name, so an edit here rebuilds them all.
+// Device helpers shared by the lattice kernels (exchange.cu,
+// lattice_quant.cu): the elementwise launch geometry and the quantize and
+// snap arithmetic. One definition here keeps the kernels that must agree
+// bit for bit on the same rounding (the butterfly is butterfly.cuh's).
+// kernels/build.py hashes this header into every library's name, so an
+// edit here rebuilds them all.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
 constexpr int kEltThreads = 256;
-
-int block_threads(int b) {
-  int t = b / 2;
-  if (t > kMaxThreads) t = kMaxThreads;
-  if (t < 32) t = 32;
-  return t;
-}
 
 int elt_blocks(size_t n) {
   size_t blocks = (n + kEltThreads - 1) / kEltThreads;
@@ -41,30 +34,6 @@ __device__ __forceinline__ float snap_one(float code, float w, float g,
   float t = __fdiv_rn(__fsub_rn(__fdiv_rn(w, g), code), L);
   float q = __fadd_rn(code, __fmul_rn(L, rintf(t)));
   return __fmul_rn(q, g);
-}
-
-// In-place Sylvester transform of the b floats in shared memory.
-__device__ __forceinline__ void fwht_shared(float* sm, int b) {
-  const int half = b >> 1;
-  for (int h = 1; h < b; h <<= 1) {
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const int i0 = ((p & ~(h - 1)) << 1) | (p & (h - 1));
-      const int i1 = i0 + h;
-      const float a = sm[i0];
-      const float c = sm[i1];
-      sm[i0] = __fadd_rn(a, c);
-      sm[i1] = __fsub_rn(a, c);
-    }
-    __syncthreads();
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 }  // namespace

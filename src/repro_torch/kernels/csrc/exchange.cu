@@ -31,17 +31,8 @@
 // latency-bound. So all three split a block of b coordinates across a
 // thread-block cluster of C CTAs (Hopper's distributed shared memory), each
 // holding a chunk of n = b / C contiguous coordinates (2,048 at b = 16,384,
-// C = 8), 8 of them a thread:
-//
-//   h = 1, 2, 4        in each thread's registers;
-//   h = 8 .. 128       across the lanes of a warp (__shfl_xor_sync);
-//   h = 256 .. n / 2   through shared memory, three stages a pass: a thread
-//                      reads the 8 coordinates that differ in three index
-//                      bits, runs the stages in registers, writes them back;
-//   h = n .. b / 2     across the cluster: after cluster.sync() each CTA
-//                      gathers its share of offsets from all C peers'
-//                      shared memory, runs the stages in registers, writes
-//                      the results back to their owners, cluster.sync().
+// C = 8), 8 of them a thread: registers, lanes, shared memory, then the
+// cluster (butterfly.cuh, fwht_block<C>, which hadamard.cu shares).
 //
 // At n = 2,048 that is 2 barriers and 2 cluster barriers a transform instead
 // of 14 barriers. The wrapper picks C from the geometry: b / 2,048, at most
@@ -49,9 +40,11 @@
 // holds whole groups of `pack` rows of the (r, c) block (a packed byte never
 // spans two CTAs; pack is 1 for the rotation), and C = 1 for b <= 2,048.
 //
-// The snap has no butterfly: one thread takes 8 contiguous coordinates of
-// one message row, with 16-byte loads and stores and, for packed codes, one
-// 8-byte load of the 8 bytes that hold them.
+// The snap and the quantize have no butterfly: one thread takes 8
+// contiguous coordinates (or packed bytes) of one message row (the quantize
+// 2 on a launch too small to fill the card), with 16-byte loads and stores
+// of the floats and codes and one access to the packed bytes that hold
+// them.
 //
 // Bound. All five kernels are memory-bound on an H100: the butterfly does
 // log2(b) <= 14 adds per coordinate against 8-16 bytes moved, far below the
@@ -71,176 +64,12 @@
 // codes, quantize_codes' codes and the plain version's codes are the same
 // function of the same y. rintf rounds half to even, as jnp.round does.
 
-#include <cooperative_groups.h>
 #include <stdint.h>
 
+#include "butterfly.cuh"
 #include "common.cuh"
 
 namespace {
-
-namespace cg = cooperative_groups;
-
-// ---------------------------------------------------------------------------
-// the cluster butterfly of exch_rotate, exch_encode and exch_decode
-// ---------------------------------------------------------------------------
-
-constexpr int kVals = 8;                   // coordinates a thread holds
-constexpr int kWarpSpan = kVals * 32;      // what register + lane stages span
-constexpr int kMaxChunk = 4096;            // largest chunk the wrapper picks
-constexpr int kMaxCluster = 8;             // the portable cluster size
-
-int chunk_threads(int n) {
-  const int t = n / kVals;
-  return t < 32 ? 32 : t;
-}
-
-// One butterfly stage on bit P of the register index: pairs (e, e + 2^P).
-template <int P>
-__device__ __forceinline__ void reg_stage(float v[kVals]) {
-#pragma unroll
-  for (int e = 0; e < kVals; ++e) {
-    if (e & (1 << P)) continue;
-    const float a = v[e];
-    const float c = v[e | (1 << P)];
-    v[e] = __fadd_rn(a, c);
-    v[e | (1 << P)] = __fsub_rn(a, c);
-  }
-}
-
-__device__ __forceinline__ float as_float(int w, const float*) {
-  return __int_as_float(w);
-}
-__device__ __forceinline__ float as_float(int w, const int32_t*) {
-  return (float)w;  // a code, below 2^16: exact
-}
-
-// v[e] = chunk[off + e] as a float for off + e < n, 0 beyond; two 16-byte
-// loads when it can. Every address read lies inside the chunk.
-template <typename T>
-__device__ __forceinline__ void load8(const T* __restrict__ chunk, int off,
-                                      int n, float v[kVals]) {
-  static_assert(sizeof(T) == 4, "4-byte elements");
-  const T* p = chunk + off;
-  if (off + kVals <= n && ((uintptr_t)p & 15) == 0) {
-    const int4 a = reinterpret_cast<const int4*>(p)[0];
-    const int4 b = reinterpret_cast<const int4*>(p)[1];
-    const int w[kVals] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int e = 0; e < kVals; ++e) v[e] = as_float(w[e], p);
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < kVals; ++e) {
-    const float x = (float)chunk[min(off + e, n - 1)];
-    v[e] = off + e < n ? x : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store4x2(float* p, const float v[kVals]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store4x2(int32_t* p, const int32_t v[kVals]) {
-  reinterpret_cast<int4*>(p)[0] = make_int4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<int4*>(p)[1] = make_int4(v[4], v[5], v[6], v[7]);
-}
-
-// p[e] = v[e] for e < nv; two 16-byte stores when it can.
-template <typename T>
-__device__ __forceinline__ void store8(T* p, int nv, const T v[kVals]) {
-  if (nv == kVals && ((uintptr_t)p & 15) == 0) {
-    store4x2(p, v);
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < kVals; ++e)
-    if (e < nv) p[e] = v[e];
-}
-
-// Unscaled H_n on the CTA's chunk of n = 2^k coordinates, thread t holding
-// chunk coordinates 8t .. 8t + nv - 1 in v: stages h = 1, 2, 4 in
-// registers, h = 8 .. 128 across lanes, h = 256 .. n/2 through shared
-// memory. Leaves the chunk in sm, visible to the whole CTA.
-__device__ __forceinline__ void fwht_chunk(float v[kVals], float* sm,
-                                           int n, int k, int nv) {
-  const int t = threadIdx.x;
-  if (n > 1) reg_stage<0>(v);
-  if (n > 2) reg_stage<1>(v);
-  if (n > 4) reg_stage<2>(v);
-  const int lane = t & 31;
-#pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    if ((kVals << s) >= n) break;
-    // lane ^ 2^s holds the coordinates h = 8 * 2^s away; the lower of the
-    // two keeps a + c, the upper a - c with a the partner's value
-    const bool upper = (lane >> s) & 1;
-#pragma unroll
-    for (int e = 0; e < kVals; ++e) {
-      const float o = __shfl_xor_sync(0xffffffffu, v[e], 1 << s);
-      v[e] = upper ? __fsub_rn(o, v[e]) : __fadd_rn(v[e], o);
-    }
-  }
-  store8(sm + kVals * t, nv, v);
-  __syncthreads();
-  // above a warp's span, three stages a pass over index bits w .. w+2; the
-  // window slides down at the top (w = k - 3) so it stays in the chunk, and
-  // the stages below lo in it, done already, are not run again
-  for (int lo = 8; lo < k; lo += 3) {
-    const int w = lo < k - 3 ? lo : k - 3;
-    const int base = (t & ((1 << w) - 1)) | ((t >> w) << (w + 3));
-    float x[kVals];
-#pragma unroll
-    for (int e = 0; e < kVals; ++e) x[e] = sm[base + (e << w)];
-    if (lo - w <= 0) reg_stage<0>(x);
-    if (lo - w <= 1) reg_stage<1>(x);
-    reg_stage<2>(x);
-#pragma unroll
-    for (int e = 0; e < kVals; ++e) sm[base + (e << w)] = x[e];
-    __syncthreads();
-  }
-}
-
-// The last log2(C) stages, h = n .. b/2, across the cluster's C chunks of
-// one block (C > 1, n >= 256, blockDim.x = n / 8). CTA `rank` takes offsets
-// rank * n/C .. (rank+1) * n/C - 1 of every chunk; thread t the 8/C of them
-// t + j * blockDim.x, from each of the C peers: register index e = j*C + p
-// holds peer p's value, so register bit s is stage h = n * 2^s. Leaves
-// every chunk finished in its owner's sm; the closing cluster.sync() also
-// means no CTA reads a peer's shared memory after it (none exits early).
-template <int C>
-__device__ __forceinline__ void cluster_stages(float* sm, int n) {
-  static_assert(C > 1 && C <= kMaxCluster, "cluster of 2, 4 or 8");
-  constexpr int kPer = kVals / C;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int first = (int)cluster.block_rank() * (n / C) + threadIdx.x;
-  float* peer[C];
-#pragma unroll
-  for (int p = 0; p < C; ++p) peer[p] = cluster.map_shared_rank(sm, p);
-  cluster.sync();  // every chunk of the block is through its local stages
-  float w[kVals];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-#pragma unroll
-    for (int p = 0; p < C; ++p)
-      w[j * C + p] = peer[p][first + j * blockDim.x];
-  reg_stage<0>(w);
-  if (C > 2) reg_stage<1>(w);
-  if (C > 4) reg_stage<2>(w);
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-#pragma unroll
-    for (int p = 0; p < C; ++p)
-      peer[p][first + j * blockDim.x] = w[j * C + p];
-  cluster.sync();
-}
-
-// H_b on the cluster's block: the chunk's stages, then the cluster's.
-template <int C>
-__device__ __forceinline__ void fwht_block(float v[kVals], float* sm, int n,
-                                           int k, int nv) {
-  fwht_chunk(v, sm, n, k, nv);
-  if constexpr (C > 1) cluster_stages<C>(sm, n);
-}
 
 // (H_b x*s) / sqrt(b), or s * (H_b x) / sqrt(b) when `inverse`, of one
 // (message i, block j) pair by a cluster of C CTAs (grid (nb * C, m)); CTA
@@ -346,40 +175,131 @@ encode_cluster_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void quantize_kernel(const float* __restrict__ y,
-                                const float* __restrict__ u,
-                                const float* __restrict__ gam, int gam_stride,
-                                const float* __restrict__ levels,
-                                int lev_stride, float levels_default,
-                                int32_t* __restrict__ codes32,
-                                uint8_t* __restrict__ codes8, int m,
-                                int d_pad, int b, int c, int bits, int pack) {
+// CTAs of the vectorised snap and quantize: 256 threads, 8 coordinates (or
+// packed bytes; for the quantize V of them) a thread.
+constexpr int kVecThreads = 256;
+
+// v[e] = p[off + e] for off + e < n, 0 beyond, V (2 or 8) of them in one
+// 8-byte load (V = 2) or load8's two 16-byte loads where it can; every read
+// inside p[0 .. n - 1].
+template <int V>
+__device__ __forceinline__ void loadv(const float* __restrict__ p, int off,
+                                      int n, float v[V]) {
+  if constexpr (V == kVals) {
+    load8(p, off, n, v);
+  } else {
+    const float* q = p + off;
+    if (off + V <= n && ((uintptr_t)q & (4 * V - 1)) == 0) {
+      const float2 a = *reinterpret_cast<const float2*>(q);
+      v[0] = a.x, v[1] = a.y;
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float x = p[min(off + e, n - 1)];
+      v[e] = off + e < n ? x : 0.f;
+    }
+  }
+}
+
+// p[e] = v[e] for e < nv, in one 8-byte store (V = 2) or two 16-byte
+// stores (V = 8) where it can.
+template <int V>
+__device__ __forceinline__ void storev(int32_t* p, int nv,
+                                       const int32_t v[V]) {
+  if constexpr (V == kVals) {
+    store8(p, nv, v);
+  } else {
+    if (nv == V && ((uintptr_t)p & (4 * V - 1)) == 0) {
+      *reinterpret_cast<int2*>(p) = make_int2(v[0], v[1]);
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (e < nv) p[e] = v[e];
+  }
+}
+
+// Stochastic round + wrap of already-rotated y: thread t of CTA (x, y)
+// takes outputs o0 .. o0 + V - 1, o0 = V (x * blockDim.x + t), of the per
+// = d_pad / pack outputs of message y (and y + gridDim.y, ... past the
+// grid's 65,535 rows); V = 8, or 2 on a launch too small to fill the card
+// (there each thread's latency bounds the launch). Unpacked (pack 1),
+// output o is coordinate o: V contiguous floats of y and u (two 16-byte
+// loads each at V = 8, one 8-byte load at V = 2), V int32 codes stored the
+// same way. Packed, with c a multiple of V, the V bytes (p, k .. k + V - 1)
+// of block j lie in one row p of its packed bytes and hold columns k .. k +
+// V - 1 of coordinate rows p*pack .. p*pack + pack - 1: V contiguous floats
+// of y and u from each of the pack rows, OR-ed into bytes, one V-byte
+// store. Otherwise (c < V, a short row, an unaligned output) byte by byte,
+// every read inside the row.
+template <int V>
+__global__ void __launch_bounds__(kVecThreads)
+quantize_vec_kernel(const float* __restrict__ y, const float* __restrict__ u,
+                    const float* __restrict__ gam, int gam_stride,
+                    const float* __restrict__ levels, int lev_stride,
+                    float levels_default, int32_t* __restrict__ codes32,
+                    uint8_t* __restrict__ codes8, int m, int d_pad, int b,
+                    int c, int bits, int pack) {
+  static_assert(V == 2 || V == kVals, "2 or 8 outputs a thread");
   const int per = d_pad / pack;
-  const int nbytes = b / pack;
-  const size_t n_out = (size_t)m * per;
-  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < n_out;
-       o += (size_t)gridDim.x * blockDim.x) {
-    const int i = (int)(o / per);
-    const int rem = (int)(o - (size_t)i * per);
+  const int o0 = V * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (o0 >= per) return;
+  const int nv = min(V, per - o0);
+  const int nbytes = b / pack;  // packed bytes a block
+  for (int i = blockIdx.y; i < m; i += gridDim.y) {
     const float g = gam[(size_t)i * gam_stride];
     const float L = levels != nullptr ? levels[(size_t)i * lev_stride]
                                       : levels_default;
+    const float* yi = y + (size_t)i * d_pad;
+    const float* ui = u + (size_t)i * d_pad;
+    float yv[V], uv[V];
     if (pack == 1) {
-      const size_t e = (size_t)i * d_pad + rem;
-      codes32[o] = (int32_t)quantize_one(y[e], g, u[e], L);
+      loadv<V>(yi, o0, d_pad, yv);
+      loadv<V>(ui, o0, d_pad, uv);
+      int32_t q[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        q[e] = (int32_t)quantize_one(yv[e], g, uv[e], L);
+      storev<V>(codes32 + (size_t)i * d_pad + o0, nv, q);
       continue;
     }
-    const int j = rem / nbytes;
-    const int r2 = rem - j * nbytes;
-    const int p = r2 / c;
-    const int k = r2 - p * c;
-    const size_t ebase = (size_t)i * d_pad + (size_t)j * b;
-    unsigned acc = 0;
-    for (int t = 0; t < pack; ++t) {
-      const size_t e = ebase + (size_t)(p * pack + t) * c + k;
-      acc |= quantize_one(y[e], g, u[e], L) << (t * bits);
+    uint8_t* out = codes8 + (size_t)i * per + o0;
+    if (nv == V && c % V == 0 && ((uintptr_t)out & (V - 1)) == 0) {
+      const int j = o0 / nbytes;
+      const int rem = o0 - j * nbytes;
+      const int p = rem / c;
+      const int e0 = j * b + p * pack * c + (rem - p * c);
+      unsigned acc[V] = {};
+      for (int tt = 0; tt < pack; ++tt) {
+        loadv<V>(yi, e0 + tt * c, d_pad, yv);
+        loadv<V>(ui, e0 + tt * c, d_pad, uv);
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          acc[e] |= quantize_one(yv[e], g, uv[e], L) << (tt * bits);
+      }
+      // the V bytes as one little-endian word
+      unsigned long long word = 0;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        word |= (unsigned long long)(acc[e] & 0xffu) << (8 * e);
+      if constexpr (V == 8)
+        *reinterpret_cast<unsigned long long*>(out) = word;
+      else
+        *reinterpret_cast<unsigned short*>(out) = (unsigned short)word;
+      continue;
     }
-    codes8[o] = (uint8_t)acc;
+    for (int e = 0; e < nv; ++e) {
+      const int j = (o0 + e) / nbytes;
+      const int rem = o0 + e - j * nbytes;
+      const int p = rem / c;
+      const int at = j * b + p * pack * c + (rem - p * c);
+      unsigned acc = 0;
+      for (int tt = 0; tt < pack; ++tt)
+        acc |= quantize_one(yi[at + tt * c], g, ui[at + tt * c], L)
+               << (tt * bits);
+      out[e] = (uint8_t)acc;
+    }
   }
 }
 
@@ -425,13 +345,11 @@ __device__ __forceinline__ void unpack8(const uint8_t* __restrict__ cb,
   }
 }
 
-constexpr int kSnapThreads = 256;
-
 // Positional snap: thread t of CTA (x, y) takes coordinates e0 .. e0 + 7,
 // e0 = 8 (x * blockDim.x + t), of message y (and y + gridDim.y, ... past
 // the grid's 65,535 rows). Code row i is codes row (mc == 1 ? 0 : i),
 // reference row (mw == 1 ? 0 : i).
-__global__ void __launch_bounds__(kSnapThreads)
+__global__ void __launch_bounds__(kVecThreads)
 snap_vec_kernel(const int32_t* __restrict__ codes32,
                 const uint8_t* __restrict__ codes8, int mc,
                 const float* __restrict__ w, int mw,
@@ -525,48 +443,6 @@ decode_cluster_kernel(const int32_t* __restrict__ codes32,
   store8(out + (size_t)i * d_pad + in_msg, nv, v);
 }
 
-// Launches kernel<C>, given as its instantiations k1, k2, k4 and k8, on
-// grid (nb * C, m) in clusters of (C, 1, 1), n = b / C coordinates a CTA.
-// C must be 1, 2, 4 or 8, and n at most kMaxChunk and, when C > 1, at
-// least a warp's span.
-template <typename... Params, typename... Args>
-cudaError_t launch_cluster(void (*k1)(Params...), void (*k2)(Params...),
-                           void (*k4)(Params...), void (*k8)(Params...),
-                           int cluster, int nb, int m, int n,
-                           cudaStream_t stream, Args... args) {
-  void (*kernel)(Params...) =
-      cluster == 1 ? k1 : cluster == 2 ? k2 : cluster == 4 ? k4 : k8;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nb * cluster, m);
-  cfg.blockDim = dim3(chunk_threads(n));
-  // a chunk under a warp's span still gets 8 floats a thread, so that no
-  // thread reads past the CTA's shared memory
-  cfg.dynamicSmemBytes = (size_t)kVals * chunk_threads(n) * sizeof(float);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
-bool cluster_ok(int b, int cluster) {
-  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
-    return false;
-  const int n = b / cluster;
-  return b % cluster == 0 && n <= kMaxChunk &&
-         (cluster == 1 || n >= kWarpSpan);
-}
-
-int log2i(int n) {
-  int k = 0;
-  while ((1 << k) < n) ++k;
-  return k;
-}
-
 }  // namespace
 
 extern "C" {
@@ -611,14 +487,24 @@ int exch_encode(const void* x, const void* signs, int sign_stride,
   return (int)cudaGetLastError();
 }
 
-// The quantize half of exch_encode on already-rotated y.
+// The quantize half of exch_encode on already-rotated y, `per_thread` (2 or
+// 8) outputs a thread.
 int exch_quantize(const void* y, const void* u, const void* gam,
                   int gam_stride, const void* levels, int lev_stride,
                   float levels_default, void* codes32, void* codes8, int m,
-                  int d_pad, int b, int c, int bits, int pack, void* stream) {
-  const size_t n_out = (size_t)m * (d_pad / pack);
-  quantize_kernel<<<elt_blocks(n_out), kEltThreads, 0,
-                    (cudaStream_t)stream>>>(
+                  int d_pad, int b, int c, int bits, int pack, int per_thread,
+                  void* stream) {
+  void (*kernel)(const float*, const float*, const float*, int, const float*,
+                 int, float, int32_t*, uint8_t*, int, int, int, int, int,
+                 int) =
+      per_thread == 8   ? quantize_vec_kernel<8>
+      : per_thread == 2 ? quantize_vec_kernel<2>
+                        : nullptr;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (m == 0) return (int)cudaSuccess;  // no message: nothing to launch
+  const int per_cta = per_thread * kVecThreads;
+  dim3 grid((d_pad / pack + per_cta - 1) / per_cta, m < 65535 ? m : 65535);
+  kernel<<<grid, kVecThreads, 0, (cudaStream_t)stream>>>(
       (const float*)y, (const float*)u, (const float*)gam, gam_stride,
       (const float*)levels, lev_stride, levels_default, (int32_t*)codes32,
       (uint8_t*)codes8, m, d_pad, b, c, bits, pack);
@@ -631,9 +517,9 @@ int exch_snap(const void* codes32, const void* codes8, int mc, const void* w,
               int mw, const void* gam, int gam_stride, const void* levels,
               int lev_stride, float levels_default, void* out, int m,
               int d_pad, int b, int c, int bits, int pack, void* stream) {
-  const int per_cta = kVals * kSnapThreads;
+  const int per_cta = kVals * kVecThreads;
   dim3 grid((d_pad + per_cta - 1) / per_cta, m < 65535 ? m : 65535);
-  snap_vec_kernel<<<grid, kSnapThreads, 0, (cudaStream_t)stream>>>(
+  snap_vec_kernel<<<grid, kVecThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)codes32, (const uint8_t*)codes8, mc, (const float*)w,
       mw, (const float*)gam, gam_stride, (const float*)levels, lev_stride,
       levels_default, (float*)out, m, d_pad, b, c, bits, pack);

@@ -191,7 +191,7 @@ _SIGNATURES = {
     "exch_encode": [_P, _P, _I, _P, _P, _I, _P, _I, _F, _P, _P, _P, _I, _I,
                     _I, _I, _I, _I, _F, _I, _P],
     "exch_quantize": [_P, _P, _P, _I, _P, _I, _F, _P, _P, _I, _I, _I, _I,
-                      _I, _I, _P],
+                      _I, _I, _I, _P],
     "exch_snap": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _F, _P, _I, _I, _I,
                   _I, _I, _I, _P],
     "exch_decode": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _F, _P, _I,
@@ -203,9 +203,11 @@ _MAX_SHARED_BLOCK = 232_448 // 4
 # a cluster of CTAs, each holding a chunk of _CHUNK coordinates (8 a
 # thread), at most _MAX_CLUSTER of them (the portable cluster size)
 _CHUNK, _MAX_CLUSTER = 2048, 8
-# snap_codes: 8 coordinates a thread, _SNAP_THREADS threads a CTA
-# (kSnapThreads in csrc/exchange.cu)
-_SNAP_THREADS = 256
+# snap_codes and quantize_codes: 8 coordinates or packed bytes a thread,
+# _VEC_THREADS threads a CTA (kVecThreads in csrc/exchange.cu); a quantize
+# launch that would start fewer than _FILL threads (half an H100's 270,336
+# resident threads) takes 2 outputs a thread
+_VEC_THREADS, _FILL = 256, 1 << 17
 
 
 def library():
@@ -286,8 +288,20 @@ def _cluster(d_pad, block, pack):
 def snap_geometry(m: int, d_pad: int):
     """The grid of a ``snap_codes`` launch with m output rows: CTAs and
     threads a CTA, 8 coordinates a thread."""
-    per_cta = 8 * _SNAP_THREADS
-    return {"ctas": m * -(-d_pad // per_cta), "threads": _SNAP_THREADS}
+    per_cta = 8 * _VEC_THREADS
+    return {"ctas": m * -(-d_pad // per_cta), "threads": _VEC_THREADS}
+
+
+@lru_cache(maxsize=64)
+def quantize_geometry(m: int, d_pad: int, *, pack: int = 1):
+    """The grid of a ``quantize_codes`` launch on m messages: outputs
+    (codes, or packed bytes) a thread, 8, or 2 where 8 would start fewer
+    than ``_FILL`` threads (a small launch is bound by each thread's
+    latency); CTAs of 256 threads. Cached, as ``_geometry``."""
+    per = d_pad // pack
+    v = 8 if m * -(-per // 8) >= _FILL else 2
+    return {"ctas": m * -(-per // (v * _VEC_THREADS)),
+            "threads": _VEC_THREADS, "per_thread": v}
 
 
 def fused_rotate(x2, signs, *, block=DEFAULT_BLOCK, inverse=False):
@@ -377,13 +391,29 @@ def quantize_codes(y2, u2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
 
     Replaces ``repro/kernels/exchange.py`` · ``quantize_codes``
     (``_quantize_kernel``). Bound on the H100: bytes, 12 per coordinate
-    (y, u, int32 codes). Design: one thread per output code or packed byte,
-    consecutive threads on consecutive columns; the arithmetic is
-    ``fused_encode``'s, bit for bit.
+    (y, u, int32 codes; 8 and a share of a byte packed). Design: a CTA of
+    256 threads on one message row, 8 contiguous outputs a thread, γ and L
+    read once a thread: y, u and int32 codes move 16 bytes at a time, and
+    a thread's 8 packed bytes (8 columns of one packed row of an (r, c)
+    block when c is a multiple of 8) are OR-ed from ``pack`` rows of 8
+    floats and stored in one 8-byte store; byte by byte for c < 8. The
+    arithmetic is ``fused_encode``'s, bit for bit. A launch too small to
+    fill the card takes fewer outputs a thread (:func:`quantize_geometry`:
+    two at the downlink's 1 × 32,768).
     """
     if build.on_cpu(y2, u2, gammas, levels2):
         return quantize_plain(y2, u2, gammas, bits=bits, block=block,
                               pack=pack, levels2=levels2)
+    m, d_pad = y2.shape
+    return _launch_quantize(
+        y2, u2, gammas, bits, block, pack, levels2,
+        quantize_geometry(m, d_pad, pack=pack)["per_thread"])
+
+
+def _launch_quantize(y2, u2, gammas, bits, block, pack, levels2,
+                     per_thread):
+    """The quantize kernel on CUDA tensors, ``per_thread`` (2 or 8)
+    outputs a thread."""
     m, d_pad = y2.shape
     b, c = _geometry(d_pad, block, bits, pack)
     _require(y2, "y2", torch.float32, (m, d_pad))
@@ -395,8 +425,8 @@ def quantize_codes(y2, u2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     build.check(library().exch_quantize(
         build.ptr(y2), build.ptr(u2), build.ptr(gammas), g_stride,
         build.ptr(lv), lv_stride, lv_default, build.ptr(codes32),
-        build.ptr(codes8), m, d_pad, b, c, bits, pack, build.stream()),
-        "exch_quantize")
+        build.ptr(codes8), m, d_pad, b, c, bits, pack, per_thread,
+        build.stream()), "exch_quantize")
     return codes32 if pack == 1 else codes8
 
 

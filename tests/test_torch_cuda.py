@@ -380,6 +380,118 @@ def test_rotate_and_snap_kernels_are_deterministic(dev):
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# quantize_codes' vectorised kernel
+# ---------------------------------------------------------------------------
+
+# (d_pad, block): c < 8 (b = 32, (8, 4)) with packed rows not a multiple of
+# 8 bytes (96 / pack), a tail CTA (3,072 / pack outputs) at b = 1,024, the
+# paths' 32,768 and one bench row
+QUANTIZE_GEOMETRIES = [(96, 32), (128, 32), (3072, 1024), (32_768, 16_384),
+                       (1 << 20, 16_384)]
+
+
+@pytest.mark.parametrize("gam_rows,levels", [(True, None), (False, None),
+                                             (True, "rows"), (False, "one")])
+@pytest.mark.parametrize("d_pad,block", QUANTIZE_GEOMETRIES)
+@pytest.mark.parametrize("bits,pack", WIRES)
+def test_quantize_kernel_equals_plain_and_encode(dev, bits, pack, d_pad,
+                                                 block, gam_rows, levels):
+    """quantize_codes on the rotated y equals quantize_plain and
+    fused_encode's codes, with γ and levels rows of m values or one, at the
+    wrapper's count of outputs a thread and at each other."""
+    m = 3
+    g = torch.Generator(device=dev)
+    g.manual_seed(d_pad + pack)
+    x = torch.randn((m, d_pad), generator=g, device=dev)
+    u = torch.rand((m, d_pad), generator=g, device=dev)
+    sg = signs(g, d_pad)
+    kw = dict(bits=bits, pack=pack, block=block)
+    y = kx.rotate_plain(x, sg, block=block)
+    gam = (y.abs().amax(dim=1) / (1 << bits) / 2).contiguous()
+    lv = None
+    if levels == "rows":
+        lv = torch.tensor([1 << bits, max(1, (1 << bits) // 4),
+                           max(1, (1 << bits) // 2)], device=dev).float()
+    elif levels == "one":
+        lv = torch.tensor([max(1, (1 << bits) // 2)], device=dev).float()
+    if not gam_rows:
+        gam = gam[:1].contiguous()
+    full = (lambda t: None if t is None
+            else t.expand(m).contiguous())          # one value -> m rows
+    y_e, codes_e = kx.fused_encode(x, sg, u, full(gam), want_rotated=True,
+                                   levels2=full(lv), **kw)
+    assert torch.equal(y_e, y)
+    kx.reset_launches()
+    codes = kx.quantize_codes(y, u, gam, levels2=lv, **kw)
+    torch.cuda.synchronize()
+    assert kx.LAUNCHES["quantize_codes"] == 1
+    assert codes.shape == (m, d_pad // pack)
+    assert torch.equal(codes, kx.quantize_plain(y, u, gam, levels2=lv, **kw))
+    assert torch.equal(codes, codes_e)
+    for v in (2, 8):                # every count of outputs a thread
+        assert torch.equal(kx._launch_quantize(y, u, gam, bits, block, pack,
+                                               lv, v), codes)
+
+
+@pytest.mark.parametrize("bits,pack", [(8, 1), (4, 2), (1, 8)])
+def test_quantize_unaligned_views_take_the_scalar_path(dev, bits, pack):
+    """y and u at offsets that break the 16-byte loads give the plain
+    version's codes."""
+    x, sg, u, gam = _inputs(dev, 4, 32_768, bits)
+    y = kx.rotate_plain(x, sg)
+    want = kx.quantize_plain(y, u, gam, bits=bits, pack=pack)
+    for k in (1, 2):
+        ys, us = _shifted(y, k), _shifted(u, k)
+        assert torch.equal(kx.quantize_codes(ys, us, gam, bits=bits,
+                                             pack=pack), want)
+        for v in (2, 8):
+            assert torch.equal(kx._launch_quantize(
+                ys, us, gam, bits, 16_384, pack, None, v), want)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# hadamard_blocks' cluster kernel
+# ---------------------------------------------------------------------------
+
+# the 2^25 shape, b = 32,768, blocks under 8 coordinates, one row
+HADAMARD_CLUSTER_SHAPES = [(2048, 128, 128), (3, 256, 128), (5, 2, 2),
+                           (3, 1, 4), (4, 1, 1), (2, 1, 8192), (3, 64, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,r,c", HADAMARD_CLUSTER_SHAPES)
+def test_hadamard_cluster_kernel_equals_plain_version(dev, n, r, c, dtype):
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + r * c)
+    x = torch.randn((n, r, c), generator=g, device=dev).to(dtype)
+    hd.reset_launches()
+    out = hd.hadamard_blocks(x)
+    torch.cuda.synchronize()
+    assert hd.LAUNCHES == {"hadamard_blocks": 1}
+    assert torch.equal(out, hd.hadamard_plain(x))
+    assert torch.equal(hd.hadamard_blocks(x), out)      # deterministic
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hadamard_every_cluster_size_and_unaligned_views(dev, dtype):
+    """Each cluster size the kernel takes gives the plain version's bits at
+    b = 16,384 (C = 2, 4, 8), and inputs at an offset that breaks the
+    16-byte loads take the scalar path to the same bits."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    x = torch.randn((5, 128, 128), generator=g, device=dev).to(dtype)
+    want = hd.hadamard_plain(x)
+    for cl in (2, 4, 8):
+        assert torch.equal(hd._launch(x, cl), want)
+    for k in (1, 3):
+        assert torch.equal(hd.hadamard_blocks(_shifted(x, k)), want)
+    with pytest.raises(RuntimeError, match="hadamard_blocks_fwd"):
+        hd._launch(x, 1)                # a chunk of 16,384: refused
+    torch.cuda.synchronize()
+
+
 # (b, t, h, kv, dh, window, softcap): the serve path's shapes, cut in
 # length, and the head dims of the reduced configs
 FLASH_CASES = [(2, 512, 8, 4, 256, 0, 50.0), (2, 512, 8, 4, 256, 128, 50.0),

@@ -23,7 +23,13 @@ contiguous coordinates of one row a thread, its packed codes in one 8-byte
 load where c is a multiple of 8 and byte by byte where it is not; the
 emulation of that mapping is held ``torch.equal`` to ``snap_plain`` and
 exactly equal to the reference's snap, as ``test_torch_exchange.py`` holds
-the plain version.
+the plain version. ``quantize_codes`` (``quantize_vec_kernel<V>``) takes V
+contiguous outputs of one row a thread (8, or 2 on a small launch):
+int32 codes of V coordinates, or V packed bytes OR-ed from ``pack`` rows of
+V floats and stored as one V-byte word where c is a multiple of V, byte by
+byte where it is not; its emulation at every V is held ``torch.equal`` to
+``quantize_plain`` and exactly equal to the reference's
+``quantize_codes``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -341,3 +347,132 @@ def test_snap_grid_the_wrapper_reports():
     """256 threads of 8 coordinates a CTA: 16 CTAs a 32,768-row."""
     assert kx.snap_geometry(16, 32_768) == {"ctas": 256, "threads": 256}
     assert kx.snap_geometry(1, 96) == {"ctas": 1, "threads": 256}
+
+
+def emulate_quantize(y2, u2, gammas, *, bits, pack, block=DEFAULT_BLOCK,
+                     levels2=None, per_thread=None):
+    """quantize_codes as quantize_vec_kernel<V> computes it, V outputs a
+    thread (the wrapper's ``quantize_geometry`` unless given): thread g of
+    a row takes outputs Vg .. Vg + V − 1 of its d_pad / pack; unpacked,
+    the codes of coordinates Vg .. Vg + V − 1 (loads clamped into the
+    row); packed with c a multiple of V, bytes (p, k .. k + V − 1) of block
+    j from V floats of each of rows p·pack .. p·pack + pack − 1, assembled
+    into little-endian 32-bit words; else byte by byte at each output's
+    own (j, p, k)."""
+    m, d_pad = y2.shape
+    b, _, _, c, _ = kx.block_geometry(d_pad, block)
+    v = per_thread or kx.quantize_geometry(m, d_pad,
+                                           pack=pack)["per_thread"]
+    per, nbytes = d_pad // pack, b // pack
+    o0 = torch.arange(0, per, v)                        # a thread's first
+    e = torch.arange(v)
+    nv = torch.clamp(per - o0, max=v)
+    keep = e < nv[:, None]
+
+    def codes_at(at):                                   # (m, threads, V)
+        q = kx._quantize(y2[:, at.reshape(-1)], u2[:, at.reshape(-1)],
+                         gammas, bits, levels2)
+        return q.reshape(m, *at.shape).to(torch.int64)
+
+    if pack == 1:
+        at = o0[:, None] + torch.minimum(e, nv[:, None] - 1)   # clamped
+        out = torch.empty((m, per), dtype=torch.int32)
+        out[:, at[keep]] = codes_at(at)[:, keep].to(torch.int32)
+        return out
+    if c % v == 0:                                      # one V-byte store
+        assert bool((nv == v).all()) and per % v == 0
+        j = o0 // nbytes
+        p = (o0 - j * nbytes) // c
+        e0 = j * b + p * pack * c + (o0 - j * nbytes - p * c)
+        acc = sum(codes_at(e0[:, None] + tt * c + e) << (tt * bits)
+                  for tt in range(pack))
+        words = [sum((acc[..., q] & 0xff) << (8 * (q % 4))
+                     for q in range(h, min(h + 4, v)))
+                 for h in range(0, v, 4)]
+        byte = torch.stack([(words[q // 4] >> (8 * (q % 4))) & 0xff
+                            for q in range(v)], dim=-1)
+        return byte.reshape(m, per).to(torch.uint8)     # every thread's V
+    o = o0[:, None] + e                                 # byte by byte
+    j = o // nbytes
+    p = (o - j * nbytes) // c
+    at = j * b + p * pack * c + (o - j * nbytes - p * c)
+    at = torch.where(keep, at, 0)                       # never read
+    acc = sum(codes_at(at + tt * c) << (tt * bits) for tt in range(pack))
+    out = torch.empty((m, per), dtype=torch.uint8)
+    out[:, o[keep]] = (acc[:, keep] & 0xff).to(torch.uint8)
+    return out
+
+
+def _quantize_inputs(seed, m, d_pad, bits, block, gam_rows, levels):
+    """Rotated-like y (a few wraps of the ring at γ), U(0,1) noise, a γ row
+    of m values or one, and a levels row of m values, one, or none."""
+    y = gauss(seed, (m, d_pad))
+    u = uniform(seed + 1, (m, d_pad))
+    top = np.abs(y).max(axis=1) / (1 << bits) / 2
+    g = (top if gam_rows else top[:1]).astype(np.float32)
+    lv = None
+    if levels == "rows":
+        lv = np.maximum(1, (1 << bits) >> np.arange(m) % 3).astype(np.float32)
+    elif levels == "one":
+        lv = np.array([max(1, (1 << bits) >> 1)], np.float32)
+    return y, u, g, lv
+
+
+# (d_pad, block): c < 8 (b = 32, (8, 4)) with rows whose packed length is
+# not a multiple of 8 (96 / pack), a tail CTA (3,072 / pack outputs, not a
+# multiple of 2,048) at b = 1,024 (32 x 32), and the paths' 32,768
+QUANTIZE_GEOMETRIES = [(128, 32), (96, 32), (3072, 1024), (32_768, 16_384)]
+QUANTIZE_ROWS = [(3, True, None), (3, False, "one"), (4, True, "rows"),
+                 (1, True, None)]
+
+
+@pytest.mark.parametrize("m,gam_rows,levels", QUANTIZE_ROWS)
+@pytest.mark.parametrize("d_pad,block", QUANTIZE_GEOMETRIES)
+@pytest.mark.parametrize("bits,pack", [(8, 1), (4, 2), (2, 4), (1, 8)])
+def test_emulated_quantize_is_the_plain_quantize(bits, pack, d_pad, block,
+                                                 m, gam_rows, levels):
+    y, u, g, lv = _quantize_inputs(90 + m, m, d_pad, bits, block, gam_rows,
+                                   levels)
+    kw = dict(bits=bits, pack=pack, block=block,
+              levels2=None if lv is None else tt(lv))
+    want = kx.quantize_plain(tt(y), tt(u), tt(g), **kw)
+    for v in (None, 2, 8):       # the wrapper's pick, then each kernel
+        out = emulate_quantize(tt(y), tt(u), tt(g), per_thread=v, **kw)
+        assert out.shape == (m, d_pad // pack)
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("m,gam_rows,levels", QUANTIZE_ROWS[:3])
+@pytest.mark.parametrize("d_pad,block", [(96, 32), (3072, 1024)])
+@pytest.mark.parametrize("bits,pack", [(8, 1), (4, 2), (1, 8)])
+def test_emulated_quantize_matches_reference(bits, pack, d_pad, block, m,
+                                             gam_rows, levels):
+    y, u, g, lv = _quantize_inputs(100 + m, m, d_pad, bits, block, gam_rows,
+                                   levels)
+    ref = ref_kx.quantize_codes(jnp.asarray(y), jnp.asarray(u),
+                                jnp.asarray(g), bits=bits, pack=pack,
+                                block=block,
+                                levels2=None if lv is None
+                                else jnp.asarray(lv))
+    for v in (2, 8):
+        out = emulate_quantize(tt(y), tt(u), tt(g), bits=bits, pack=pack,
+                               block=block, per_thread=v,
+                               levels2=None if lv is None else tt(lv))
+        np.testing.assert_array_equal(npy(out).astype(np.int64),
+                                      npy(ref).astype(np.int64))
+
+
+def test_quantize_grid_the_wrapper_reports():
+    """8 outputs a thread, or 2 where 8 would start fewer than 2^17
+    threads; CTAs of 256: the downlink's one 32,768-row and 16 rows of
+    4-bit packed bytes at 2 a thread, a bench row and the bench shape at
+    8."""
+    def geo(ctas, per_thread):
+        return {"ctas": ctas, "threads": 256, "per_thread": per_thread}
+    assert kx.quantize_geometry(1, 32_768) == geo(64, 2)
+    assert kx.quantize_geometry(16, 32_768, pack=2) == geo(512, 2)
+    assert kx.quantize_geometry(16, 32_768) == geo(1024, 2)
+    assert kx.quantize_geometry(2, 3072) == geo(12, 2)
+    assert kx.quantize_geometry(1, 1 << 20) == geo(512, 8)
+    assert kx.quantize_geometry(32, 1 << 20) == geo(16_384, 8)
+    assert kx.quantize_geometry(300, 32_768, pack=4) == geo(1200, 8)
