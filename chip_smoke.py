@@ -10,7 +10,7 @@ the card and times both (the exchange's cluster kernels, ``fused_rotate``,
 ``fused_encode`` and ``fused_decode``, and ``quantize_codes`` and
 ``snap_codes`` also with their profiled device time a launch at the paths'
 shapes and their grid; the encode and decode with their mismatch counts),
-then drives the port's four paths:
+then drives the port's paths:
 
 * the kernels' public API (``kernels/ops.py``) as a user calls it:
   ``rotate_blocks``, ``lattice_encode``, ``lattice_decode`` and the inverse
@@ -24,6 +24,16 @@ then drives the port's four paths:
 * the paper's baselines through ``compare`` at the same width: FedAvg,
   compressed FedAvg (lattice and scalar uplinks), FedBuff (lattice and qsgd
   deltas) and the sequential node, 30 rounds each;
+* QuAFL's other paths at the same width, 30 rounds each: the grouped
+  per-client uplink (fast clients at b=8, the slow 30% charged b=4, a
+  per-message levels row through the encode and the snap), the
+  ``cyclic`` and ``gamma_straggler`` participation specs, and the
+  per-message branch (a ``scalar`` uplink, the lattice downlink through the
+  codec API); every round's bits exact from its sampled ids;
+* the quickstart: its four runs (``quafl``, ``quafl_het``, ``fedavg``,
+  ``fedpaq``) through ``compare`` at the same width and an equal simulated
+  time, then ``python -m repro_torch.examples.quickstart`` and
+  ``...heterogeneous_clients`` as a user runs them, each in a subprocess;
 * LM serving of gemma2-2b at full width (26 layers, random weights from
   seed 0) through ``ServeEngine``: two batches of four prompts (longest 512
   and 4,608 tokens), 32 greedy tokens each, twice, then one batch sampled
@@ -92,6 +102,15 @@ ROT_TOL = 1e-5                    # rotation: max err / max|y|
 ENC_MISMATCH_FRAC = 1e-4          # encode: ±1 mod L on at most this share
 DECODE_TOL = 1e-6                 # decode: max err / max|x| (target 0)
 D_MLP = 25_450                    # 784-32-10: d_pad 32,768
+BITS_DOWN = 262_176               # the downlink Enc(X_t) at b=8, d_pad 32,768
+# the grouped uplink: fast clients at b=8 (262,208 bits a message with γ and
+# the levels entry), the slow 30% (ids 0-89 of 300) charged b=4 packed
+# (131,136); the codes ride unpacked at modulus 256 or 16
+GROUPED = {"fast": "lattice", "slow": "lattice_packed:bits=4"}
+FAST_BITS, SLOW_BITS, N_SLOW = 32_768 * 8 + 64, 32_768 * 4 + 64, 90
+GROUPED_LEVELS = [256.0] * 11 + [16.0] * 5
+CYCLIC = "cyclic:period=8,phase_groups=4"      # group (t // 2) % 4 of 75
+GAMMA = "gamma_straggler:strength=1"
 
 
 def emit(obj) -> None:
@@ -426,14 +445,36 @@ def clone_state(state):
         bits_down=state.bits_down, srv_dist_est=state.srv_dist_est.clone())
 
 
-def run_main_path(dev, uplink: str):
+class SampleLog:
+    """A participation spec that records the client ids of every round."""
+
+    def __init__(self, part):
+        self.part = part
+        self.ids = []
+
+    def __getattr__(self, name):
+        return getattr(self.part, name)
+
+    def sample(self, *args, **kw):
+        idx = self.part.sample(*args, **kw)
+        self.ids.append(idx)
+        return idx
+
+
+def grouped_bits_up(ids) -> int:
+    """A grouped round's uplink bits from its sampled ids."""
+    ids = ids.cpu()
+    n_slow = int((ids < N_SLOW).sum())
+    return n_slow * SLOW_BITS + (len(ids) - n_slow) * FAST_BITS
+
+
+def chip_world(dev):
+    """The paths' FedConfig, data, test set, initial params and generator
+    (784-32-10, n=300, seed 0)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.configs.paper_mlp import dims
     from repro_torch.data.synthetic import make_federated_classification
-    from repro_torch.fed.registry import make_algorithm
-    from repro_torch.fed.simulate import simulate
-    from repro_torch.models.mlp import (init_mlp_classifier, mlp_loss,
-                                        mlp_loss_batched)
+    from repro_torch.models.mlp import init_mlp_classifier
     d_in, d_hidden, n_cls = dims()
     fed = FedConfig(n_clients=N_CLIENTS, s=S, local_steps=K, lr=LR, bits=8,
                     swt=SWT, kernel_backend="cuda")
@@ -443,8 +484,18 @@ def run_main_path(dev, uplink: str):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     p0 = init_mlp_classifier(gen, d_in, d_hidden, n_cls)
+    return fed, part, test, p0, gen
+
+
+def run_main_path(dev, uplink, participation=None):
+    from repro_torch.fed.registry import make_algorithm
+    from repro_torch.fed.simulate import simulate
+    from repro_torch.models.mlp import mlp_loss, mlp_loss_batched
+    fed, part, test, p0, gen = chip_world(dev)
     alg = make_algorithm("quafl", fed, loss_fn=mlp_loss_batched, template=p0,
-                         batch_size=32, uplink=uplink, device=dev)
+                         batch_size=32, uplink=uplink,
+                         participation=participation, device=dev)
+    alg.part = SampleLog(alg.part)
 
     def acc(p):
         return {"acc": float(mlp_loss(p, test)[1]["acc"])}
@@ -460,17 +511,22 @@ def run_main_path(dev, uplink: str):
 
 
 def check_main_path(tr, acc0, bits_up, bits_down):
+    """Bits exact in every row (``bits_up`` one value, or one a round) and
+    accuracy above round 0."""
+    if isinstance(bits_up, int):
+        bits_up = [bits_up] * tr.rounds
+    assert tr.column("bits_up") == bits_up, (tr.column("bits_up"), bits_up)
     for row in tr.rows:
-        assert row["bits_up"] == bits_up, row
         assert row["bits_down"] == bits_down, row
-    assert tr.final["bits_up_total"] == ROUNDS * bits_up
+    assert tr.final["bits_up_total"] == sum(bits_up)
     final = tr.final["acc"]
     assert final > acc0 and final > 0.1, (acc0, final)
 
 
-def injected_round(dev, alg_cuda, state, data, gen):
-    """One round with the same injected draws on the cuda backend and on the
-    torch backend; returns (max |Δ| of server and clients, lattice step)."""
+def injected_round(dev, alg_cuda, state, data, gen, idx=None):
+    """One round with the same injected draws (``idx`` or s random ids) on
+    the cuda backend and on the torch backend; returns (max |Δ| of server
+    and clients, lattice step: the round's largest γ, per-row detail)."""
     from repro_torch.compression.pipeline import round_randomness
     from repro_torch.fed.registry import make_algorithm
     fed_t = dataclasses.replace(alg_cuda.fed, kernel_backend="torch")
@@ -479,30 +535,88 @@ def injected_round(dev, alg_cuda, state, data, gen):
                                uplink=alg_cuda.uplink, device=dev)
     n, s = alg_cuda.fed.n_clients, alg_cuda.fed.s
     sg, u_cl, u_srv = round_randomness(gen, s, alg_cuda.d)
-    draws = {"idx": torch.randperm(n, generator=gen, device=dev)[:s],
+    if idx is None:
+        idx = torch.randperm(n, generator=gen, device=dev)[:s]
+    draws = {"idx": idx,
              "h_steps": torch.randint(0, K + 1, (s,), generator=gen,
                                       device=dev),
              "batch_idx": torch.randint(0, data["y"].shape[1], (s, K, 32),
                                         generator=gen, device=dev),
              "signs": sg, "u_cl": u_cl, "u_srv": u_srv}
-    outs, steps = [], []
+    outs, gams, codes = [], [], []
     for alg in (alg_cuda, alg_torch):
-        seen = []
-        inner = alg.pipeline.gammas
+        seen, sent = [], {}
+        pipe = alg.pipeline
+        inner = (pipe.gammas, pipe.rotate_encode, pipe.quantize)
 
-        def logged(*a, _inner=inner, _seen=seen, **k):
+        def logged(*a, _inner=inner[0], _seen=seen, **k):
             g = _inner(*a, **k)
             _seen.append(g)
             return g
-        alg.pipeline.gammas = logged
+
+        def enc(*a, _inner=inner[1], _sent=sent, **k):
+            y, c = _inner(*a, **k)
+            _sent["up"] = c
+            return y, c
+
+        def quant(*a, _inner=inner[2], _sent=sent, **k):
+            _sent["dn"] = _inner(*a, **k)
+            return _sent["dn"]
+        pipe.gammas, pipe.rotate_encode, pipe.quantize = logged, enc, quant
         st, _ = alg.round(clone_state(state), data, None, draws=draws)
-        alg.pipeline.gammas = inner
+        pipe.gammas, pipe.rotate_encode, pipe.quantize = inner
         outs.append(st)
-        steps.append(max(float(g.max()) for g in seen))
+        gams.append(seen)
+        codes.append(sent)
     a, b = outs
-    diff = max(float((a.server - b.server).abs().max()),
-               float((a.clients - b.clients).abs().max()))
-    return diff, max(steps)
+    srv = float((a.server - b.server).abs().max())
+    rows = (a.clients[idx] - b.clients[idx]).abs().amax(1)
+    diff = max(srv, float((a.clients - b.clients).abs().max()))
+    step = max(float(g.max()) for seen in gams for g in seen)
+    # the uplink's (s,) γ row, then the downlink's (1,); either backend's
+    gam_up = torch.maximum(gams[0][0], gams[1][0])
+    gam_dn = max(float(gams[0][1].max()), float(gams[1][1].max()))
+    detail = {"server": srv, "client_rows": rows.tolist(),
+              "gam_up": gam_up.tolist(), "gam_dn": gam_dn,
+              "avg_mode": alg_cuda.avg_mode, "codes": codes,
+              "levels": alg_cuda.codec_up.wire(idx).levels}
+    return diff, step, detail
+
+
+def check_grouped_round(detail, s):
+    """The grouped injected round held per message: uplink codes within
+    ±1 of the plain version's at each row's own modulus 2^b_i, on at most
+    ``ENC_MISMATCH_FRAC`` of them, the downlink codes then equal. When
+    every code agrees, the rotations, snaps and averages are exact, so the
+    server and every client row must be bit-equal. Otherwise each row keeps
+    the room of its own messages: a code off by one moves its rotated
+    coordinate by that message's γ times its weight in the average (up to
+    √block such codes a block), Σ_i γ_up,i · w_srv for the server, and
+    γ_dn · w_cl for client rows, which see the uplink only through
+    hint_srv."""
+    kern, plain = detail["codes"]
+    up_k, up_p, dn_k, dn_p = kern["up"], plain["up"], kern["dn"], plain["dn"]
+    L = detail["levels"].to(torch.int64)[:, None]
+    gap = code_gap(up_k, up_p, L)
+    res = {"up_mismatches": int((gap > 0).sum()),
+           "up_max_gap": int(gap.max()),
+           "dn_mismatches": int((dn_k != dn_p).sum()),
+           "server_diff": detail["server"],
+           "client_row_diff_max": max(detail["client_rows"])}
+    assert res["up_max_gap"] <= 1, res
+    assert res["up_mismatches"] <= ENC_MISMATCH_FRAC * up_k.numel(), res
+    if res["up_mismatches"] == 0:
+        assert res["dn_mismatches"] == 0, res
+        assert res["server_diff"] == res["client_row_diff_max"] == 0.0, res
+        return res
+    mode = detail["avg_mode"]
+    w_srv = 1 / (s + 1) if mode in ("both", "server_only") else 1 / s
+    w_cl = 1 / (s + 1) if mode in ("both", "client_only") else 1.0
+    res["server_bound"] = sum(detail["gam_up"]) * w_srv
+    res["client_row_bound"] = detail["gam_dn"] * w_cl
+    assert res["server_diff"] <= res["server_bound"], res
+    assert res["client_row_diff_max"] <= res["client_row_bound"], res
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -547,22 +661,10 @@ class CountedRounds:
 
 def run_baselines(dev, kx):
     """compare() of the six baseline runs at the main path's width."""
-    from repro_torch.configs.base import FedConfig
-    from repro_torch.configs.paper_mlp import dims
-    from repro_torch.data.synthetic import make_federated_classification
     from repro_torch.fed.registry import make_algorithm
     from repro_torch.fed.simulate import compare
-    from repro_torch.models.mlp import (init_mlp_classifier, mlp_loss,
-                                        mlp_loss_batched)
-    d_in, d_hidden, n_cls = dims()
-    fed = FedConfig(n_clients=N_CLIENTS, s=S, local_steps=K, lr=LR, bits=8,
-                    swt=SWT, kernel_backend="cuda")
-    part, test = make_federated_classification(
-        SEED, N_CLIENTS, d=d_in, n_classes=n_cls, iid=False,
-        test_samples=4096, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    p0 = init_mlp_classifier(gen, d_in, d_hidden, n_cls)
+    from repro_torch.models.mlp import mlp_loss, mlp_loss_batched
+    fed, part, test, p0, gen = chip_world(dev)
     algs = {run: CountedRounds(kx, make_algorithm(
                 name, fed, loss_fn=mlp_loss_batched, template=p0,
                 batch_size=32, device=dev, **kw))
@@ -705,6 +807,171 @@ def profile_rounds(alg, state, data, gen, rounds: int = 5):
                              e.self_device_time_total / rounds / 1e3)
                             for e in top],
             "ported_device_ms_per_launch": per_launch}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: QuAFL's grouped uplink, participation specs and per-message
+# branch, and the quickstart
+# ---------------------------------------------------------------------------
+
+# (run, uplink, participation, bits up a round or None for the grouped
+#  uplink's per-round sum, whether the rotated-space pipeline runs)
+VARIANTS = (
+    ("grouped", GROUPED, None, None, True),
+    ("cyclic", "lattice", CYCLIC, 4_194_816, True),
+    ("gamma_straggler", "lattice", GAMMA, 4_194_816, True),
+    ("per_message", "scalar", None, 3_258_112, False),
+)
+
+
+def run_variants(dev, kx, uniform_per_run):
+    """Each variant at the main path's width, 30 rounds, its launch counts
+    from 0 just before and read just after: bits exact in every round
+    (the grouped uplink's from each round's sampled ids), accuracy above
+    round 0, the pipeline's rotation counts, the cyclic cohort inside its
+    phase group, and the launches: the pipeline's those of the uniform b=8
+    run (``uniform_per_run``), the per-message branch's one lattice
+    downlink encode and one broadcast decode a round."""
+    out = {}
+    for run, uplink, participation, bits_up, pipelined in VARIANTS:
+        kx.reset_launches()
+        alg, tr, acc0, wall, data = run_main_path(dev, uplink, participation)
+        torch.cuda.synchronize()
+        launches = dict(kx.LAUNCHES)
+        ids = [i.cpu() for i in alg.part.ids]
+        if bits_up is None:
+            per = alg.codec_up.message_bits_per_client(alg.d)
+            assert per[:N_SLOW].tolist() == [SLOW_BITS] * N_SLOW
+            assert per[N_SLOW:].tolist() == [FAST_BITS] * (N_CLIENTS - N_SLOW)
+            bits_up = [grouped_bits_up(i) for i in ids]
+            assert bits_up == [int(per[i.numpy()].sum()) for i in ids]
+        row = {"phase": "main_path", "run": run, "uplink": str(uplink),
+               "participation": participation, "rounds": tr.rounds,
+               "d": alg.d, "n_clients": N_CLIENTS, "s": S,
+               "bits_up": tr.column("bits_up"),
+               "bits_down": tr.column("bits_down"),
+               "slow_per_round": [int((i < N_SLOW).sum()) for i in ids],
+               "quant_err_final": tr.final["quant_err"], "acc_round0": acc0,
+               "acc": [(r["round"], r["acc"]) for r in tr.rows if "acc" in r],
+               "seconds": wall, "ms_per_round": wall / tr.rounds * 1e3,
+               "launches": launches}
+        if pipelined:
+            row["rotations"] = alg.pipeline.stats.counts()
+        emit(row)
+        check_main_path(tr, acc0, bits_up, BITS_DOWN)
+        assert len(ids) == ROUNDS and all(len(set(i.tolist())) == S
+                                          for i in ids), run
+        if pipelined:
+            assert row["rotations"] == {"rotation_fwd": ROUNDS * (S + 1),
+                                        "rotation_inv": ROUNDS * (S + 1)}
+            assert launches == uniform_per_run, (launches, uniform_per_run)
+        else:
+            assert alg.pipeline is None
+            assert launches == {**{k: 0 for k in launches},
+                                "fused_encode": ROUNDS,
+                                "fused_decode": ROUNDS}, launches
+        if participation == CYCLIC:
+            groups = [sorted({int(x) // (N_CLIENTS // 4) for x in i})
+                      for i in ids]
+            assert groups == [[(t // 2) % 4] for t in range(ROUNDS)], groups
+        out[run] = (alg, tr, data)
+    return out
+
+
+QUICKSTART = (   # (run, registry name, kwargs, bits up, bits down a round)
+    ("quafl", "quafl", {}, 4_194_816, BITS_DOWN),
+    ("quafl_het", "quafl", {"uplink": GROUPED}, None, BITS_DOWN),
+    ("fedavg", "fedavg", {}, 13_030_400, 13_030_400),
+    ("fedpaq", "compressed_fedavg", {"uplink": "scalar"}, 3_258_112,
+     814_400),
+)
+
+
+def run_quickstart(dev, kx):
+    """The quickstart's four runs through ``compare`` at the main path's
+    width and an equal simulated time of 30 QuAFL rounds, counts from 0
+    just before and read just after: bits exact in every round, QuAFL's
+    30 rounds, accuracy above round 0."""
+    from repro_torch.fed.registry import make_algorithm
+    from repro_torch.fed.simulate import compare
+    from repro_torch.models.mlp import mlp_loss, mlp_loss_batched
+    fed, part, test, p0, gen = chip_world(dev)
+    algs = {run: make_algorithm(name, fed, loss_fn=mlp_loss_batched,
+                                template=p0, batch_size=32, device=dev, **kw)
+            for run, name, kw, *_ in QUICKSTART}
+    algs["quafl_het"].part = SampleLog(algs["quafl_het"].part)
+
+    def acc(p):
+        return {"acc": float(mlp_loss(p, test)[1]["acc"])}
+
+    acc0 = acc(p0)["acc"]
+    kx.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traces = compare(algs, p0, part, gen,
+                     until_sim_time=ROUNDS * (fed.swt + fed.sit),
+                     eval_every=10, record_every=1, eval_fn=acc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kx.LAUNCHES)
+    rows = []
+    for run, _, _, up, down in QUICKSTART:
+        tr = traces[run]
+        if up is None:
+            up = [grouped_bits_up(i) for i in algs[run].part.ids]
+        row = {"phase": "quickstart", "run": run, "rounds": tr.rounds,
+               "bits_up": sorted(set(tr.column("bits_up"))),
+               "bits_down": sorted(set(tr.column("bits_down"))),
+               "bits_up_total": tr.final["bits_up_total"],
+               "bits_down_total": tr.final["bits_down_total"],
+               "sim_time_final": tr.final["sim_time"], "acc_round0": acc0,
+               "acc_final": tr.final["acc"],
+               "ms_per_round": tr.us_per_round / 1e3}
+        rows.append(row)
+        emit(row)
+        check_main_path(tr, acc0, up, down)
+        if run.startswith("quafl"):
+            assert tr.rounds == ROUNDS, row
+    emit({"phase": "launches", "path": "quickstart", "launches": launches,
+          "seconds": wall})
+    for k in ("fused_encode", "fused_rotate", "quantize_codes",
+              "snap_codes"):
+        assert launches[k] > 0, f"kernel {k} never launched on the " \
+            f"quickstart"
+    h, q = traces["quafl_het"].final, traces["quafl"].final
+    assert q["bits_up_total"] / h["bits_up_total"] > 1.0
+    return rows
+
+
+def run_twin_clis():
+    """``python -m repro_torch.examples.quickstart`` and
+    ``...heterogeneous_clients`` as a user runs them, each in its own
+    process on the card; their printed lines, the quickstart's table and
+    both heterogeneous-uplink ratios above 1."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for name in ("quickstart", "heterogeneous_clients"):
+        argv = [sys.executable, "-m", f"repro_torch.examples.{name}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        lines = proc.stdout.splitlines()
+        emit({"phase": "twin_cli", "module": f"repro_torch.examples.{name}",
+              "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+              "lines": lines, "stderr_tail": proc.stderr[-2000:]})
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        text = proc.stdout
+        if name == "quickstart":
+            assert lines[0].startswith("algorithm | rounds"), lines
+            assert [ln.split()[0] for ln in lines[1:5]] == [
+                "quafl", "quafl_het", "fedavg", "fedpaq"], lines
+            ratio = float(text.split("uplink (slow 30% at b=4) sends ")[1]
+                          .split("x")[0])
+        else:
+            assert "cyclic availability:" in text, lines
+            ratio = float(text.split("uplink bits=")[2].split("(")[1]
+                          .split("x")[0])
+        assert ratio > 1.0, (name, ratio)
 
 
 # ---------------------------------------------------------------------------
@@ -1313,7 +1580,8 @@ def main() -> int:
               (4, 4096, 8, 1, None), (4, 4096, 4, 2, None),
               (4, 8192, 8, 1, None), (4, 8192, 4, 2, None),
               (4, 4096, 8, 1, [256.0, 16.0, 64.0, 256.0]),
-              (S, 32_768, 8, 1, None), (S, 32_768, 4, 2, None)]
+              (S, 32_768, 8, 1, None), (S, 32_768, 4, 2, None),
+              (S, 32_768, 8, 1, GROUPED_LEVELS)]
     timings = {}
     errors = {k: 0.0 for k in REPLACES}
     for m, d_pad, bits, pack, levels in checks:
@@ -1344,7 +1612,8 @@ def main() -> int:
         (4, 8192, 8, 1, {"mr": 4, "sign_rows": True}),
         (4, 4096, 8, 1, {"mr": 4, "levels": [256.0, 16.0, 64.0, 256.0]}),
         (S, 32_768, 8, 1, {"sign_rows": True}),
-        (1, 32_768, 8, 1, {"sign_rows": True})]
+        (1, 32_768, 8, 1, {"sign_rows": True}),
+        (S, 32_768, 8, 1, {"levels": GROUPED_LEVELS})]
     decode_times = {}
     for m, d_pad, bits, pack, kw in decode_checks:
         res, io = decode_case(kx, dev, gen, m, d_pad, bits, pack, **kw)
@@ -1352,7 +1621,8 @@ def main() -> int:
         if d_pad == 32_768:
             errors["fused_decode"] = max(errors.get("fused_decode", 0.0),
                                          res["decode_max_abs_err"])
-        if (m, d_pad) in ((BENCH_M, BENCH_D), (S, 32_768), (1, 32_768)):
+        if (m, d_pad) in ((BENCH_M, BENCH_D), (S, 32_768), (1, 32_768)) \
+                and "levels" not in kw:
             decode_times[(m, d_pad)] = time_decode(kx, io, peak_bw)
             emit({"phase": "kernel_times", "m": m, "d_pad": d_pad,
                   "bits": bits, "pack": pack, "nvidia_smi": smi,
@@ -1441,7 +1711,7 @@ def main() -> int:
     launches = {**quafl_launches, "fused_decode": base_launches["fused_decode"]}
 
     alg, tr, data = runs["lattice"]
-    diff, step = injected_round(dev, alg, tr.final_state, data, gen)
+    diff, step, _ = injected_round(dev, alg, tr.final_state, data, gen)
     emit({"phase": "injected_round", "algorithm": "quafl",
           "max_abs_diff": diff, "lattice_step": step})
     assert diff <= step, (diff, step)
@@ -1454,7 +1724,7 @@ def main() -> int:
 
     prof = profile_rounds(alg, clone_state(tr.final_state), data, gen)
     emit({"phase": "profile", "algorithm": "quafl", "uplink": "lattice",
-          **prof})
+          "nvidia_smi": smi, **prof})
     device_ms = prof["ported_device_ms_per_launch"]
     for run in ("compressed_fedavg", "fedbuff_lattice"):
         p = profile_rounds(b_algs[run].alg, b_traces[run].final_state,
@@ -1463,6 +1733,36 @@ def main() -> int:
         if run == "compressed_fedavg":
             device_ms["fused_decode"] = p["ported_device_ms_per_launch"][
                 "fused_decode"]
+
+    # path 5, QuAFL's grouped uplink, participation specs and per-message
+    # branch: each run's counts from 0 just before, read just after (inside
+    # run_variants); one pipeline run of path 1 is its launch yardstick
+    variants = run_variants(dev, kx, {k: v // 2
+                                      for k, v in quafl_launches.items()})
+    g_alg, g_tr, g_data = variants["grouped"]
+    ids = torch.cat([torch.randperm(N_SLOW, generator=gen, device=dev)[:5],
+                     N_SLOW + torch.randperm(N_CLIENTS - N_SLOW,
+                                             generator=gen,
+                                             device=dev)[:S - 5]])
+    diff, step, detail = injected_round(dev, g_alg, g_tr.final_state,
+                                        g_data, gen, idx=ids)
+    res = {"phase": "injected_round", "algorithm": "quafl",
+           "uplink": "grouped", "slow_clients": 5, "max_abs_diff": diff,
+           "lattice_step": step, "gam_up": detail["gam_up"],
+           "gam_dn": detail["gam_dn"]}
+    res.update(check_grouped_round(detail, S))
+    emit(res)
+    assert diff <= step, (diff, step)
+    for run in ("grouped", "per_message"):
+        v_alg, v_tr, v_data = variants[run]
+        p = profile_rounds(v_alg, clone_state(v_tr.final_state), v_data, gen)
+        emit({"phase": "profile", "algorithm": "quafl", "run": run,
+              "uplink": str(v_alg.uplink), "nvidia_smi": smi, **p})
+
+    # path 6, the quickstart through compare (counts from 0 just before,
+    # read just after, inside run_quickstart), then its two twins as CLIs
+    run_quickstart(dev, kx)
+    run_twin_clis()
 
     # path 3, LM serving: counts from 0 just before, read just after
     # (inside run_serve_path)

@@ -124,7 +124,10 @@ class LatticeQuantizer:
         back."""
         d = ref2.shape[-1]
         d_pad = pad_len(d, self.block)
-        return self._ops().decode(msg.codes, _pad(ref2, d_pad), key.signs,
+        # one message decoded against m references (a broadcast downlink)
+        # shares its one sign row
+        sg = key.signs[0] if key.signs.shape[0] == 1 else key.signs
+        return self._ops().decode(msg.codes, _pad(ref2, d_pad), sg,
                                   msg.gamma, bits=self.bits,
                                   block=self.block, pack=pack)[:, :d]
 

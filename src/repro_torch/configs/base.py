@@ -95,5 +95,7 @@ class FedConfig:
     lam_slow: float = 0.125
     swt: float = 10.0              # server waiting time between calls
     sit: float = 1.0               # server interaction time
-    # participation spec ('uniform' is the only one ported); "" = uniform
+    # participation spec (repro_torch.fed.population: 'uniform',
+    # 'gamma_straggler:strength=2', 'cyclic:period=8,phase_groups=4');
+    # "" = uniform
     participation: str = ""

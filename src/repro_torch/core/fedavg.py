@@ -79,6 +79,7 @@ class FedAvg:
     uniform_speeds: bool = False
     uplink: Any = None                   # codec spec (default: identity)
     downlink: Any = None                 # codec spec (default: identity)
+    participation: Any = None            # spec (default: fed.participation)
     device: Any = None                   # None = the card
     # subclasses override the per-direction codec defaults (None = the
     # legacy fed.quantizer map)
@@ -89,7 +90,7 @@ class FedAvg:
         self.device = default_device(self.device)
         n = self.fed.n_clients
         self.lam = speeds_for(self.fed, n, uniform=self.uniform_speeds)
-        self.part = resolve_participation(None, self.fed)
+        self.part = resolve_participation(self.participation, self.fed)
         self.d = tree_size(self.template)
         self.codec_up = resolve_codec(self.uplink, self.fed, direction="up",
                                       default=self._codec_default_up)

@@ -42,6 +42,14 @@ def expected_steps(fed: FedConfig, lam: np.ndarray) -> np.ndarray:
     return np.minimum(fed.local_steps, np.maximum(lam * elapsed, 1e-3))
 
 
+def sample_clients(generator: torch.Generator, n: int, s: int
+                   ) -> torch.Tensor:
+    """The round's polled-client index set: s of n, uniform, without
+    replacement, on the generator's device."""
+    return torch.randperm(n, generator=generator,
+                          device=generator.device)[:s]
+
+
 def lazy_h_steps(generator: torch.Generator, lam, elapsed,
                  local_steps: int) -> torch.Tensor:
     """H_i^t = min(K, Poisson(λ_i · elapsed_i)) as int32; may be 0 (the

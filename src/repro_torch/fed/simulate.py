@@ -1,6 +1,7 @@
 """Run an algorithm to a budget and trace it (port of the eager path of
 ``repro.fed.simulate``); :func:`compare` does it for a named set of
-algorithms under one simulated clock.
+algorithms under one simulated clock, at equal simulated time or equal
+bits.
 
 A trace row holds the round's metrics (the :data:`METRIC_KEYS` schema, per
 round as the algorithm returned them) plus ``round``, ``wall_time_s``, the
@@ -16,7 +17,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.fed.api import normalize_metrics
+from repro_torch.fed.api import FedAlgorithm, normalize_metrics
 
 
 @dataclass
@@ -27,6 +28,14 @@ class Trace:
     final_state: Any = None
     rounds: int = 0
     wall_time_s: float = 0.0
+    eval_time_s: float = 0.0   # host time spent inside eval_fn
+
+    @property
+    def us_per_round(self) -> float:
+        """Mean wall time per round, EXCLUDING eval_fn time, so a timing
+        measures round cost, not eval cadence."""
+        return ((self.wall_time_s - self.eval_time_s)
+                / max(self.rounds, 1) * 1e6)
 
     @property
     def final(self) -> Dict[str, Any]:
@@ -36,35 +45,52 @@ class Trace:
         return [r.get(key) for r in self.rows]
 
 
-def simulate(alg, params0, data, generator: torch.Generator, *,
-             rounds: Optional[int] = None,
+def simulate(alg: FedAlgorithm, params0, data, generator: torch.Generator,
+             *, rounds: Optional[int] = None,
              until_sim_time: Optional[float] = None,
+             until_bits: Optional[float] = None,
              eval_every: int = 10, record_every: int = 0,
              eval_fn: Optional[Callable[[Any], Any]] = None,
              on_row: Optional[Callable[[Dict[str, Any]], None]] = None,
-             name: str = "", max_rounds: int = 100_000) -> Trace:
-    """Run ``alg`` from ``params0`` until ``rounds`` server rounds or
-    ``until_sim_time`` simulated seconds (first hit wins; ``max_rounds`` is
-    the backstop). ``eval_fn(params)`` runs every ``eval_every`` rounds and
-    on the final round; ``record_every`` adds metrics-only rows;
-    ``on_row`` streams each row as it is recorded. The trace is labelled
-    ``name``, else the algorithm's class name."""
-    if rounds is None and until_sim_time is None:
-        raise ValueError("give at least one budget: rounds / "
-                         "until_sim_time")
+             name: str = "", max_rounds: int = 100_000,
+             scan_chunk: int = 0) -> Trace:
+    """Run ``alg`` from ``params0`` until the budget is exhausted. Budgets
+    compose (first hit wins, checked after every round): ``rounds``
+    server rounds, ``until_sim_time`` simulated seconds, ``until_bits``
+    total bits (up + down); ``max_rounds`` is the backstop, and the final
+    round always gets an evaluated row. ``eval_fn(params)`` runs every
+    ``eval_every`` rounds and on the final round; ``record_every`` adds
+    metrics-only rows; ``on_row`` streams each row as it is recorded, once
+    per round. The trace is labelled ``name``, else the algorithm's class
+    name. ``scan_chunk`` > 1 (the reference's scanned engine) is not
+    ported."""
+    if rounds is None and until_sim_time is None and until_bits is None:
+        raise ValueError("give at least one budget: rounds / until_sim_time "
+                         "/ until_bits")
+    if scan_chunk not in (0, 1):
+        raise NotImplementedError("the scanned engine (scan_chunk > 1) is "
+                                  "not ported yet (ROADMAP Queue 1 item 10)")
     trace = Trace(algorithm=name or type(alg).__name__)
     state = alg.init(params0)
     bits_up = bits_down = 0.0
+    evaled_round = 0
     t0 = time.time()
     limit = min(rounds, max_rounds) if rounds is not None else max_rounds
+
+    def run_eval(r):
+        nonlocal evaled_round
+        t_e = time.time()
+        res = eval_fn(alg.eval_params(state))
+        trace.eval_time_s += time.time() - t_e
+        evaled_round = r
+        return res if isinstance(res, dict) else {"eval": res}
 
     def record(r, metrics, do_eval):
         row = dict(normalize_metrics(metrics), round=r,
                    bits_up_total=bits_up, bits_down_total=bits_down,
                    wall_time_s=time.time() - t0)
         if do_eval and eval_fn is not None:
-            res = eval_fn(alg.eval_params(state))
-            row.update(res if isinstance(res, dict) else {"eval": res})
+            row.update(run_eval(r))
         trace.rows.append(row)
         if on_row is not None:
             on_row(row)
@@ -79,11 +105,17 @@ def simulate(alg, params0, data, generator: torch.Generator, *,
         done = rounds is not None and r >= rounds
         if not done and until_sim_time is not None:
             done = float(metrics.get("sim_time", 0.0)) >= until_sim_time
+        if not done and until_bits is not None:
+            done = bits_up + bits_down >= until_bits
         do_eval = done or (eval_every and r % eval_every == 0)
         if do_eval or (record_every and r % record_every == 0):
             record(r, metrics, do_eval)
+    # backstop exit: the final round gets an evaluated row; a row already
+    # recorded (and streamed) for it without an eval is updated in place
     if r and (not trace.rows or trace.rows[-1]["round"] != r):
-        record(r, metrics, True)      # backstop exit: the final row
+        record(r, metrics, True)
+    elif r and eval_fn is not None and evaled_round != r:
+        trace.rows[-1].update(run_eval(r))
     trace.final_state = state
     trace.rounds = r
     trace.wall_time_s = time.time() - t0

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_harness import (npy, reference_fedavg_draws,
+from test_torch_harness import (StepLog, npy, reference_fedavg_draws,
                                 reference_fedbuff_draws,
                                 reference_sequential_draws)
 from repro.configs.base import FedConfig as RefFedConfig
@@ -26,7 +26,6 @@ from repro.data.synthetic import client_batch as ref_client_batch
 from repro.fed.registry import make_algorithm as ref_make_algorithm
 from repro.models.mlp import init_mlp_classifier as ref_init
 from repro.models.mlp import mlp_loss as ref_mlp_loss
-from repro_torch.compression.codecs import ScalarCodec
 from repro_torch.configs.base import FedConfig
 from repro_torch.data.synthetic import make_federated_classification
 from repro_torch.fed import clock
@@ -39,26 +38,6 @@ from repro_torch.utils import interop
 BATCH = 16
 D = 2762
 FED_KW = dict(n_clients=8, s=4, local_steps=2, lr=0.3, bits=8, swt=10.0)
-
-
-class StepLog:
-    """A codec that records the quantization step of every message it
-    encodes: γ for lattice codecs, ‖x‖/levels for ``scalar``."""
-
-    def __init__(self, codec):
-        self.codec = codec
-        self.steps = [0.0]
-
-    def __getattr__(self, name):
-        return getattr(self.codec, name)
-
-    def encode(self, key, x, hint=None):
-        msg = self.codec.encode(key, x, hint)
-        div = (self.codec.quant.levels if isinstance(self.codec, ScalarCodec)
-               else 1)
-        if msg.gamma.numel() and self.codec.name != "identity":
-            self.steps.append(float(msg.gamma.max()) / div)
-        return msg
 
 
 def _setup():
@@ -302,7 +281,7 @@ def test_fedbuff_run_legacy_loop():
 
 
 def test_registry_builds_the_baselines():
-    fed, _, _, _, p0 = _port_world()
+    fed, part, _, g, p0 = _port_world()
     kw = dict(loss_fn=mlp_loss_batched, template=p0, device="cpu")
     names = {"fedavg": "FedAvg", "compressed_fedavg": "CompressedFedAvg",
              "fedbuff": "FedBuff", "sequential": "Sequential"}
@@ -310,8 +289,13 @@ def test_registry_builds_the_baselines():
         assert type(make_algorithm(name, fed, **kw)).__name__ == cls
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         make_algorithm("fedbuff_device", fed, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        make_algorithm("quafl", fed, uplink="scalar", **kw)
+    # QuAFL with a scalar uplink runs the per-message branch
+    alg = make_algorithm("quafl", fed, uplink="scalar", batch_size=16, **kw)
+    assert alg.pipeline is None and alg.codec_up.name == "scalar"
+    state, m = alg.round(alg.init(p0), part, g)
+    assert m["bits_up"] == 4 * (D * 8 + 32)
+    assert m["bits_down"] == 4096 * 8 + 32
+    assert bool(torch.isfinite(state.server).all()) and state.t == 1
 
 
 # FedBuff at the width of chip_smoke.py's baselines: the MLP 784-32-10,

@@ -772,3 +772,98 @@ def test_api_wrappers_refuse_what_the_kernels_do_not_take(dev):
     torch.cuda.synchronize()
     assert hd.LAUNCHES == {"hadamard_blocks": 0}
     assert lq.LAUNCHES == {"lattice_encode": 0, "lattice_decode": 0}
+
+
+def test_broadcast_decode_of_one_message(dev):
+    """QuAFL's per-message downlink: one message with one sign row decoded
+    against s client models, as the codec API calls fused_decode."""
+    from repro_torch.compression.lattice import LatticeQuantizer
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    x = torch.randn((1, 2762), generator=g, device=dev)
+    refs = x + 0.01 * torch.randn((16, 2762), generator=g, device=dev)
+    q = LatticeQuantizer(bits=8, backend="cuda")
+    key = q.keys(g, 1, 2762)
+    msg = q.encode(key, x, torch.full((1,), 0.5, device=dev))
+    out = q.decode(key, msg, refs)
+    want = LatticeQuantizer(bits=8, backend="torch").decode(key, msg, refs)
+    assert out.shape == (16, 2762) and torch.equal(out, want)
+
+
+class _StepLog:
+    """A codec recording each message's quantization step (γ, or ‖x‖ over
+    the levels for ``scalar``)."""
+
+    def __init__(self, codec, steps):
+        self.codec, self.steps = codec, steps
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+    def encode(self, key, x, hint=None):
+        msg = self.codec.encode(key, x, hint)
+        div = self.codec.quant.levels if self.codec.name == "scalar" else 1
+        self.steps.append(float(msg.gamma.max()) / div)
+        return msg
+
+
+@pytest.mark.parametrize("uplink", ["grouped", "scalar"])
+def test_quafl_round_on_the_card_matches_plain_backend(dev, uplink):
+    """One QuAFL round at the quickstart's size on the kernels and on the
+    plain versions with the same draws: the grouped uplink (a per-message
+    levels row) and the per-message branch (a scalar uplink, the lattice
+    downlink through the codec API), within the round's largest step."""
+    import dataclasses
+
+    from repro_torch.compression.pipeline import round_randomness
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.synthetic import make_federated_classification
+    from repro_torch.fed.registry import make_algorithm
+    from repro_torch.models.mlp import init_mlp_classifier, mlp_loss_batched
+    spec = ({"fast": "lattice", "slow": "lattice_packed:bits=4"}
+            if uplink == "grouped" else uplink)
+    fed = FedConfig(n_clients=16, s=4, local_steps=5, lr=0.3, bits=8,
+                    swt=10.0, kernel_backend="cuda")
+    part, _ = make_federated_classification(0, 16, d=32, iid=False,
+                                            device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    p0 = init_mlp_classifier(g, 32, 64, 10)
+    algs = [make_algorithm("quafl", f, loss_fn=mlp_loss_batched,
+                           template=p0, batch_size=16, uplink=spec,
+                           device=dev)
+            for f in (fed, dataclasses.replace(fed, kernel_backend="torch"))]
+    draws = {"idx": torch.tensor([0, 3, 7, 12], device=dev),
+             "h_steps": torch.tensor([5, 0, 2, 5], device=dev),
+             "batch_idx": torch.randint(0, 256, (4, 5, 16), generator=g,
+                                        device=dev)}
+    steps = []
+    if uplink == "grouped":
+        draws.update(zip(("signs", "u_cl", "u_srv"),
+                         round_randomness(g, 4, algs[0].d)))
+        for alg in algs:
+            def logged(*a, _inner=alg.pipeline.gammas, **k):
+                gam = _inner(*a, **k)
+                steps.append(float(gam.max()))
+                return gam
+            alg.pipeline.gammas = logged
+    else:
+        draws["key_up"] = algs[0].codec_up.keys(g, 4, algs[0].d)
+        draws["key_dn"] = algs[0].codec_down.keys(g, 1, algs[0].d)
+        for alg in algs:
+            alg.codec_up = _StepLog(alg.codec_up, steps)
+            alg.codec_down = _StepLog(alg.codec_down, steps)
+    kx.reset_launches()
+    (a, ma), (b, mb) = [alg.round(alg.init(p0), part, None, draws=draws)
+                        for alg in algs]
+    torch.cuda.synchronize()
+    assert ma["bits_up"] == mb["bits_up"] and ma["bits_down"] == 32_800
+    if uplink == "grouped":
+        assert ma["bits_up"] == 131_328 - 2 * 16_384    # ids 0 and 3 slow
+        assert kx.LAUNCHES["fused_encode"] == kx.LAUNCHES["snap_codes"] // 2
+    else:
+        assert ma["bits_up"] == 4 * (2762 * 8 + 32)
+        assert kx.LAUNCHES["fused_encode"] == kx.LAUNCHES["fused_decode"] == 1
+    diff = max(float((a.server - b.server).abs().max()),
+               float((a.clients - b.clients).abs().max()))
+    assert diff <= max(steps), (diff, max(steps))

@@ -26,8 +26,10 @@ import jax.numpy as jnp  # noqa: E402
 import repro.compression.pipeline as ref_pipeline  # noqa: E402
 from repro.compression.rotation import _signs as ref_signs  # noqa: E402
 from repro.fed.population import gather_rows  # noqa: E402
+from repro_torch.compression.codecs import ScalarCodec  # noqa: E402
 from repro_torch.compression.lattice import MessageKey  # noqa: E402
 from repro_torch.compression.rotation import pad_len  # noqa: E402
+from repro_torch.utils import interop  # noqa: E402
 
 
 def tt(a, dtype=None) -> torch.Tensor:
@@ -63,11 +65,43 @@ def circular_gap(a: np.ndarray, b: np.ndarray, levels) -> np.ndarray:
     return np.minimum(diff, np.asarray(levels, np.int64) - diff)
 
 
+class StepLog:
+    """A codec that records the quantization step of every message it
+    encodes: γ for lattice codecs, ‖x‖/levels for ``scalar``, nothing for
+    ``identity``."""
+
+    def __init__(self, codec):
+        self.codec = codec
+        self.steps = [0.0]
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+    def encode(self, key, x, hint=None):
+        msg = self.codec.encode(key, x, hint)
+        div = (self.codec.quant.levels if isinstance(self.codec, ScalarCodec)
+               else 1)
+        if msg.gamma.numel() and self.codec.name != "identity":
+            self.steps.append(float(msg.gamma.max()) / div)
+        return msg
+
+
+def port_quafl_state(state):
+    """A reference ``QuaflState`` as the port's, on the CPU."""
+    return interop.quafl_state_from_numpy(
+        server=npy(state.server),
+        rows={k: npy(v) for k, v in state.pop.rows.items()},
+        t=int(state.t), sim_time=float(state.sim_time),
+        bits_up=float(state.bits_up), bits_down=float(state.bits_down),
+        srv_dist_est=npy(state.srv_dist_est), device="cpu")
+
+
 def reference_round_draws(alg, state, data, key, batch: int):
     """The values the reference ``QuAFL.round`` takes from its key splits
     (``core/quafl.py:237-252`` and ``pipeline._round_randomness``), as
-    numpy: idx, h_steps, per-client per-step batch indices, signs, u_cl,
-    u_srv."""
+    numpy: idx, h_steps, per-client per-step batch indices, and, on the
+    pipeline branch, signs, u_cl, u_srv (the per-message branch's keys:
+    :func:`reference_message_keys`)."""
     fed = alg.fed
     n, s, K = fed.n_clients, fed.s, fed.local_steps
     k_sel, k_h, k_q, k_loc = jax.random.split(key, 4)
@@ -80,9 +114,23 @@ def reference_round_draws(alg, state, data, key, batch: int):
     bidx = np.stack([np.stack([np.asarray(jax.random.randint(
         jax.random.fold_in(keys[i], q), (batch,), 0, m)) for q in range(K)])
         for i in range(s)])
-    sg, u_cl, u_srv = alg.pipeline._round_randomness(k_q, s, alg.d)
-    return {"idx": npy(idx), "h_steps": npy(h_steps), "batch_idx": bidx,
-            "signs": npy(sg), "u_cl": npy(u_cl), "u_srv": npy(u_srv)}
+    out = {"idx": npy(idx), "h_steps": npy(h_steps), "batch_idx": bidx}
+    if alg.pipeline is not None:
+        sg, u_cl, u_srv = alg.pipeline._round_randomness(k_q, s, alg.d)
+        out.update(signs=npy(sg), u_cl=npy(u_cl), u_srv=npy(u_srv))
+    return out
+
+
+def reference_message_keys(alg, key, port):
+    """The per-message branch's codec randomness of the reference
+    ``QuAFL.round`` (``core/quafl.py:277``, ``:296``): the uplink keys
+    ``split(fold_in(k_q, 1), s)`` and the downlink key ``fold_in(k_q,
+    0)``, as the :class:`MessageKey`s of the codecs of ``port``."""
+    k_q = jax.random.split(key, 4)[2]
+    kq_cl = jax.random.split(jax.random.fold_in(k_q, 1), alg.fed.s)
+    return {"key_up": message_key(port.codec_up, list(kq_cl), port.d),
+            "key_dn": message_key(port.codec_down,
+                                  [jax.random.fold_in(k_q, 0)], port.d)}
 
 
 def _batch_idx(key, K: int, batch: int, m: int) -> np.ndarray:

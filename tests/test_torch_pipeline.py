@@ -15,8 +15,10 @@ import torch
 from test_torch_harness import gauss, npy, tt
 from repro.compression import codecs as ref_codecs
 from repro.compression import pipeline as ref_pipe
+from repro.configs.base import FedConfig as RefFedConfig
 from repro_torch.analysis.opbudget import rotation_budget
 from repro_torch.compression import codecs, pipeline
+from repro_torch.configs.base import FedConfig
 
 D, S = 2762, 4     # quickstart's MLP: d_pad 4096, one 64x64 block
 
@@ -158,8 +160,20 @@ def test_codec_spec_errors():
         codecs.make_codec("lattice:frac=0.1")
     with pytest.raises(ValueError, match="lattice_packed needs"):
         codecs.make_codec("lattice_packed:bits=3")
-    with pytest.raises(NotImplementedError, match="group"):
-        codecs.resolve_codec({"fast": "lattice"}, None, direction="up")
+    # a group map needs the speed classes; with them it resolves to the
+    # reference's per-client bit budgets and wire widths
+    spec = {"fast": "lattice", "slow": "lattice_packed:bits=4"}
+    for resolve in (codecs.resolve_codec, ref_codecs.resolve_codec):
+        with pytest.raises(ValueError, match="slow_mask"):
+            resolve(spec, None, direction="up")
+    mask = np.arange(16) < 5
+    got = codecs.resolve_codec(spec, FedConfig(), direction="up",
+                               slow_mask=mask)
+    want = ref_codecs.resolve_codec(spec, RefFedConfig(), direction="up",
+                                    slow_mask=mask)
+    assert isinstance(got, codecs.GroupedLatticeCodec)
+    assert got.bits_per_client == want.bits_per_client
+    assert got.wire_width_per_client == want.wire_width_per_client
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])

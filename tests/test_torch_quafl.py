@@ -18,6 +18,7 @@ from repro.core.quafl import QuAFL as RefQuAFL
 from repro.data import make_federated_classification as ref_data
 from repro.data.synthetic import client_batch as ref_client_batch
 from repro.fed import clock as ref_clock
+from repro.fed import population as ref_population
 from repro.models.mlp import init_mlp_classifier as ref_init
 from repro.models.mlp import mlp_loss as ref_mlp_loss
 from repro.utils.tree import tree_flatten_vector as ref_flatten
@@ -145,8 +146,16 @@ def test_uniform_sampling_dense_and_floyd(n):
         idx = part.sample(g, 0, n, 8)
         assert len(set(idx.tolist())) == 8
         assert 0 <= int(idx.min()) and int(idx.max()) < n
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        population.resolve_participation("cyclic:period=8", None)
+    cyc = population.resolve_participation("cyclic:period=8", None)
+    ref_cyc = ref_population.resolve_participation("cyclic:period=8", None)
+    assert (cyc.period, cyc.phase_groups) == (ref_cyc.period,
+                                              ref_cyc.phase_groups) == (8, 4)
+    for spec in ("cyclic:period", "cyclic:=8"):
+        for resolve in (population.resolve_participation,
+                        ref_population.resolve_participation):
+            with pytest.raises(ValueError,
+                               match="malformed participation spec"):
+                resolve(spec, None)
 
 
 def test_build_population_means_the_card_by_default():
