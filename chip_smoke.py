@@ -22,18 +22,27 @@ then drives the port's paths:
   clients, s=16) through ``make_algorithm`` and ``simulate``, once with the
   8-bit ``lattice`` codec and once with a ``lattice_packed:bits=4`` uplink;
 * the paper's baselines through ``compare`` at the same width: FedAvg,
-  compressed FedAvg (lattice and scalar uplinks), FedBuff (lattice and qsgd
-  deltas) and the sequential node, 30 rounds each;
+  compressed FedAvg (lattice, scalar and ``topk_ef`` uplinks), FedBuff
+  (lattice and qsgd deltas, a ``topk_ef`` uplink) and the sequential node,
+  30 rounds each; on one ``topk_ef`` round the error-feedback invariant
+  bit for bit on the card, ties included;
 * QuAFL's other paths at the same width, 30 rounds each: the grouped
   per-client uplink (fast clients at b=8, the slow 30% charged b=4, a
   per-message levels row through the encode and the snap), the
   ``cyclic`` and ``gamma_straggler`` participation specs, and the
   per-message branch (a ``scalar`` uplink, the lattice downlink through the
   codec API); every round's bits exact from its sampled ids;
+* the extensions at the same width, 30 rounds each: ``quafl_scaffold``
+  (three encodes and three decodes a round through the codec API, the
+  controls decoded against 16 distinct references; one round on the
+  kernels against the plain versions) and ``adaptive_quafl`` from b=12
+  (the pipeline at each visited width; the width trace against the walk
+  of the emitted ``quant_err``);
 * the quickstart: its four runs (``quafl``, ``quafl_het``, ``fedavg``,
   ``fedpaq``) through ``compare`` at the same width and an equal simulated
-  time, then ``python -m repro_torch.examples.quickstart`` and
-  ``...heterogeneous_clients`` as a user runs them, each in a subprocess;
+  time, then ``python -m repro_torch.examples.quickstart``,
+  ``...heterogeneous_clients`` and ``...scaffold_noniid`` as a user runs
+  them, each in a subprocess;
 * LM serving of gemma2-2b at full width (26 layers, random weights from
   seed 0) through ``ServeEngine``: two batches of four prompts (longest 512
   and 4,608 tokens), 32 greedy tokens each, twice, then one batch sampled
@@ -111,6 +120,12 @@ FAST_BITS, SLOW_BITS, N_SLOW = 32_768 * 8 + 64, 32_768 * 4 + 64, 90
 GROUPED_LEVELS = [256.0] * 11 + [16.0] * 5
 CYCLIC = "cyclic:period=8,phase_groups=4"      # group (t // 2) % 4 of 75
 GAMMA = "gamma_straggler:strength=1"
+TOPK, TOPK_BITS = "topk_ef:frac=0.01", 254 * 64   # k = round(0.01 · 25,450)
+# quafl_scaffold at b=8: 2 messages up per sampled client, 2 down
+SCAFFOLD_UP, SCAFFOLD_DOWN = 2 * S * BITS_DOWN, 2 * BITS_DOWN
+# adaptive_quafl: from b=12 in the band [0.01, 0.05], b in [4, 16]
+ADAPTIVE = dict(lo=0.01, hi=0.05, b_min=4, b_max=16)
+ADAPTIVE_BITS0 = 12
 
 
 def emit(obj) -> None:
@@ -436,11 +451,19 @@ def time_decode(kx, io, peak_bw):
 # ---------------------------------------------------------------------------
 
 def clone_state(state):
+    """A copy of a QuAFL state (or of a SCAFFOLD state, base and server
+    control), so a round, which updates the store in place, leaves the
+    original as it was; an empty row (``()``) is carried as it is."""
+    from repro_torch.core.extensions import ScaffoldState
     from repro_torch.core.quafl import QuaflState
     from repro_torch.fed.population import Population
+    if isinstance(state, ScaffoldState):
+        return ScaffoldState(base=clone_state(state.base),
+                             c_server=state.c_server.clone())
     return QuaflState(
         server=state.server.clone(),
-        pop=Population(rows={k: v.clone() for k, v in state.pop.rows.items()}),
+        pop=Population(rows={k: v.clone() if isinstance(v, torch.Tensor)
+                             else v for k, v in state.pop.rows.items()}),
         t=state.t, sim_time=state.sim_time, bits_up=state.bits_up,
         bits_down=state.bits_down, srv_dist_est=state.srv_dist_est.clone())
 
@@ -487,15 +510,18 @@ def chip_world(dev):
     return fed, part, test, p0, gen
 
 
-def run_main_path(dev, uplink, participation=None):
+def run_main_path(dev, uplink, participation=None, name="quafl", bits=8,
+                  **kw):
     from repro_torch.fed.registry import make_algorithm
     from repro_torch.fed.simulate import simulate
     from repro_torch.models.mlp import mlp_loss, mlp_loss_batched
     fed, part, test, p0, gen = chip_world(dev)
-    alg = make_algorithm("quafl", fed, loss_fn=mlp_loss_batched, template=p0,
+    fed = dataclasses.replace(fed, bits=bits)
+    alg = make_algorithm(name, fed, loss_fn=mlp_loss_batched, template=p0,
                          batch_size=32, uplink=uplink,
-                         participation=participation, device=dev)
-    alg.part = SampleLog(alg.part)
+                         participation=participation, device=dev, **kw)
+    if hasattr(alg, "part"):
+        alg.part = SampleLog(alg.part)
 
     def acc(p):
         return {"acc": float(mlp_loss(p, test)[1]["acc"])}
@@ -635,6 +661,11 @@ BASELINES = (
     ("fedbuff_qsgd", "fedbuff", {"quantize": True, "quantizer": "qsgd"},
      2_036_320, 8_144_000, 0),
     ("sequential", "sequential", {}, 0, 0, 0),
+    # top-k with error feedback, k = 254 of 25,450 (index + value, 64 bits)
+    ("compressed_fedavg_topk_ef", "compressed_fedavg", {"uplink": TOPK},
+     S * TOPK_BITS, 814_400, 0),
+    ("fedbuff_topk_ef", "fedbuff", {"uplink": TOPK}, 10 * TOPK_BITS,
+     8_144_000, 0),
 )
 COUNTED = ("fused_encode", "fused_decode")
 
@@ -711,19 +742,19 @@ def check_baselines(algs, traces, base):
     return out
 
 
-class GammaLog:
-    """A codec that records the largest γ of every message it encodes."""
+class CodeLog:
+    """A codec that records every message it encodes."""
 
     def __init__(self, codec):
         self.codec = codec
-        self.gammas = [0.0]
+        self.msgs = []
 
     def __getattr__(self, name):
         return getattr(self.codec, name)
 
     def encode(self, key, x, hint=None):
         msg = self.codec.encode(key, x, hint)
-        self.gammas.append(float(msg.gamma.max()))
+        self.msgs.append(msg)
         return msg
 
 
@@ -747,9 +778,9 @@ def injected_cfa_round(dev, alg_cuda, state, data, gen):
     servers, steps = [], []
     for alg in (alg_cuda, alg_torch):
         codec = alg.codec_up
-        alg.codec_up = GammaLog(codec)
+        alg.codec_up = CodeLog(codec)
         st, _ = alg.round(state, data, None, draws=draws)
-        steps.append(max(alg.codec_up.gammas))
+        steps.append(max(float(m.gamma.max()) for m in alg.codec_up.msgs))
         alg.codec_up = codec
         servers.append(st.server)
     return float((servers[0] - servers[1]).abs().max()), max(steps)
@@ -944,13 +975,14 @@ def run_quickstart(dev, kx):
 
 
 def run_twin_clis():
-    """``python -m repro_torch.examples.quickstart`` and
-    ``...heterogeneous_clients`` as a user runs them, each in its own
-    process on the card; their printed lines, the quickstart's table and
-    both heterogeneous-uplink ratios above 1."""
+    """``python -m repro_torch.examples.quickstart``,
+    ``...heterogeneous_clients`` and ``...scaffold_noniid`` as a user runs
+    them, each in its own process on the card; their printed lines, the
+    quickstart's and SCAFFOLD's tables, both heterogeneous-uplink ratios
+    above 1 and every printed ‖c‖ above 0."""
     import os
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    for name in ("quickstart", "heterogeneous_clients"):
+    for name in ("quickstart", "heterogeneous_clients", "scaffold_noniid"):
         argv = [sys.executable, "-m", f"repro_torch.examples.{name}"]
         t0 = time.perf_counter()
         proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
@@ -961,6 +993,14 @@ def run_twin_clis():
               "lines": lines, "stderr_tail": proc.stderr[-2000:]})
         assert proc.returncode == 0, proc.stderr[-2000:]
         text = proc.stdout
+        if name == "scaffold_noniid":
+            assert lines[0] == "round |  vanilla acc | scaffold acc | ||c||"
+            rows = [ln.split("|") for ln in lines[1:6]]
+            assert [int(r[0]) for r in rows] == [16, 32, 48, 64, 80], lines
+            assert all(0.0 <= float(r[2]) <= 1.0 and float(r[3]) > 0.0
+                       for r in rows), lines
+            assert "SCAFFOLD pays 2x" in text, lines
+            continue
         if name == "quickstart":
             assert lines[0].startswith("algorithm | rounds"), lines
             assert [ln.split()[0] for ln in lines[1:5]] == [
@@ -972,6 +1012,231 @@ def run_twin_clis():
             ratio = float(text.split("uplink bits=")[2].split("(")[1]
                           .split("x")[0])
         assert ratio > 1.0, (name, ratio)
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the extensions (quafl_scaffold, adaptive_quafl) and top-k with
+# error feedback
+# ---------------------------------------------------------------------------
+
+def run_scaffold(dev, kx):
+    """quafl_scaffold at the main path's width, lattice b=8 both ways, 30
+    rounds, counts from 0 just before and read just after: bits exact in
+    every round, accuracy above round 0, ‖c‖ finite and above 0, and three
+    encode and three decode launches a round (the models, the controls,
+    the downlink)."""
+    kx.reset_launches()
+    alg, tr, acc0, wall, data = run_main_path(dev, "lattice",
+                                              name="quafl_scaffold")
+    torch.cuda.synchronize()
+    launches = dict(kx.LAUNCHES)
+    c_norm = tr.column("c_norm")
+    emit({"phase": "main_path", "run": "quafl_scaffold", "rounds": tr.rounds,
+          "d": alg.d, "n_clients": N_CLIENTS, "s": S,
+          "bits_up": sorted(set(tr.column("bits_up"))),
+          "bits_down": sorted(set(tr.column("bits_down"))),
+          "c_norm": c_norm, "quant_err_final": tr.final["quant_err"],
+          "acc_round0": acc0,
+          "acc": [(r["round"], r["acc"]) for r in tr.rows if "acc" in r],
+          "seconds": wall, "ms_per_round": wall / tr.rounds * 1e3,
+          "launches": launches})
+    emit({"phase": "launches", "path": "quafl_scaffold",
+          "launches": launches})
+    check_main_path(tr, acc0, SCAFFOLD_UP, SCAFFOLD_DOWN)
+    assert all(math.isfinite(c) and c > 0 for c in c_norm), c_norm
+    assert launches == {**{k: 0 for k in launches},
+                        "fused_encode": 3 * ROUNDS,
+                        "fused_decode": 3 * ROUNDS}, launches
+    return alg, tr, data, launches
+
+
+def injected_scaffold_round(dev, alg_cuda, state, data, gen):
+    """One quafl_scaffold round with the same state and injected draws on
+    the cuda backend and on the torch backend (the kernels' plain
+    versions). Each of the three messages' codes equal, or ±1 mod L on at
+    most ``ENC_MISMATCH_FRAC`` of them; the server, the clients, the
+    controls and c within one lattice step (the round's largest γ), and
+    bit-equal when every code agrees."""
+    from repro_torch.fed.registry import make_algorithm
+    fed_t = dataclasses.replace(alg_cuda.fed, kernel_backend="torch")
+    alg_torch = make_algorithm("quafl_scaffold", fed_t,
+                               loss_fn=alg_cuda.loss_fn,
+                               template=alg_cuda.template, batch_size=32,
+                               device=dev)
+    n, s, d = alg_cuda.fed.n_clients, alg_cuda.fed.s, alg_cuda.d
+    up, dn = alg_cuda.codec_up, alg_cuda.codec_down
+    draws = {"idx": torch.randperm(n, generator=gen, device=dev)[:s],
+             "h_steps": torch.randint(0, K + 1, (s,), generator=gen,
+                                      device=dev),
+             "batch_idx": torch.randint(0, data["y"].shape[1], (s, K, 32),
+                                        generator=gen, device=dev),
+             "key_up": up.keys(gen, s, d), "key_ctl": up.keys(gen, s, d),
+             "key_dn": dn.keys(gen, 1, d)}
+    outs, msgs = [], []
+    for alg in (alg_cuda, alg_torch):
+        codecs = alg.codec_up, alg.codec_down
+        alg.codec_up, alg.codec_down = CodeLog(codecs[0]), CodeLog(codecs[1])
+        st, _ = alg.round(clone_state(state), data, None, draws=draws)
+        msgs.append(alg.codec_up.msgs + alg.codec_down.msgs)
+        alg.codec_up, alg.codec_down = codecs
+        outs.append(st)
+    a, b = outs
+    L = 1 << up.bits
+    res = {"phase": "injected_round", "algorithm": "quafl_scaffold"}
+    for name, mk, mp in zip(("models", "controls", "downlink"), *msgs):
+        gap = code_gap(mk.codes, mp.codes, L)
+        res[f"{name}_mismatches"] = int((gap > 0).sum())
+        res[f"{name}_max_gap"] = int(gap.max())
+        res[f"{name}_gamma_max"] = float(torch.maximum(mk.gamma,
+                                                       mp.gamma).max())
+        assert res[f"{name}_max_gap"] <= 1, res
+        assert res[f"{name}_mismatches"] <= ENC_MISMATCH_FRAC * gap.numel(), \
+            res
+    step = max(res[f"{k}_gamma_max"] for k in ("models", "controls",
+                                               "downlink"))
+    diffs = {"server": (a.base.server, b.base.server),
+             "clients": (a.base.clients, b.base.clients),
+             "controls": (a.c_clients, b.c_clients),
+             "c_server": (a.c_server, b.c_server)}
+    for k, (x, y) in diffs.items():
+        res[f"{k}_diff"] = float((x - y).abs().max())
+    res["lattice_step"] = step
+    emit(res)
+    if not any(res[f"{k}_mismatches"] for k in ("models", "controls",
+                                                 "downlink")):
+        assert all(res[f"{k}_diff"] == 0.0 for k in diffs), res
+    assert all(res[f"{k}_diff"] <= step for k in diffs), res
+    return res
+
+
+def storage_bits(b: int) -> int:
+    return 8 if b <= 8 else 16
+
+
+def run_adaptive(dev, kx):
+    """adaptive_quafl from b=12 at the main path's width, 30 rounds, counts
+    from 0 just before and read just after: the printed width trace equal
+    to the walk recomputed from the emitted ``quant_err``, each round's
+    bits exact at that round's width, accuracy above round 0, and the
+    launches of a b=8 QuAFL round at every width: one encode, three
+    rotations, one quantize and two snaps a round, no decode."""
+    from repro_torch.core.extensions import AdaptiveBits
+    kx.reset_launches()
+    alg, tr, acc0, wall, data = run_main_path(
+        dev, None, name="adaptive_quafl", bits=ADAPTIVE_BITS0, **ADAPTIVE)
+    torch.cuda.synchronize()
+    launches = dict(kx.LAUNCHES)
+    widths = [int(w) for w in tr.column("bits_width")]
+    errs = tr.column("quant_err")
+    walk, b = [], ADAPTIVE_BITS0
+    for e in errs:
+        walk.append(b)
+        b = AdaptiveBits.walk(b, e, **ADAPTIVE)
+    per = [32_768 * storage_bits(w) + 32 for w in widths]
+    emit({"phase": "main_path", "run": "adaptive_quafl", "rounds": tr.rounds,
+          "d": alg._alg(ADAPTIVE_BITS0).d, "n_clients": N_CLIENTS, "s": S,
+          **ADAPTIVE, "bits_start": ADAPTIVE_BITS0, "bits_width": widths,
+          "widths_visited": sorted(set(widths)), "quant_err": errs,
+          "bits_up": tr.column("bits_up"),
+          "bits_down": tr.column("bits_down"), "acc_round0": acc0,
+          "acc": [(r["round"], r["acc"]) for r in tr.rows if "acc" in r],
+          "seconds": wall, "ms_per_round": wall / tr.rounds * 1e3,
+          "launches": launches})
+    emit({"phase": "launches", "path": "adaptive_quafl",
+          "launches": launches})
+    assert widths == walk and tuple(widths) == tr.final_state.trace, \
+        (widths, walk)
+    assert tr.final_state.bits == b
+    assert tr.column("bits_up") == [S * p for p in per]
+    assert tr.column("bits_down") == per
+    assert tr.final["acc"] > acc0 and tr.final["acc"] > 0.1
+    assert launches == {**{k: 0 for k in launches},
+                        "fused_encode": ROUNDS, "fused_rotate": 3 * ROUNDS,
+                        "quantize_codes": ROUNDS,
+                        "snap_codes": 2 * ROUNDS}, launches
+    return alg, tr, data, launches
+
+
+class EFLog:
+    """A stateful codec that records its encodes and its last decode."""
+
+    def __init__(self, codec):
+        self.codec = codec
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+    def encode_stateful(self, key, x, hint, state):
+        msg, new = self.codec.encode_stateful(key, x, hint, state)
+        self.calls.append((x, state, msg, new))
+        return msg, new
+
+    def decode(self, key, msg, ref):
+        self.decoded = self.codec.decode(key, msg, ref)
+        return self.decoded
+
+
+def injected_ef_round(dev, alg, state, data, gen):
+    """One compressed_fedavg round with a ``topk_ef`` uplink on the card,
+    draws injected: decoded + new residual == delta + old residual, bit for
+    bit; the sampled clients' rows are the new residuals, every other row
+    as it was; and the same messages on the CPU pick the same index sets
+    and values and leave the same residuals."""
+    n, s, d = alg.fed.n_clients, alg.fed.s, alg.d
+    idx = torch.randperm(n, generator=gen, device=dev)[:s]
+    draws = {"idx": idx,
+             "batch_idx": torch.randint(0, data["y"].shape[1], (s, K, 32),
+                                        generator=gen, device=dev),
+             "durations": 10.0 * torch.rand((s,), generator=gen, device=dev),
+             "key_up": alg.codec_up.keys(gen, s, d),
+             "key_dn": alg.codec_down.keys(gen, 1, d)}
+    before = state.codec_up_state.clone()
+    codec = alg.codec_up
+    alg.codec_up = EFLog(codec)
+    st, _ = alg.round(state, data, None, draws=draws)
+    (x, old, msg, new), = alg.codec_up.calls
+    dec = alg.codec_up.decoded
+    alg.codec_up = codec
+    rest = torch.ones(n, dtype=torch.bool, device=dev)
+    rest[idx] = False
+    msg_c, new_c = codec.encode_stateful(None, x.cpu(), None, old.cpu())
+    sets = torch.equal(torch.sort(msg.idx.cpu(), 1).values,
+                       torch.sort(msg_c.idx, 1).values)
+    # messages full of equal magnitudes at the same shape (a third exact
+    # zeros): the card's selection against the CPU's, and the invariant
+    tied = torch.randint(-3, 4, (s, d), generator=gen, device=dev) * 0.25
+    tied[torch.rand((s, d), generator=gen, device=dev) < 0.33] = 0.0
+    t_msg, t_new = codec.encode_stateful(None, tied, None, new)
+    t_msg_c, t_new_c = codec.encode_stateful(None, tied.cpu(), None,
+                                             new.cpu())
+    t_idx, t_ord = torch.sort(t_msg.idx.cpu(), 1)
+    t_idx_c, t_ord_c = torch.sort(t_msg_c.idx, 1)
+    t_dec = codec.decode(None, t_msg, torch.zeros((1, d), device=dev))
+    res = {"phase": "injected_round", "algorithm": "compressed_fedavg",
+           "uplink": TOPK, "k": int(msg.idx.shape[1]),
+           "ties_in_targets": int(((x + old) == 0).sum()),
+           "ef_invariant_exact": bool(torch.equal(dec + new, x + old)),
+           "sampled_rows_are_new": bool(torch.equal(
+               st.codec_up_state[idx], new)),
+           "other_rows_unchanged": bool(torch.equal(
+               st.codec_up_state[rest], before[rest])),
+           "cpu_index_sets_equal": sets,
+           "cpu_residuals_equal": bool(torch.equal(new.cpu(), new_c)),
+           "residual_norm": float(torch.linalg.vector_norm(new)),
+           "tied_zero_targets": int(((tied + new) == 0).sum()),
+           "cpu_tied_index_sets_equal": bool(torch.equal(t_idx, t_idx_c)),
+           "cpu_tied_values_equal": bool(torch.equal(
+               torch.gather(t_msg.vals.cpu(), 1, t_ord),
+               torch.gather(t_msg_c.vals, 1, t_ord_c))),
+           "cpu_tied_residuals_equal": bool(torch.equal(t_new.cpu(),
+                                                        t_new_c)),
+           "ef_invariant_tied_exact": bool(torch.equal(t_dec + t_new,
+                                                       tied + new))}
+    emit(res)
+    assert all(v for k, v in res.items() if k.startswith(
+        ("ef_", "sampled", "other", "cpu_"))), res
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1581,7 +1846,11 @@ def main() -> int:
               (4, 8192, 8, 1, None), (4, 8192, 4, 2, None),
               (4, 4096, 8, 1, [256.0, 16.0, 64.0, 256.0]),
               (S, 32_768, 8, 1, None), (S, 32_768, 4, 2, None),
-              (S, 32_768, 8, 1, GROUPED_LEVELS)]
+              (S, 32_768, 8, 1, GROUPED_LEVELS),
+              # adaptive_quafl's unpacked widths (int32 codes): the widths
+              # its main path settles at, and the widest
+              (S, 32_768, 10, 1, None), (S, 32_768, 11, 1, None),
+              (S, 32_768, 12, 1, None), (S, 32_768, 16, 1, None)]
     timings = {}
     errors = {k: 0.0 for k in REPLACES}
     for m, d_pad, bits, pack, levels in checks:
@@ -1613,7 +1882,11 @@ def main() -> int:
         (4, 4096, 8, 1, {"mr": 4, "levels": [256.0, 16.0, 64.0, 256.0]}),
         (S, 32_768, 8, 1, {"sign_rows": True}),
         (1, 32_768, 8, 1, {"sign_rows": True}),
-        (S, 32_768, 8, 1, {"levels": GROUPED_LEVELS})]
+        (S, 32_768, 8, 1, {"levels": GROUPED_LEVELS}),
+        # b=12 unpacked, and quafl_scaffold's controls: s messages, each
+        # with its own sign row, against s references
+        (S, 32_768, 12, 1, {"sign_rows": True}),
+        (S, 32_768, 8, 1, {"mr": S, "sign_rows": True})]
     decode_times = {}
     for m, d_pad, bits, pack, kw in decode_checks:
         res, io = decode_case(kx, dev, gen, m, d_pad, bits, pack, **kw)
@@ -1622,7 +1895,7 @@ def main() -> int:
             errors["fused_decode"] = max(errors.get("fused_decode", 0.0),
                                          res["decode_max_abs_err"])
         if (m, d_pad) in ((BENCH_M, BENCH_D), (S, 32_768), (1, 32_768)) \
-                and "levels" not in kw:
+                and bits == 8 and not {"levels", "mr"} & set(kw):
             decode_times[(m, d_pad)] = time_decode(kx, io, peak_bw)
             emit({"phase": "kernel_times", "m": m, "d_pad": d_pad,
                   "bits": bits, "pack": pack, "nvidia_smi": smi,
@@ -1759,8 +2032,22 @@ def main() -> int:
         emit({"phase": "profile", "algorithm": "quafl", "run": run,
               "uplink": str(v_alg.uplink), "nvidia_smi": smi, **p})
 
+    # path 7, the extensions: quafl_scaffold and adaptive_quafl, each run's
+    # counts from 0 just before and read just after (inside run_scaffold
+    # and run_adaptive), SCAFFOLD's injected round and its profile; then
+    # the top-k EF invariant on one compressed_fedavg round of path 2
+    sc_alg, sc_tr, sc_data, sc_launches = run_scaffold(dev, kx)
+    injected_scaffold_round(dev, sc_alg, sc_tr.final_state, sc_data, gen)
+    p = profile_rounds(sc_alg, clone_state(sc_tr.final_state), sc_data, gen)
+    emit({"phase": "profile", "algorithm": "quafl_scaffold",
+          "nvidia_smi": smi, **p})
+    run_adaptive(dev, kx)
+    injected_ef_round(dev, b_algs["compressed_fedavg_topk_ef"].alg,
+                      b_traces["compressed_fedavg_topk_ef"].final_state,
+                      b_data, b_gen)
+
     # path 6, the quickstart through compare (counts from 0 just before,
-    # read just after, inside run_quickstart), then its two twins as CLIs
+    # read just after, inside run_quickstart), then the three twins as CLIs
     run_quickstart(dev, kx)
     run_twin_clis()
 

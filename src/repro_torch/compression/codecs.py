@@ -3,12 +3,20 @@
 A codec is ``keys(generator, m, d) -> MessageKey``, ``encode(key, x, hint)
 -> msg``, ``decode(key, msg, ref) -> x̂`` and ``message_bits(d)``, the wire
 accounting every algorithm's ``bits_up`` / ``bits_down`` come from. Every
-call is batched over a leading message axis (:mod:`.lattice`).
+call is batched over a leading message axis (:mod:`.lattice`). Codecs that
+carry encoder state from round to round (error feedback) set ``stateful``
+and implement ``init_state(d)`` and ``encode_stateful(key, x, hint, state)
+-> (msg, state)``, the state one row per message; algorithms that thread
+it get error feedback, the others call the stateless ``encode``.
 
   ``lattice``         position-aware lattice quantizer, word-aligned uint
                       codes on the wire (8/16/32 bits per coordinate)
   ``lattice_packed``  the same math, ``8 // bits`` codes per byte: exactly
                       ``bits`` bits per coordinate on the wire
+  ``topk_ef``         position-aware top-k sparsification with error
+                      feedback: the k largest-|·| coordinates of the
+                      message (plus the carried residual when the algorithm
+                      threads state); the others decode to the reference
   ``scalar``          FedPAQ/QSGD norm-scaled stochastic rounding (not
                       position-aware: ``ref`` is ignored)
   ``identity``        fp32 pass-through (32 bits per coordinate)
@@ -19,13 +27,12 @@ The lattice codecs also ride the rotated-space pipeline through
 spec, "slow": spec}`` group map that :func:`resolve_codec` turns into a
 :class:`GroupedLatticeCodec` with per-client bit budgets over the
 clock's speed classes. Third-party codecs join through
-:func:`register_codec`. The reference's ``topk_ef`` (ROADMAP Queue 1 item
-9) is registered and raises until it is ported.
+:func:`register_codec`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Protocol, Tuple, runtime_checkable
+from typing import Any, Dict, NamedTuple, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
@@ -56,6 +63,35 @@ class Codec(Protocol):
         ...
 
 
+class CodecBase:
+    """The stateful protocol's defaults: a stateless codec."""
+    stateful: bool = False
+    # an error-feedback residual is the part of the message the decoder
+    # did not reconstruct, which the encoder knows only when the decoder
+    # reconstructs zero off the sent support: DELTA messages decoded
+    # against the zero vector. An uplink decoded against a non-zero
+    # reference (QuAFL's models against X_t) uses the stateless encode.
+    ef_zero_ref_only: bool = True
+
+    def init_state(self, d: int, device=None):
+        return ()
+
+    def encode_stateful(self, key, x2, hint, state):
+        """Stateless fallback: the message of ``encode``, the state as it
+        was."""
+        return self.encode(key, x2, hint), state
+
+
+def init_client_states(codec, n: int, d: int, device=None):
+    """The (n, ...) per-client encoder state of a stateful codec, ``()``
+    for a stateless one: the helper of every algorithm that threads
+    error-feedback residuals."""
+    if not codec.stateful:
+        return ()
+    st0 = codec.init_state(d, device)
+    return st0[None].repeat(n, *([1] * st0.dim()))
+
+
 def _storage_bits(bits: int) -> int:
     """Wire width of one unpacked lattice code: the uint dtype that holds
     2^bits levels."""
@@ -63,7 +99,7 @@ def _storage_bits(bits: int) -> int:
 
 
 @dataclass(frozen=True)
-class IdentityCodec:
+class IdentityCodec(CodecBase):
     """fp32 pass-through; the 'uncompressed' point of the design space."""
     name: str = "identity"
     bits: int = 32
@@ -82,7 +118,7 @@ class IdentityCodec:
 
 
 @dataclass(frozen=True)
-class ScalarCodec:
+class ScalarCodec(CodecBase):
     """FedPAQ-style norm-scaled stochastic rounding (the paper's Figure-5
     'direct quantization' baseline). Not position-aware: ``ref`` is ignored
     and the error scales with ‖x‖."""
@@ -113,7 +149,7 @@ class ScalarCodec:
 
 
 @dataclass(frozen=True)
-class LatticeCodec:
+class LatticeCodec(CodecBase):
     """Position-aware lattice quantizer as a codec; ``packed`` selects the
     sub-byte wire (bits in {1, 2, 4, 8}), packed inside the encode kernel
     and unpacked inside the decode kernel."""
@@ -158,7 +194,7 @@ class LatticeCodec:
 
 
 @dataclass(frozen=True)
-class GroupedLatticeCodec:
+class GroupedLatticeCodec(CodecBase):
     """Heterogeneous per-client bit budgets over the lattice exchange.
 
     ``bits_per_client`` gives each client its own bit-width; the
@@ -251,6 +287,69 @@ class GroupedLatticeCodec:
         return self.quant.decode(key, msg, ref2)
 
 
+class TopKMsg(NamedTuple):
+    idx: torch.Tensor    # (m, k) int32 coordinate indices
+    vals: torch.Tensor   # (m, k) fp32 values sent
+
+
+@dataclass(frozen=True)
+class TopKEFCodec(CodecBase):
+    """Position-aware top-k: each message ships its k largest-magnitude
+    coordinates, and every coordinate not sent decodes to the REFERENCE
+    value (to zero against a zero reference, the classic sparse delta).
+    With threaded state (error feedback) the part not sent is kept by the
+    encoder and added to the next message, so every coordinate is sent in
+    the end; the residual is ``target`` off the sent support, the coding
+    error only when the decoder reconstructs zero there
+    (``ef_zero_ref_only``).
+
+    The selection is a stable descending sort of |target|, cut at k: among
+    equal magnitudes the lower index goes first, as in XLA's TopK, so the
+    port picks the reference's coordinates even where an error-feedback
+    residual holds exact zeros. Top-k draws no randomness; ``keys`` is
+    empty and taken for the uniform API."""
+    frac: float = 0.01      # share of the coordinates sent
+    k_min: int = 1
+    name: str = "topk_ef"
+    stateful: bool = True
+    ef_zero_ref_only: bool = True
+
+    def k_for(self, d: int) -> int:
+        return max(self.k_min, int(round(self.frac * d)))
+
+    def keys(self, generator, m: int, d: int) -> MessageKey:
+        return MessageKey()
+
+    def init_state(self, d: int, device=None):
+        return torch.zeros(d, dtype=torch.float32, device=device)
+
+    def _encode(self, target) -> TopKMsg:
+        k = self.k_for(target.shape[-1])
+        idx = torch.sort(target.abs(), dim=1, descending=True,
+                         stable=True).indices[:, :k]
+        return TopKMsg(idx=idx.to(torch.int32),
+                       vals=torch.gather(target, 1, idx))
+
+    def encode(self, key, x2, hint=None) -> TopKMsg:
+        return self._encode(x2.to(torch.float32))
+
+    def encode_stateful(self, key, x2, hint, state):
+        """(message, new residual): the message of ``x2 + state``; the new
+        residual is that target with the sent coordinates zeroed."""
+        target = x2.to(torch.float32) + state
+        msg = self._encode(target)
+        return msg, target.scatter(1, msg.idx.long(), 0.0)
+
+    def decode(self, key, msg: TopKMsg, ref2):
+        """ref2: (1 or m, d); the sent values over the reference."""
+        m = msg.idx.shape[0]
+        out = ref2.to(torch.float32).expand(m, -1).clone()
+        return out.scatter_(1, msg.idx.long(), msg.vals)
+
+    def message_bits(self, d: int) -> int:
+        return self.k_for(d) * (32 + 32)   # (index, value) pairs
+
+
 def _reject_extra(kw: Dict[str, Any], name: str):
     if kw:
         raise ValueError(f"unknown codec parameter(s) {sorted(kw)} for "
@@ -268,9 +367,9 @@ def _build_lattice_packed(**kw):
     return _build_lattice(packed=True, **kw)
 
 
-def _build_topk_ef(**kw):
-    raise NotImplementedError("codec 'topk_ef' is not ported yet (ROADMAP "
-                              "Queue 1 item 9)")
+def _build_topk_ef(*, bits, backend, block, safety, frac=0.01, **kw):
+    _reject_extra(kw, "topk_ef")
+    return TopKEFCodec(frac=float(frac))
 
 
 def _build_scalar(*, bits, backend, block, safety, **kw):

@@ -12,8 +12,10 @@ each sampled client decodes before its local steps.
 clients upload codec-compressed model DELTAS decoded against the zero
 vector, the server applies the averaged decoded delta with a server
 learning rate, and the downlink is ONE broadcast Enc(X_t) decoded against
-the previous round's server model. The reference's stateful ``topk_ef``
-uplink is not ported yet (ROADMAP Queue 1 item 9).
+the previous round's server model. A stateful uplink (``topk_ef``) gets
+its per-client error-feedback residuals threaded through the store's
+``codec_up`` row: the sampled clients' rows are gathered, encoded with,
+and scattered back.
 
 The s clients' K local steps run as one batched autograd per step
 (:mod:`repro_torch.core.local`). A round's uplink is one batched
@@ -34,12 +36,14 @@ from typing import Any, Callable, Dict, NamedTuple
 import torch
 
 from repro_torch import default_device
-from repro_torch.compression.codecs import IdentityCodec, resolve_codec
+from repro_torch.compression.codecs import (IdentityCodec,
+                                            init_client_states,
+                                            resolve_codec)
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.local import local_sgd
 from repro_torch.fed.clock import speeds_for, straggler_round_time
 from repro_torch.fed.population import (Population, build_population,
-                                        resolve_participation)
+                                        resolve_participation, scatter_rows)
 from repro_torch.utils.tree import (tree_flatten_vector, tree_size,
                                     tree_unflatten_vector)
 
@@ -100,9 +104,9 @@ class FedAvg:
         self._up_identity = isinstance(self.codec_up, IdentityCodec)
         self._down_identity = isinstance(self.codec_down, IdentityCodec)
 
-    def _pop0(self) -> Population:
+    def _pop0(self, **extra_rows) -> Population:
         return build_population(self.fed, self.fed.n_clients, lam=self.lam,
-                                device=self.device)
+                                device=self.device, **extra_rows)
 
     def init(self, params0) -> FedAvgState:
         return FedAvgState(
@@ -113,8 +117,8 @@ class FedAvg:
 
     # ------------------------------------------------------------------
     def _cohort(self, state, data, generator, draws):
-        """The sampled clients' (s, K, B) minibatches and the straggler
-        round time of their K-step durations."""
+        """The sampled clients' ids, their (s, K, B) minibatches and the
+        straggler round time of their K-step durations."""
         fed = self.fed
         n, s, K = fed.n_clients, fed.s, fed.local_steps
         lam_row = state.pop.rows["lam"]
@@ -128,7 +132,7 @@ class FedAvg:
         batch = (data["x"][rows, bidx], data["y"][rows, bidx])
         dt = straggler_round_time(generator, lam_row[idx], K, fed.sit,
                                   durations=draws.get("durations"))
-        return batch, dt
+        return idx, batch, dt
 
     def _local(self, start, batch):
         """EXACTLY K local SGD steps of every sampled client from the
@@ -142,7 +146,7 @@ class FedAvg:
         fed = self.fed
         s, K = fed.s, fed.local_steps
         draws = {k: v.to(self.device) for k, v in (draws or {}).items()}
-        batch, dt = self._cohort(state, data, generator, draws)
+        _, batch, dt = self._cohort(state, data, generator, draws)
 
         # downlink: ONE broadcast Enc(X_t); every sampled client decodes it
         # against the server reference before stepping
@@ -200,13 +204,19 @@ class FedAvg:
 
 class CompressedFedAvgState(NamedTuple):
     server: torch.Tensor
-    pop: Population
+    pop: Population              # rows: lam, group, codec_up (EF residuals)
     t: int
     sim_time: torch.Tensor
     bits_up: float
     bits_down: float
     srv_prev: torch.Tensor       # previous server model (downlink ref)
     srv_dist_est: torch.Tensor   # running ‖X_t − X_{t-1}‖ (0-d)
+
+    @property
+    def codec_up_state(self):
+        """Per-client error-feedback residuals, a row of the store (``()``
+        for a stateless uplink)."""
+        return self.pop.rows["codec_up"]
 
     @property
     def bits_sent(self):
@@ -226,8 +236,10 @@ class CompressedFedAvg(FedAvg):
 
     def init(self, params0) -> CompressedFedAvgState:
         x0 = tree_flatten_vector(params0).to(self.device)
+        cs0 = init_client_states(self.codec_up, self.fed.n_clients, self.d,
+                                 self.device)
         return CompressedFedAvgState(
-            server=x0, pop=self._pop0(), t=0,
+            server=x0, pop=self._pop0(codec_up=cs0), t=0,
             sim_time=torch.zeros((), device=self.device), bits_up=0.0,
             bits_down=0.0, srv_prev=x0.clone(),
             srv_dist_est=torch.tensor(1e-3, device=self.device))
@@ -237,7 +249,7 @@ class CompressedFedAvg(FedAvg):
         fed = self.fed
         s, K, d = fed.s, fed.local_steps, self.d
         draws = {k: v.to(self.device) for k, v in (draws or {}).items()}
-        batch, dt = self._cohort(state, data, generator, draws)
+        idx, batch, dt = self._cohort(state, data, generator, draws)
 
         # downlink broadcast: Enc(X_t) decoded against X_{t-1}
         key_dn = _draw(draws, "key_dn",
@@ -255,8 +267,15 @@ class CompressedFedAvg(FedAvg):
                        lambda: self.codec_up.keys(generator, s, d))
         hints = _norms(deltas) + 1e-12
         zero = torch.zeros((1, d), device=self.device)
-        QD = self.codec_up.decode(
-            key_up, self.codec_up.encode(key_up, deltas, hints), zero)
+        pop = state.pop
+        if self.codec_up.stateful:
+            msg, cs_new = self.codec_up.encode_stateful(
+                key_up, deltas, hints, state.codec_up_state[idx])
+            # the sampled clients' residuals back into the store (O(s·d))
+            pop = scatter_rows(pop, idx, {"codec_up": cs_new})
+        else:
+            msg = self.codec_up.encode(key_up, deltas, hints)
+        QD = self.codec_up.decode(key_up, msg, zero)
 
         server_new = state.server - self.server_lr * torch.mean(QD, 0)
         rel_err = torch.mean(_norms(QD - deltas) / (_norms(deltas) + 1e-12))
@@ -264,7 +283,7 @@ class CompressedFedAvg(FedAvg):
         bits_down = self.codec_down.message_bits(d)  # ONE broadcast
         new_time = state.sim_time + dt
         new_state = CompressedFedAvgState(
-            server=server_new, pop=state.pop, t=state.t + 1,
+            server=server_new, pop=pop, t=state.t + 1,
             sim_time=new_time, bits_up=state.bits_up + bits_up,
             bits_down=state.bits_down + bits_down, srv_prev=state.server,
             srv_dist_est=0.5 * state.srv_dist_est

@@ -9,6 +9,8 @@ server applies the averaged delta. The deltas can be compressed
 ``scalar`` codec) or ``"lattice"`` (a delta decodes against the zero vector
 with hint ‖Δ‖: one ``fused_encode`` and one ``fused_decode`` launch per
 completion); ``uplink=`` / ``downlink=`` codec specs override both knobs.
+A stateful uplink (``topk_ef``) gets each client's error-feedback residual
+threaded through ``FedBuffState.ef``.
 
 The event machinery is host-side, as in the reference: a min-heap of
 completion times (:class:`~repro_torch.fed.clock.ArrivalQueue`) fed by a
@@ -61,6 +63,8 @@ class FedBuffState:
     bits_up: float = 0.0
     bits_down: float = 0.0
     rng: Optional[np.random.Generator] = None   # seeded on first round
+    ef: Optional[List[torch.Tensor]] = None     # per-client (d,) residuals
+    #                                           # of a stateful uplink
 
     @property
     def bits_sent(self):
@@ -103,9 +107,11 @@ class FedBuff:
     def init(self, params0) -> FedBuffState:
         server = tree_flatten_vector(params0).to(self.device)
         n = self.fed.n_clients
+        ef = ([self.codec_up.init_state(self.d, self.device)
+               for _ in range(n)] if self.codec_up.stateful else None)
         return FedBuffState(server=server,
                             start_model=[server for _ in range(n)],
-                            queue=None, buffer=[])
+                            queue=None, buffer=[], ef=ef)
 
     def _seed(self, state: FedBuffState, generator, seed=None
               ) -> FedBuffState:
@@ -124,7 +130,8 @@ class FedBuff:
         (once per round, not per completion)."""
         return replace(state, queue=state.queue.copy(),
                        start_model=list(state.start_model),
-                       buffer=list(state.buffer), rng=_copy_rng(state.rng))
+                       buffer=list(state.buffer), rng=_copy_rng(state.rng),
+                       ef=None if state.ef is None else list(state.ef))
 
     def _key(self, codec, draws, name, z, generator):
         if name in draws:
@@ -154,7 +161,12 @@ class FedBuff:
         if self._up_compressed:
             key = self._key(self.codec_up, draws, "key_up", z, generator)
             hint = torch.linalg.vector_norm(delta) + 1e-12
-            msg = self.codec_up.encode(key, delta[None], hint[None])
+            if self.codec_up.stateful:
+                msg, ef = self.codec_up.encode_stateful(
+                    key, delta[None], hint[None], state.ef[i][None])
+                state.ef[i] = ef[0]
+            else:
+                msg = self.codec_up.encode(key, delta[None], hint[None])
             dq = self.codec_up.decode(
                 key, msg, torch.zeros((1, d), device=self.device))[0]
             if want_metrics:

@@ -15,8 +15,10 @@ row (models X^i, speeds λ, last-interaction times). A round:
     (:meth:`ExchangePipeline.quafl_round`: s+1 forward and s+1 inverse
     rotations, on the CUDA kernels by default), otherwise message by
     message through the codec API (s uplink encodes decoded against X_t,
-    one downlink encode that each client decodes against its own model);
-    then the (s+1)-averaging;
+    one downlink encode that each client decodes against its own model;
+    an uplink codec that declares itself reference-agnostic,
+    ``ef_zero_ref_only=False``, gets its error-feedback residuals threaded
+    through the store's ``codec_up`` row); then the (s+1)-averaging;
   * scatters the s new client rows back into the store.
 
 ``round(state, data, generator, draws=None)``: ``draws`` may supply any of
@@ -37,6 +39,7 @@ import torch
 
 from repro_torch import default_device
 from repro_torch.compression.codecs import (GroupedLatticeCodec,
+                                            init_client_states,
                                             is_lattice_family, resolve_codec)
 from repro_torch.compression.pipeline import ExchangePipeline
 from repro_torch.configs.base import FedConfig
@@ -54,7 +57,8 @@ class QuaflState(NamedTuple):
     Counters are host numbers (``t``, ``sim_time``, cumulative bits, kept
     exact as python numbers); ``srv_dist_est`` stays on the device."""
     server: torch.Tensor       # X_t (d,)
-    pop: Population            # rows: lam, group, model (n, d), last_time
+    pop: Population            # rows: lam, group, model (n, d),
+    #                          # last_time, codec_up (EF residuals or ())
     t: int                     # server round
     sim_time: float            # simulated wall-clock
     bits_up: float             # cumulative client->server bits
@@ -69,6 +73,17 @@ class QuaflState(NamedTuple):
     @property
     def last_time(self):
         return self.pop.rows["last_time"]
+
+    @property
+    def codec_up_state(self):
+        """Per-client error-feedback residuals, a row of the store (``()``
+        unless the uplink's residuals are threaded)."""
+        return self.pop.rows["codec_up"]
+
+    @property
+    def bits_sent(self):
+        """Total communication bits, both directions."""
+        return self.bits_up + self.bits_down
 
 
 @dataclass(eq=False)
@@ -121,6 +136,21 @@ class QuAFL:
         self.part = resolve_participation(self.participation, fed)
         self.d = tree_size(self.template)
 
+    @property
+    def _thread_ef(self) -> bool:
+        """QuAFL's uplink decodes against the SERVER model, a non-zero
+        reference, so error-feedback residuals (which assume the decoder
+        reconstructs zero off the sent support) are threaded only for a
+        codec that declares itself reference-agnostic; every other codec
+        uses its stateless encode."""
+        return self.codec_up.stateful and not getattr(
+            self.codec_up, "ef_zero_ref_only", True)
+
+    def _codec_state0(self):
+        return (init_client_states(self.codec_up, self.fed.n_clients,
+                                   self.d, self.device)
+                if self._thread_ef else ())
+
     def init(self, params0) -> QuaflState:
         x0 = tree_flatten_vector(params0).to(self.device)
         n = self.fed.n_clients
@@ -128,38 +158,51 @@ class QuAFL:
             self.fed, n, lam=self.lam, device=self.device,
             model=x0[None].repeat(n, 1),
             last_time=torch.zeros(n, dtype=torch.float32,
-                                  device=self.device))
+                                  device=self.device),
+            codec_up=self._codec_state0())
         return QuaflState(server=x0.clone(), pop=pop, t=0, sim_time=0.0,
                           bits_up=0.0, bits_down=0.0,
                           srv_dist_est=torch.tensor(1e-3,
                                                     device=self.device))
 
     # ------------------------------------------------------------------
-    def _local_progress(self, cl, xs, ys, h_steps):
+    def _local_progress(self, cl, xs, ys, h_steps, correction=None):
         """Replay K masked SGD steps of every sampled client; returns h̃,
-        the sum of the active steps' gradients, (s, d)."""
+        the sum of the active steps' gradients, (s, d). ``correction``
+        (s, d), when given, is taken off every gradient (SCAFFOLD's
+        c_i − c)."""
         eta = self.fed.lr
         x, h = cl, torch.zeros_like(cl)
         for q in range(self.fed.local_steps):
             g = batched_grads(self.loss_fn, self.template, x,
                               {"x": xs[:, q], "y": ys[:, q]})
+            if correction is not None:
+                g = g - correction
             act = (q < h_steps).to(torch.float32)[:, None]
             x = x - eta * act * g
             h = h + act * g
         return h
 
     # ------------------------------------------------------------------
-    def _per_message(self, server, cl, Y, hints_up, generator, draws):
+    def _per_message(self, server, cl, Y, hints_up, generator, draws,
+                     cs=None):
         """The exchange of any codec pair that is not both lattice-family
-        (scalar, identity): s uplink encodes, each decoded against X_t;
-        ONE downlink encode of X_t, which each client decodes against its
-        own model ``cl``; then the (s+1)-averaging. Returns (server_new,
-        clients_new, hint_srv, rel_err)."""
+        (scalar, identity, top-k): s uplink encodes, each decoded against
+        X_t (with the sampled clients' residuals ``cs`` when they are
+        threaded); ONE downlink encode of X_t, which each client decodes
+        against its own model ``cl``; then the (s+1)-averaging. Returns
+        (server_new, clients_new, hint_srv, rel_err, the new residuals or
+        None)."""
         s, d = Y.shape
         key_up = (draws["key_up"] if "key_up" in draws
                   else self.codec_up.keys(generator, s, d))
-        QY = self.codec_up.decode(
-            key_up, self.codec_up.encode(key_up, Y, hints_up), server[None])
+        cs_new = None
+        if cs is not None:
+            msg, cs_new = self.codec_up.encode_stateful(key_up, Y, hints_up,
+                                                        cs)
+        else:
+            msg = self.codec_up.encode(key_up, Y, hints_up)
+        QY = self.codec_up.decode(key_up, msg, server[None])
 
         key_dn = (draws["key_dn"] if "key_dn" in draws
                   else self.codec_down.keys(generator, 1, d))
@@ -179,42 +222,49 @@ class QuAFL:
             cl_new = QX
         rel_err = torch.mean(torch.linalg.vector_norm(QY - Y, dim=1)
                              / (torch.linalg.vector_norm(Y, dim=1) + 1e-9))
-        return server_new, cl_new, hint_srv, rel_err
+        return server_new, cl_new, hint_srv, rel_err, cs_new
 
     # ------------------------------------------------------------------
-    def round(self, state: QuaflState, data, generator: torch.Generator,
-              draws: Dict[str, torch.Tensor] = None):
-        """One server round. data: per-client datasets {'x': (n, m, d_in),
-        'y': (n, m)}. Consumes ``state`` (its store is updated in place)."""
+    def _cohort(self, state: QuaflState, data, generator, draws):
+        """The round's cohort: the sampled ids, their gathered rows, their
+        H_i draws and their (s, K, B) minibatches (xs, ys), each from
+        ``draws`` where given."""
         fed = self.fed
         n, s, K = fed.n_clients, fed.s, fed.local_steps
-        draws = {k: v.to(self.device) for k, v in (draws or {}).items()}
 
         def draw(name, fn):
             return draws[name] if name in draws else fn()
 
-        lam_row = state.pop.rows["lam"]
         idx = draw("idx", lambda: self.part.sample(
-            generator, state.t, n, s, lam_row,
+            generator, state.t, n, s, state.pop.rows["lam"],
             noise=draws.get("part_noise"))).long()
         got = gather_rows(state.pop, idx)
         elapsed = state.sim_time + fed.swt + fed.sit - got["last_time"]
         h_steps = draw("h_steps", lambda: self.part.h_steps(
             generator, idx, got["lam"], elapsed, K))
-
-        m = data["y"].shape[1]
         bidx = draw("batch_idx", lambda: torch.randint(
-            0, m, (s, K, self.batch_size), generator=generator,
-            device=self.device)).long()
+            0, data["y"].shape[1], (s, K, self.batch_size),
+            generator=generator, device=self.device)).long()
         rows = idx[:, None, None]
+        return idx, got, h_steps, data["x"][rows, bidx], data["y"][rows, bidx]
+
+    def round(self, state: QuaflState, data, generator: torch.Generator,
+              draws: Dict[str, torch.Tensor] = None):
+        """One server round. data: per-client datasets {'x': (n, m, d_in),
+        'y': (n, m)}. Consumes ``state`` (its store is updated in place)."""
+        fed = self.fed
+        s = fed.s
+        draws = {k: v.to(self.device) for k, v in (draws or {}).items()}
+        idx, got, h_steps, xs, ys = self._cohort(state, data, generator,
+                                                 draws)
         cl = got["model"]                                         # (s, d)
-        h_tilde = self._local_progress(cl, data["x"][rows, bidx],
-                                       data["y"][rows, bidx], h_steps)
+        h_tilde = self._local_progress(cl, xs, ys, h_steps)
         prog = fed.lr * self._eta_t[idx][:, None] * h_tilde       # η·η_i·h̃
         Y = cl - prog
 
         hints_up = (torch.linalg.vector_norm(prog, dim=1)
                     + state.srv_dist_est + 1e-8)
+        cs_new = None          # the sampled clients' new EF rows, if any
         if self.pipeline is not None:
             fn = (self.pipeline.quafl_round
                   if self.exchange_impl == "pipeline"
@@ -225,8 +275,10 @@ class QuAFL:
                 u_srv=draws.get("u_srv"), avg_mode=self.avg_mode,
                 up=self.codec_up.wire(idx), down=self.codec_down.wire())
         else:
-            server_new, cl_new, hint_srv, rel_err = self._per_message(
-                state.server, cl, Y, hints_up, generator, draws)
+            server_new, cl_new, hint_srv, rel_err, cs_new = \
+                self._per_message(state.server, cl, Y, hints_up, generator,
+                                  draws, got["codec_up"] if self._thread_ef
+                                  else None)
 
         # wire accounting by the codecs: s uplink messages (per-client
         # widths under a grouped codec) + ONE downlink broadcast Enc(X_t)
@@ -238,8 +290,10 @@ class QuAFL:
         bits_down = self.codec_down.message_bits(self.d)
         dt = fed.swt + fed.sit
         new_time = state.sim_time + dt
-        pop = scatter_rows(state.pop, idx, {"model": cl_new,
-                                            "last_time": new_time})
+        updates = {"model": cl_new, "last_time": new_time}
+        if cs_new is not None:
+            updates["codec_up"] = cs_new
+        pop = scatter_rows(state.pop, idx, updates)
         state = QuaflState(
             server=server_new, pop=pop, t=state.t + 1, sim_time=new_time,
             bits_up=state.bits_up + bits_up,

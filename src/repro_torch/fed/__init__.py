@@ -25,7 +25,7 @@ from repro_torch.fed.population import (  # noqa: F401
     Population, UniformParticipation, build_population, client_keys,
     floyd_sample, gather_rows, lazy_h_steps_per_client,
     register_participation, registered_participations,
-    resolve_participation, scatter_rows, uniform_sample)
+    resolve_participation, scatter_rows, uniform_sample, with_rows)
 from repro_torch.fed.registry import (make_algorithm,  # noqa: F401
                                       register_algorithm,
                                       registered_algorithms)

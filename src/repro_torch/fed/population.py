@@ -59,14 +59,23 @@ def build_population(fed: FedConfig, n: int = None, *, lam=None,
     return Population(rows=dict(lam=lam, group=group, **extra_rows))
 
 
+def with_rows(pop: Population, **rows) -> Population:
+    """A copy of the store with the named rows added or replaced."""
+    return Population(rows={**pop.rows, **rows})
+
+
 def gather_rows(pop: Population, idx) -> Dict[str, Any]:
-    """Sparse O(s·row) gather of the participating clients' rows."""
-    return {k: v[idx] for k, v in pop.rows.items()}
+    """Sparse O(s·row) gather of the participating clients' rows; an empty
+    row (``()``, a stateless codec's ``codec_up``) comes back as it is."""
+    return {k: v[idx] if isinstance(v, torch.Tensor) else v
+            for k, v in pop.rows.items()}
 
 
 def scatter_rows(pop: Population, idx, updates: Dict[str, Any]
                  ) -> Population:
-    """Write updated rows back in place (O(s·row)); returns the store."""
+    """Write updated rows back in place (O(s·row)); returns the store.
+    Rows not named in ``updates`` (an empty ``codec_up`` among them) are
+    left untouched."""
     for name, val in updates.items():
         pop.rows[name][idx] = val
     return pop

@@ -17,10 +17,15 @@ builds:
                          ``quantizer``, ``uniform_speeds``, ``uplink``,
                          ``downlink``
   ``sequential``         single slow node, one step per round
+  ``quafl_scaffold``     QuAFL with SCAFFOLD control variates
+                         (beyond-paper); QuAFL kwargs
+  ``adaptive_quafl``     QuAFL under the adaptive bit-width controller
+                         (beyond-paper); QuAFL kwargs plus ``lo``, ``hi``,
+                         ``b_min``, ``b_max``
 
-and every algorithm takes ``device``. The reference's other algorithms are
-registered by name and raise until their slice is ported. Third-party
-variants join through :func:`register_algorithm`.
+and every algorithm takes ``device``. The reference's ``fedbuff_device``
+and ``spmd`` are registered by name and raise until their slice is ported.
+Third-party variants join through :func:`register_algorithm`.
 """
 from __future__ import annotations
 
@@ -56,6 +61,28 @@ def _build_sequential(fed, loss_fn, template, **kw):
     return Sequential(fed=fed, loss_fn=loss_fn, template=template, **kw)
 
 
+def _build_scaffold(fed, loss_fn, template, **kw):
+    from repro_torch.core.extensions import QuaflScaffold
+    return QuaflScaffold(fed=fed, loss_fn=loss_fn, template=template, **kw)
+
+
+# the keyword arguments adaptive_quafl hands to each of its QuAFL instances
+_QUAFL_KW = ("avg_mode", "uniform_speeds", "exchange_impl", "uplink",
+             "downlink", "participation", "client_mesh", "batch_size",
+             "device")
+
+
+def _build_adaptive(fed, loss_fn, template, **kw):
+    from repro_torch.core.extensions import AdaptiveQuaflAlgorithm
+    from repro_torch.core.quafl import QuAFL
+    quafl_kw = {k: kw.pop(k) for k in _QUAFL_KW if k in kw}
+
+    def make_alg(f):
+        return QuAFL(fed=f, loss_fn=loss_fn, template=template, **quafl_kw)
+
+    return AdaptiveQuaflAlgorithm(fed, make_alg, **kw)
+
+
 def _not_ported(name: str, item: str) -> Callable:
     def build(*args, **kw):
         raise NotImplementedError(f"algorithm {name!r} is not ported yet "
@@ -69,8 +96,8 @@ _BUILDERS: Dict[str, Callable[..., FedAlgorithm]] = {
     "fedavg": _build_fedavg,
     "fedbuff": _build_fedbuff,
     "sequential": _build_sequential,
-    "quafl_scaffold": _not_ported("quafl_scaffold", "9"),
-    "adaptive_quafl": _not_ported("adaptive_quafl", "9"),
+    "quafl_scaffold": _build_scaffold,
+    "adaptive_quafl": _build_adaptive,
     "fedbuff_device": _not_ported("fedbuff_device", "10"),
     "spmd": _not_ported("spmd", "11"),
     "compressed_fedavg": _build_compressed_fedavg,

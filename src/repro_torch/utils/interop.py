@@ -6,12 +6,13 @@ arrays), so nothing here imports JAX.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.fedavg import CompressedFedAvgState, FedAvgState
+from repro_torch.core.extensions import ScaffoldState
 from repro_torch.core.fedbuff import FedBuffState
 from repro_torch.core.quafl import QuaflState
 from repro_torch.fed.clock import ArrivalQueue
@@ -19,6 +20,14 @@ from repro_torch.fed.population import Population
 
 QUAFL_ROWS = ("lam", "group", "model", "last_time")
 FEDAVG_ROWS = ("lam", "group")
+
+
+def _codec_row(a, device):
+    """A ``codec_up`` row: (n, d) residuals as a tensor; the reference's
+    empty row of a stateless codec (``()``, numpy shape (0,)) as ``()``."""
+    if a is None or np.ndim(a) < 2:
+        return ()
+    return _tensor(a, device, torch.float32)
 
 
 def _tensor(a, device, dtype=None):
@@ -50,10 +59,13 @@ def quafl_state_from_numpy(*, server, rows: Dict[str, np.ndarray], t,
                            sim_time, bits_up, bits_down, srv_dist_est,
                            device) -> QuaflState:
     """A reference ``QuaflState`` — server vector, population rows and
-    scalars, all as numpy — as the port's state. The port's store keeps
-    :data:`QUAFL_ROWS`; the reference's empty ``codec_up`` row (stateless
-    codecs) has no counterpart yet."""
+    scalars, all as numpy — as the port's state: the rows
+    :data:`QUAFL_ROWS`, the ``codec_up`` row (EF residuals, or empty), and
+    SCAFFOLD's ``control`` row where the reference has one."""
     pop = Population(rows={k: _tensor(rows[k], device) for k in QUAFL_ROWS})
+    pop.rows["codec_up"] = _codec_row(rows.get("codec_up"), device)
+    if "control" in rows:
+        pop.rows["control"] = _tensor(rows["control"], device, torch.float32)
     return QuaflState(server=_tensor(server, device, torch.float32),
                       pop=pop, t=int(t), sim_time=float(sim_time),
                       bits_up=float(bits_up), bits_down=float(bits_down),
@@ -74,11 +86,23 @@ def fedavg_state_from_numpy(*, server, rows: Dict[str, np.ndarray], t,
                        bits_up=float(bits_up), bits_down=float(bits_down))
 
 
+def scaffold_state_from_numpy(*, c_server, device, **quafl
+                              ) -> ScaffoldState:
+    """A reference ``ScaffoldState`` — its base QuAFL state's fields (rows
+    with ``control``) and the server control ``c_server`` — as the
+    port's."""
+    return ScaffoldState(base=quafl_state_from_numpy(device=device, **quafl),
+                         c_server=_tensor(c_server, device, torch.float32))
+
+
 def compressed_fedavg_state_from_numpy(*, srv_prev, srv_dist_est, device,
                                        **fedavg) -> CompressedFedAvgState:
-    """A reference ``CompressedFedAvgState`` (stateless uplink: its empty
-    ``codec_up`` row has no counterpart) as the port's state."""
+    """A reference ``CompressedFedAvgState`` (with its ``codec_up`` row:
+    the EF residuals of a stateful uplink, else empty) as the port's
+    state."""
+    codec_up = _codec_row(fedavg["rows"].get("codec_up"), device)
     base = fedavg_state_from_numpy(device=device, **fedavg)
+    base.pop.rows["codec_up"] = codec_up
     return CompressedFedAvgState(
         *base, srv_prev=_tensor(srv_prev, device, torch.float32),
         srv_dist_est=_tensor(srv_dist_est, device, torch.float32))
@@ -87,11 +111,13 @@ def compressed_fedavg_state_from_numpy(*, srv_prev, srv_dist_est, device,
 def fedbuff_state_from_numpy(*, server, start_model: Sequence[np.ndarray],
                              events, buffer: Sequence[np.ndarray], sim_time,
                              t, bits_up, bits_down,
-                             rng: np.random.Generator, device
+                             rng: np.random.Generator, device,
+                             ef: Optional[Sequence[np.ndarray]] = None
                              ) -> FedBuffState:
     """A reference ``FedBuffState`` — vectors as numpy, the pending
-    ``(time, client)`` events, and its numpy event rng, whose state is
-    copied — as the port's state."""
+    ``(time, client)`` events, its numpy event rng, whose state is copied,
+    and the per-client ``ef`` residuals of a stateful uplink — as the
+    port's state."""
     new_rng = np.random.default_rng()
     new_rng.bit_generator.state = rng.bit_generator.state
     return FedBuffState(
@@ -100,7 +126,9 @@ def fedbuff_state_from_numpy(*, server, start_model: Sequence[np.ndarray],
         queue=ArrivalQueue([(float(a), int(i)) for a, i in events]),
         buffer=[_tensor(v, device, torch.float32) for v in buffer],
         sim_time=float(sim_time), t=int(t), bits_up=float(bits_up),
-        bits_down=float(bits_down), rng=new_rng)
+        bits_down=float(bits_down), rng=new_rng,
+        ef=None if ef is None else [_tensor(v, device, torch.float32)
+                                    for v in ef])
 
 
 def lm_params_from_numpy(params: Dict[str, np.ndarray], device

@@ -867,3 +867,67 @@ def test_quafl_round_on_the_card_matches_plain_backend(dev, uplink):
     diff = max(float((a.server - b.server).abs().max()),
                float((a.clients - b.clients).abs().max()))
     assert diff <= max(steps), (diff, max(steps))
+
+
+# ---------------------------------------------------------------------------
+# adaptive_quafl's wide unpacked widths, SCAFFOLD's decodes, topk_ef
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", [10, 11, 12, 16])
+@pytest.mark.parametrize("m,d_pad", [(4, 4096), (16, 32_768)])
+def test_wide_unpacked_widths_equal_plain_versions(dev, m, d_pad, bits):
+    """b = 9-16 ride int32 codes at moduli up to 65,536 (adaptive_quafl's
+    pipeline): encode, quantize and both snaps bit-equal."""
+    x, sg, u, gam = _inputs(dev, m, d_pad, bits)
+    kw = dict(bits=bits)
+    y, codes = kx.fused_encode(x, sg, u, gam, want_rotated=True, **kw)
+    y_p, codes_p = kx.encode_plain(x, sg, u, gam, want_rotated=True, **kw)
+    assert torch.equal(y, y_p) and torch.equal(codes, codes_p)
+    assert codes.dtype == torch.int32 and int(codes.max()) < (1 << bits)
+    assert int(codes.max()) >= (1 << (bits - 1))   # the codes span the ring
+    assert torch.equal(kx.quantize_codes(y, u, gam, **kw), codes)
+    ref = _ref_rows(dev, y, gam)
+    for c, r, g, _ in _decode_cases(codes, ref, gam):
+        assert torch.equal(kx.snap_codes(c, r, g, **kw),
+                           kx.snap_plain(c, r, g, **kw))
+
+
+@pytest.mark.parametrize("bits", [8, 12, 16])
+def test_decode_of_s_messages_against_s_references(dev, bits):
+    """SCAFFOLD's control messages: s codes, each with its own sign row,
+    decoded against s distinct references (each client's previous c_i)."""
+    x, sg, u, gam, codes, ref = _decode_case(dev, 16, 32_768, bits, 1,
+                                             sign_rows=True)
+    assert torch.equal(codes, kx.encode_plain(x, sg, u, gam, bits=bits))
+    out = kx.fused_decode(codes, ref, sg, gam, bits=bits)
+    assert torch.equal(out, kx.decode_plain(codes, ref, sg, gam, bits=bits))
+
+
+@pytest.mark.parametrize("d,frac", [(2762, 0.01), (25_450, 0.01),
+                                    (4096, 0.25)])
+def test_topk_ef_on_the_card_equals_the_cpu(dev, d, frac):
+    """Three threaded ``topk_ef`` calls on messages full of ties: the card
+    picks the CPU's index sets and values, its residuals are bit-equal, and
+    decoded + new residual == delta + old residual bit for bit."""
+    from repro_torch.compression.codecs import TopKEFCodec
+    codec = TopKEFCodec(frac=frac)
+    g = torch.Generator(device=dev)
+    g.manual_seed(d)
+    m = 16
+    state = torch.zeros((m, d), device=dev)
+    state_c = state.cpu()
+    zero = torch.zeros((1, d), device=dev)
+    for _ in range(3):
+        x = torch.randint(-3, 4, (m, d), generator=g, device=dev) * 0.25
+        x[torch.rand((m, d), generator=g, device=dev) < 0.33] = 0.0
+        msg, new = codec.encode_stateful(None, x, None, state)
+        msg_c, new_c = codec.encode_stateful(None, x.cpu(), None, state_c)
+        idx, order = torch.sort(msg.idx.cpu(), dim=1)
+        idx_c, order_c = torch.sort(msg_c.idx, dim=1)
+        assert torch.equal(idx, idx_c)
+        assert torch.equal(torch.gather(msg.vals.cpu(), 1, order),
+                           torch.gather(msg_c.vals, 1, order_c))
+        assert torch.equal(new.cpu(), new_c)
+        dec = codec.decode(None, msg, zero)
+        assert torch.equal(dec + new, x + state)
+        state, state_c = new, new_c

@@ -125,10 +125,15 @@ def reference_message_keys(alg, key, port):
     """The per-message branch's codec randomness of the reference
     ``QuAFL.round`` (``core/quafl.py:277``, ``:296``): the uplink keys
     ``split(fold_in(k_q, 1), s)`` and the downlink key ``fold_in(k_q,
-    0)``, as the :class:`MessageKey`s of the codecs of ``port``."""
+    0)``, as the :class:`MessageKey`s of the codecs of ``port``; and
+    ``key_ctl``, the control messages' keys ``fold_in(kq_cl[i], 17)`` of
+    ``QuaflScaffold.round`` (``core/extensions.py:121``)."""
     k_q = jax.random.split(key, 4)[2]
     kq_cl = jax.random.split(jax.random.fold_in(k_q, 1), alg.fed.s)
     return {"key_up": message_key(port.codec_up, list(kq_cl), port.d),
+            "key_ctl": message_key(port.codec_up,
+                                   [jax.random.fold_in(k, 17)
+                                    for k in kq_cl], port.d),
             "key_dn": message_key(port.codec_down,
                                   [jax.random.fold_in(k_q, 0)], port.d)}
 

@@ -150,8 +150,12 @@ def test_codec_bits_of_the_main_path():
 def test_codec_spec_errors():
     with pytest.raises(ValueError, match="unknown codec"):
         codecs.make_codec("nope")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        codecs.make_codec("topk_ef:frac=0.1")
+    topk = codecs.make_codec("topk_ef:frac=0.1")
+    want = ref_codecs.make_codec("topk_ef:frac=0.1")
+    assert isinstance(topk, codecs.TopKEFCodec) and topk.frac == want.frac
+    assert topk.message_bits(2762) == want.message_bits(2762) == 276 * 64
+    with pytest.raises(ValueError, match="unknown codec parameter"):
+        codecs.make_codec("topk_ef:bits=4,levels=3")
     with pytest.raises(ValueError, match="unknown codec parameter"):
         codecs.make_codec("scalar:frac=0.1")
     with pytest.raises(ValueError, match="malformed"):

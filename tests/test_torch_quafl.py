@@ -269,9 +269,11 @@ def test_simulate_trains_and_traces():
 
 
 def test_registry_and_metrics_schema():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_algorithm("quafl_scaffold", FedConfig(), loss_fn=None,
-                       template={})
+    # quafl_scaffold is ported: it builds, with the QuAFL state's base
+    scaffold = make_algorithm("quafl_scaffold", FedConfig(), loss_fn=None,
+                              template={}, device="cpu")
+    assert type(scaffold).__name__ == "QuaflScaffold"
+    assert scaffold.fed == FedConfig() and scaffold.pipeline is not None
     with pytest.raises(ValueError, match="unknown algorithm"):
         make_algorithm("nope", FedConfig(), loss_fn=None, template={})
     out = normalize_metrics({"bits_up": torch.tensor(3.0),

@@ -196,9 +196,9 @@ def test_fed_algorithm_protocol_and_registry():
     kw = dict(loss_fn=mlp_loss_batched, template=template, batch_size=BATCH,
               device="cpu")
     for name in ("quafl", "fedavg", "compressed_fedavg", "fedbuff",
-                 "sequential"):
+                 "sequential", "quafl_scaffold", "adaptive_quafl"):
         assert isinstance(make_algorithm(name, fed, **kw), FedAlgorithm)
-    for name in ("quafl_scaffold", "fedbuff_device", "spmd"):
+    for name in ("fedbuff_device", "spmd"):
         with pytest.raises(NotImplementedError, match="Queue 1 item"):
             make_algorithm(name, fed, **kw)
     with pytest.raises(ValueError, match="already registered"):
