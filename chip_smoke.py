@@ -43,6 +43,16 @@ then drives the port's paths:
   time, then ``python -m repro_torch.examples.quickstart``,
   ``...heterogeneous_clients`` and ``...scaffold_noniid`` as a user runs
   them, each in a subprocess;
+* the round engine at the same width, 30 rounds: ``quafl`` (b=8 and a
+  ``lattice_packed:bits=4`` uplink), ``compressed_fedavg``,
+  ``fedbuff_device`` (Z=10, the seed bridge's table from the run's seed),
+  ``quafl_scaffold``, ``fedavg``, ``sequential`` and ``adaptive_quafl``
+  from b=12, each through ``compare`` eager and in chunks of 10 rounds
+  (and ``scan_chunk="auto"``) captured as CUDA graphs and replayed, in
+  three alternating repeats: bits and sim_time exact every round, the
+  server within the reference's lattice-chunk tolerance, the same port
+  kernels a round (from the profiler's device events), ms per round of
+  each; then ``fedbuff_device`` against ``fedbuff``, pop for pop;
 * LM serving of gemma2-2b at full width (26 layers, random weights from
   seed 0) through ``ServeEngine``: two batches of four prompts (longest 512
   and 4,608 tokens), 32 greedy tokens each, twice, then one batch sampled
@@ -450,24 +460,6 @@ def time_decode(kx, io, peak_bw):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def clone_state(state):
-    """A copy of a QuAFL state (or of a SCAFFOLD state, base and server
-    control), so a round, which updates the store in place, leaves the
-    original as it was; an empty row (``()``) is carried as it is."""
-    from repro_torch.core.extensions import ScaffoldState
-    from repro_torch.core.quafl import QuaflState
-    from repro_torch.fed.population import Population
-    if isinstance(state, ScaffoldState):
-        return ScaffoldState(base=clone_state(state.base),
-                             c_server=state.c_server.clone())
-    return QuaflState(
-        server=state.server.clone(),
-        pop=Population(rows={k: v.clone() if isinstance(v, torch.Tensor)
-                             else v for k, v in state.pop.rows.items()}),
-        t=state.t, sim_time=state.sim_time, bits_up=state.bits_up,
-        bits_down=state.bits_down, srv_dist_est=state.srv_dist_est.clone())
-
-
 class SampleLog:
     """A participation spec that records the client ids of every round."""
 
@@ -554,6 +546,7 @@ def injected_round(dev, alg_cuda, state, data, gen, idx=None):
     the cuda backend and on the torch backend; returns (max |Δ| of server
     and clients, lattice step: the round's largest γ, per-row detail)."""
     from repro_torch.compression.pipeline import round_randomness
+    from repro_torch.fed.engine import clone_tree
     from repro_torch.fed.registry import make_algorithm
     fed_t = dataclasses.replace(alg_cuda.fed, kernel_backend="torch")
     alg_torch = make_algorithm("quafl", fed_t, loss_fn=alg_cuda.loss_fn,
@@ -589,7 +582,7 @@ def injected_round(dev, alg_cuda, state, data, gen, idx=None):
             _sent["dn"] = _inner(*a, **k)
             return _sent["dn"]
         pipe.gammas, pipe.rotate_encode, pipe.quantize = logged, enc, quant
-        st, _ = alg.round(clone_state(state), data, None, draws=draws)
+        st, _ = alg.round(clone_tree(state), data, None, draws=draws)
         pipe.gammas, pipe.rotate_encode, pipe.quantize = inner
         outs.append(st)
         gams.append(seen)
@@ -1057,6 +1050,7 @@ def injected_scaffold_round(dev, alg_cuda, state, data, gen):
     most ``ENC_MISMATCH_FRAC`` of them; the server, the clients, the
     controls and c within one lattice step (the round's largest γ), and
     bit-equal when every code agrees."""
+    from repro_torch.fed.engine import clone_tree
     from repro_torch.fed.registry import make_algorithm
     fed_t = dataclasses.replace(alg_cuda.fed, kernel_backend="torch")
     alg_torch = make_algorithm("quafl_scaffold", fed_t,
@@ -1076,7 +1070,7 @@ def injected_scaffold_round(dev, alg_cuda, state, data, gen):
     for alg in (alg_cuda, alg_torch):
         codecs = alg.codec_up, alg.codec_down
         alg.codec_up, alg.codec_down = CodeLog(codecs[0]), CodeLog(codecs[1])
-        st, _ = alg.round(clone_state(state), data, None, draws=draws)
+        st, _ = alg.round(clone_tree(state), data, None, draws=draws)
         msgs.append(alg.codec_up.msgs + alg.codec_down.msgs)
         alg.codec_up, alg.codec_down = codecs
         outs.append(st)
@@ -1237,6 +1231,287 @@ def injected_ef_round(dev, alg, state, data, gen):
     assert all(v for k, v in res.items() if k.startswith(
         ("ef_", "sampled", "other", "cpu_"))), res
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the round engine — chunks of rounds captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+ENGINE_CHUNK = 10                 # rounds a chunk, as a user passes it
+ENGINE_RTOL, ENGINE_ATOL = 1e-4, 5e-7   # the reference's lattice-chunk
+#                                       # tolerance (tests/test_engine.py)
+ENGINE_REPEATS = 3                # eager, K and "auto" in turns
+FEDBUFF_Z = 10
+# (run, registry name, kwargs); fedbuff_device also gets the seed bridge's
+# table from the run's seed
+ENGINE_RUNS = (
+    ("quafl", "quafl", {"uplink": "lattice"}),
+    ("quafl_packed4", "quafl", {"uplink": "lattice_packed:bits=4"}),
+    ("compressed_fedavg", "compressed_fedavg", {}),
+    ("fedbuff_device", "fedbuff_device",
+     {"quantize": True, "quantizer": "lattice", "buffer_size": FEDBUFF_Z}),
+    ("quafl_scaffold", "quafl_scaffold", {"uplink": "lattice"}),
+    ("fedavg", "fedavg", {}),
+    ("sequential", "sequential", {}),
+    ("adaptive_quafl", "adaptive_quafl", ADAPTIVE),
+)
+
+
+def port_launches(kernels) -> dict:
+    """Launches of each port kernel, from the profiler's device events
+    (a graph replay's kernels among them)."""
+    return {k: sum(e.count for e in kernels if sym in e.key)
+            for k, sym in KERNEL_SYMBOLS.items()}
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler: (result, wall seconds, the device
+    events)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, device_events(prof)
+
+
+def plain_chunks(alg):
+    """The adaptive walk's engines without capture: the same chunks, walk
+    once per chunk, each round run eagerly through ``device_round`` (its
+    width schedule differs from the eager per-round walk by design)."""
+    from repro_torch.fed.engine import RoundEngine
+    for b in range(alg.b_min, alg.b_max + 1):
+        alg._engines[b] = RoundEngine(alg._alg(b), capture=False)
+    return alg
+
+
+def engine_graph_times(alg) -> dict:
+    from repro_torch.fed.simulate import round_engine
+    engines = getattr(alg, "_engines", None)
+    if engines is not None:
+        return {b: e.graph_times() for b, e in engines.items()
+                if e.graph_times()}
+    return round_engine(alg).graph_times()
+
+
+def check_engine_run(alg, ref, tr) -> dict:
+    """The chunked trace against the eager one: bits up and down and
+    sim_time exact every round, the final server within the reference's
+    lattice-chunk tolerance (max |Δ| and the unequal count printed)."""
+    from repro_torch.utils.tree import tree_flatten_vector
+    for key in ("bits_up", "bits_down", "sim_time"):
+        assert tr.column(key) == ref.column(key), (key, tr.column(key),
+                                                   ref.column(key))
+    a = tree_flatten_vector(alg.eval_params(ref.final_state))
+    b = tree_flatten_vector(alg.eval_params(tr.final_state))
+    res = {"server_max_abs_diff": float((a - b).abs().max()),
+           "server_unequal": int((a != b).sum()), "rounds": tr.rounds}
+    torch.testing.assert_close(b, a, rtol=ENGINE_RTOL, atol=ENGINE_ATOL)
+    return res
+
+
+def fedbuff_bridge(dev, fed, p0, part, gen, table, kw):
+    """fedbuff_device (eager rounds, the table from the run's seed)
+    against the host fedbuff on the card from copies of one generator:
+    the pop order exact, event times within rtol 1e-6 (fp32 ring, fp64
+    heap), bits exact every flush, the server within rtol 1e-5, atol 1e-6
+    (the reference's bridge tolerance), the same draws consumed."""
+    from repro_torch.core import fedbuff as fb
+    from repro_torch.fed.clock import ArrivalQueue
+    from repro_torch.fed.registry import make_algorithm
+    from repro_torch.models.mlp import mlp_loss_batched
+    mk = dict(loss_fn=mlp_loss_batched, template=p0, batch_size=32,
+              device=dev, **kw)
+    py = make_algorithm("fedbuff", fed, **mk)
+    dv = make_algorithm("fedbuff_device", fed, completion_table=table, **mk)
+    pops = {"py": [], "dev": []}
+    heap_pop, ring_pop = ArrivalQueue.pop, fb.ring_pop
+
+    def log_heap(self):
+        ev = heap_pop(self)
+        pops["py"].append(ev)
+        return ev
+
+    def log_ring(rb):
+        out = ring_pop(rb)
+        pops["dev"].append(out[1:])
+        return out
+
+    g_py, g_dv = (torch.Generator(device=dev) for _ in range(2))
+    g_py.set_state(gen.get_state())
+    g_dv.set_state(gen.get_state())
+    ArrivalQueue.pop, fb.ring_pop = log_heap, log_ring
+    try:
+        sp, sd = py.init(p0), dv.init(p0)
+        rows = []
+        for _ in range(ROUNDS):
+            sp, mp = py.round(sp, part, g_py)
+            sd, md = dv.round(sd, part, g_dv)
+            rows.append((mp["bits_up"], md["bits_up"], mp["bits_down"],
+                         md["bits_down"], mp["sim_time"],
+                         float(md["sim_time"])))
+    finally:
+        ArrivalQueue.pop, fb.ring_pop = heap_pop, ring_pop
+    dev_pops = [(float(t), int(c)) for t, c in pops["dev"]]
+    t_py = np.array([t for t, _ in pops["py"]])
+    t_dv = np.array([t for t, _ in dev_pops])
+    res = {"phase": "engine_fedbuff_bridge", "flushes": ROUNDS,
+           "pops": len(dev_pops),
+           "pop_order_equal": [c for _, c in dev_pops]
+           == [c for _, c in pops["py"]],
+           "pop_time_max_rel": float(np.max(np.abs(t_dv - t_py)
+                                            / np.abs(t_py))),
+           "bits_equal": all(a == b and c == d
+                             for a, b, c, d, _, _ in rows),
+           "sim_time_max_rel": max(abs(b - a) / a
+                                   for *_, a, b in rows),
+           "server_max_abs_diff": float((sd.server - sp.server).abs().max()),
+           "generators_equal": bool(torch.equal(g_py.get_state(),
+                                                g_dv.get_state()))}
+    emit(res)
+    assert res["pops"] == ROUNDS * FEDBUFF_Z and res["pop_order_equal"], res
+    assert res["pop_time_max_rel"] <= 1e-6, res
+    assert res["sim_time_max_rel"] <= 1e-6 and res["bits_equal"], res
+    assert res["generators_equal"], res
+    torch.testing.assert_close(sd.server, sp.server, rtol=1e-5, atol=1e-6)
+    return res
+
+
+def run_engine(dev, kx, smi):
+    """Each run at the main path's width, 30 rounds, through ``compare``
+    as a user calls it, eager and scanned (K=10, then "auto") from the
+    same generator state, in three alternating repeats: ms per round of
+    each, the graphs' warm-up, capture and instantiate ms per chunk length,
+    the chosen K; gates (every repeat's scanned trace against the eager
+    one): bits up and down and sim_time exact every round, the server
+    within rtol 1e-4, atol 5e-7; then a replayed run under the profiler:
+    its port kernels' launches (device events) those of the eager run
+    (its wrappers' counts), device ms per round and the busy share. For adaptive_quafl the eager side is the
+    same chunk walk run without capture. Then fedbuff_device against the
+    host fedbuff. Counts from 0 just before, read just after."""
+    from repro_torch.fed.clock import speeds_for
+    from repro_torch.fed.engine import (fedbuff_completion_table,
+                                        fedbuff_event_seed)
+    from repro_torch.fed.registry import make_algorithm
+    from repro_torch.fed.simulate import compare
+    from repro_torch.models.mlp import mlp_loss, mlp_loss_batched
+    fed, part, test, p0, gen = chip_world(dev)
+    table = fedbuff_completion_table(
+        fedbuff_event_seed(gen), speeds_for(fed, N_CLIENTS), K,
+        FEDBUFF_Z * ROUNDS)
+
+    def acc(p):
+        return {"acc": float(mlp_loss(p, test)[1]["acc"])}
+
+    def build(name, kw):
+        f = fed
+        if name == "adaptive_quafl":
+            f = dataclasses.replace(fed, bits=ADAPTIVE_BITS0)
+        if name == "fedbuff_device":
+            kw = {**kw, "completion_table": table}
+        return make_algorithm(name, f, loss_fn=mlp_loss_batched, template=p0,
+                              batch_size=32, device=dev, **kw)
+
+    def go(alg, run, chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = compare({run: alg}, p0, part, gen, rounds=ROUNDS,
+                     eval_every=10, record_every=1, eval_fn=acc,
+                     scan_chunk=chunk)[run]
+        torch.cuda.synchronize()
+        return tr, time.perf_counter() - t0
+
+    kx.reset_launches()
+    t_phase = time.perf_counter()
+    out = {}
+    for run, name, kw in ENGINE_RUNS:
+        alg = build(name, kw)
+        adaptive = name == "adaptive_quafl"
+        ref_alg = plain_chunks(build(name, kw)) if adaptive else alg
+        times = {"eager": [], "chunk": [], "auto": []}
+        first = {}
+        for rep in range(ENGINE_REPEATS):
+            for mode, chunk in (("eager", 0), ("chunk", ENGINE_CHUNK),
+                                ("auto", "auto")):
+                a = alg
+                if mode == "eager" and adaptive:
+                    a, chunk = ref_alg, ENGINE_CHUNK
+                before = dict(kx.LAUNCHES)
+                tr, wall = go(a, run, chunk)
+                times[mode].append({"ms_per_round": tr.us_per_round / 1e3,
+                                    "wall_s": wall})
+                if mode not in first and mode == "eager":
+                    # the eager run's launches: its wrappers' counts, exact
+                    launches_e = {k: kx.LAUNCHES[k] - before[k]
+                                  for k in KERNEL_SYMBOLS}
+                first.setdefault(mode, tr)
+                if mode != "eager":
+                    ref = first["eager"]
+                    if adaptive and tr.scan_chunk != ENGINE_CHUNK:
+                        ref = first.get(("plain", tr.scan_chunk))
+                        if ref is None:
+                            ref = first[("plain", tr.scan_chunk)] = go(
+                                ref_alg, run, tr.scan_chunk)[0]
+                    gate = check_engine_run(alg, ref, tr)
+                    first.setdefault((mode, "gate"), gate)
+        tr_k, tr_auto = first["chunk"], first["auto"]
+        assert tr_k.engine == tr_auto.engine == "scanned", run
+        assert tr_k.scan_chunk == ENGINE_CHUNK
+        # a replayed run under the profiler: its port launches from the
+        # device events (profiled again, up to three times, where the
+        # trace dropped some, as it now and then does), device ms, busy
+        for _ in range(3):
+            (tr_c, _), wall_c, ev_c = profiled(lambda: go(alg, run,
+                                                          ENGINE_CHUNK))
+            launches_c = port_launches(ev_c)
+            if launches_c == launches_e:
+                break
+        check_engine_run(alg, first["eager"], tr_c)
+        dev_us = sum(e.self_device_time_total for e in ev_c)
+        top = sorted(ev_c, key=lambda e: -e.self_device_time_total)[:8]
+        row = {"phase": "engine", "run": run, "algorithm": name,
+               "nvidia_smi": smi, "rounds": ROUNDS,
+               "chunk": ENGINE_CHUNK, "auto_chunk": tr_auto.scan_chunk,
+               "ms_per_round": {m: [t["ms_per_round"] for t in v]
+                                for m, v in times.items()},
+               "wall_s": {m: [t["wall_s"] for t in v]
+                          for m, v in times.items()},
+               "graph_ms": engine_graph_times(alg),
+               "gate_chunk": first[("chunk", "gate")],
+               "gate_auto": first[("auto", "gate")],
+               "port_launches_per_round": {
+                   k: v / ROUNDS for k, v in launches_c.items()},
+               "port_launches_per_round_eager": {
+                   k: v / ROUNDS for k, v in launches_e.items()},
+               "ported_device_ms_per_launch": ms_per_launch(
+                   ev_c, KERNEL_SYMBOLS),
+               "kernels_per_round": sum(e.count for e in ev_c) / ROUNDS,
+               "profiled_chunked": {
+                   "wall_ms_per_round": wall_c / ROUNDS * 1e3,
+                   "device_ms_per_round": dev_us / ROUNDS / 1e3,
+                   "device_busy_share": dev_us / (wall_c * 1e6),
+                   "top_kernels": [(e.key[:70], e.count / ROUNDS,
+                                    e.self_device_time_total / ROUNDS / 1e3)
+                                   for e in top]},
+               "acc_final": tr_k.final["acc"]}
+        if adaptive:
+            row["bits_width"] = [int(w) for w in tr_k.column("bits_width")]
+        emit(row)
+        assert launches_e == launches_c, (run, launches_e, launches_c)
+        out[run] = (alg, row)
+    torch.cuda.synchronize()
+    launches = dict(kx.LAUNCHES)
+    emit({"phase": "launches", "path": "engine", "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    used = {k for _, row in out.values()
+            for k, v in row["port_launches_per_round"].items() if v}
+    assert used == set(KERNEL_SYMBOLS), used
+    fedbuff_bridge(dev, fed, p0, part, gen, table,
+                   dict(ENGINE_RUNS[3][2]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1794,6 +2069,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch import default_device
+    from repro_torch.fed.engine import clone_tree
     from repro_torch.kernels import build
     from repro_torch.kernels import exchange as kx
     from repro_torch.kernels import flash_attention as fa
@@ -1995,7 +2271,7 @@ def main() -> int:
           "max_abs_diff": diff, "lattice_step": step})
     assert diff <= step, (diff, step)
 
-    prof = profile_rounds(alg, clone_state(tr.final_state), data, gen)
+    prof = profile_rounds(alg, clone_tree(tr.final_state), data, gen)
     emit({"phase": "profile", "algorithm": "quafl", "uplink": "lattice",
           "nvidia_smi": smi, **prof})
     device_ms = prof["ported_device_ms_per_launch"]
@@ -2028,7 +2304,7 @@ def main() -> int:
     assert diff <= step, (diff, step)
     for run in ("grouped", "per_message"):
         v_alg, v_tr, v_data = variants[run]
-        p = profile_rounds(v_alg, clone_state(v_tr.final_state), v_data, gen)
+        p = profile_rounds(v_alg, clone_tree(v_tr.final_state), v_data, gen)
         emit({"phase": "profile", "algorithm": "quafl", "run": run,
               "uplink": str(v_alg.uplink), "nvidia_smi": smi, **p})
 
@@ -2038,13 +2314,18 @@ def main() -> int:
     # the top-k EF invariant on one compressed_fedavg round of path 2
     sc_alg, sc_tr, sc_data, sc_launches = run_scaffold(dev, kx)
     injected_scaffold_round(dev, sc_alg, sc_tr.final_state, sc_data, gen)
-    p = profile_rounds(sc_alg, clone_state(sc_tr.final_state), sc_data, gen)
+    p = profile_rounds(sc_alg, clone_tree(sc_tr.final_state), sc_data, gen)
     emit({"phase": "profile", "algorithm": "quafl_scaffold",
           "nvidia_smi": smi, **p})
     run_adaptive(dev, kx)
     injected_ef_round(dev, b_algs["compressed_fedavg_topk_ef"].alg,
                       b_traces["compressed_fedavg_topk_ef"].final_state,
                       b_data, b_gen)
+
+    # path 8, the round engine: every device algorithm eager and in
+    # chunks captured as CUDA graphs (counts from 0 just before, read just
+    # after, inside run_engine), then fedbuff_device against fedbuff
+    run_engine(dev, kx, smi)
 
     # path 6, the quickstart through compare (counts from 0 just before,
     # read just after, inside run_quickstart), then the three twins as CLIs

@@ -269,11 +269,13 @@ class GroupedLatticeCodec(CodecBase):
                 self.message_bits_per_client(d)).to(key[0])
         return self._bits[key]
 
-    def bits_for(self, idx, d: int) -> int:
-        """Total uplink bits of the sampled subset ``idx``, exact; nothing
-        per round grows with the number of clients."""
+    def bits_for(self, idx, d: int) -> torch.Tensor:
+        """Total uplink bits of the sampled subset ``idx``, exact, as a 0-d
+        int64 tensor on ``idx``'s device (no host read, so a captured
+        round keeps it); nothing per round grows with the number of
+        clients."""
         idx = torch.as_tensor(idx)
-        return int(self._bits_on(idx.device, d)[idx].sum())
+        return self._bits_on(idx.device, d)[idx].sum()
 
     # the per-message API encodes every message at the largest bit-width,
     # as the reference does: the grouped codec exists for the pipeline

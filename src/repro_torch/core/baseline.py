@@ -16,15 +16,18 @@ import torch
 from repro_torch import default_device
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.local import batched_grads
+from repro_torch.fed.api import counters0
 from repro_torch.utils.tree import tree_flatten_vector, tree_unflatten_vector
 
 
 class BaselineState(NamedTuple):
+    """Counters as 0-d device tensors: ``t`` int64, ``sim_time`` fp32 (a
+    device draw), the (zero) bits fp64."""
     server: torch.Tensor
-    t: int
-    sim_time: torch.Tensor       # 0-d device tensor
-    bits_up: float
-    bits_down: float
+    t: torch.Tensor
+    sim_time: torch.Tensor
+    bits_up: torch.Tensor
+    bits_down: torch.Tensor
 
     @property
     def bits_sent(self):
@@ -44,9 +47,8 @@ class Sequential:
 
     def init(self, params0) -> BaselineState:
         return BaselineState(
-            server=tree_flatten_vector(params0).to(self.device), t=0,
-            sim_time=torch.zeros((), device=self.device), bits_up=0.0,
-            bits_down=0.0)
+            server=tree_flatten_vector(params0).to(self.device),
+            **counters0(self.device, torch.float32))
 
     def round(self, state: BaselineState, data, generator: torch.Generator,
               draws: Dict[str, torch.Tensor] = None):
@@ -77,6 +79,12 @@ class Sequential:
                              t=state.t + 1, sim_time=new_time,
                              bits_up=state.bits_up,
                              bits_down=state.bits_down), metrics
+
+    def device_round(self, state: BaselineState, data,
+                     generator: torch.Generator):
+        """:meth:`round` with every draw from ``generator``: the one round
+        body of the eager loop and the round engine's chunks."""
+        return self.round(state, data, generator)
 
     def eval_params(self, state: BaselineState):
         return tree_unflatten_vector(self.template, state.server)

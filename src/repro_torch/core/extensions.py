@@ -219,9 +219,10 @@ class AdaptiveQuaflAlgorithm:
     """Adaptive bit-width QuAFL as a :class:`repro_torch.fed.FedAlgorithm`.
 
     Composition over a QuAFL factory: one QuAFL instance per visited
-    bit-width (at most b_max − b_min + 1), all sharing one state. The walk
-    reacts to the measured ``quant_err`` of the round just run, read on the
-    host every round."""
+    bit-width (at most b_max − b_min + 1), all sharing one state. Eagerly,
+    the walk reacts to the measured ``quant_err`` of the round just run,
+    read on the host every round; in chunks (:meth:`scan_rounds`) to the
+    chunk's last one."""
 
     def __init__(self, fed: FedConfig, make_alg, *, lo: float = 0.01,
                  hi: float = 0.05, b_min: int = 4, b_max: int = 16):
@@ -229,6 +230,7 @@ class AdaptiveQuaflAlgorithm:
         self.make_alg = make_alg
         self.lo, self.hi, self.b_min, self.b_max = lo, hi, b_min, b_max
         self._algs = {}
+        self._engines = {}   # bits -> RoundEngine over that width's QuAFL
 
     def _alg(self, bits: int):
         if bits not in self._algs:
@@ -256,9 +258,24 @@ class AdaptiveQuaflAlgorithm:
 
     def scan_rounds(self, state: AdaptiveState, data, generator,
                     length: int):
-        raise NotImplementedError("adaptive_quafl's chunked scan needs the "
-                                  "round engine, not ported yet (ROADMAP "
-                                  "Queue 1 item 10)")
+        """``length`` rounds through the round engine of the state's
+        width. The width selects the QuAFL instance, so it stays fixed
+        inside a chunk, and the walk moves once per chunk, on the chunk's
+        last ``quant_err``: that read is the chunk-boundary host sync.
+        ``length=1`` is the eager walk exactly."""
+        from repro_torch.fed.engine import RoundEngine
+        eng = self._engines.get(state.bits)
+        if eng is None:
+            eng = self._engines[state.bits] = RoundEngine(
+                self._alg(state.bits))
+        inner, ms = eng.run_chunk(state.inner, data, generator, length)
+        rel = float(ms["quant_err"][-1])   # the chunk-boundary host sync
+        new_bits = AdaptiveBits.walk(state.bits, rel, self.lo, self.hi,
+                                     self.b_min, self.b_max)
+        ms = {**ms, "bits_width": float(state.bits)}
+        return AdaptiveState(
+            inner=inner, bits=new_bits,
+            trace=(state.trace + (state.bits,) * length)[-_TRACE_CAP:]), ms
 
     def eval_params(self, state: AdaptiveState):
         return self._alg(state.bits).eval_params(state.inner)

@@ -41,6 +41,7 @@ from repro_torch.compression.codecs import (IdentityCodec,
                                             resolve_codec)
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.local import local_sgd
+from repro_torch.fed.api import counters0
 from repro_torch.fed.clock import speeds_for, straggler_round_time
 from repro_torch.fed.population import (Population, build_population,
                                         resolve_participation, scatter_rows)
@@ -58,15 +59,16 @@ def _draw(draws, name, fn):
 
 
 class FedAvgState(NamedTuple):
-    """Server model + the store (rows lam, group). ``t`` and the bit
-    counters are exact host numbers; ``sim_time`` is a 0-d device tensor,
-    since the straggler draw happens on the device."""
+    """Server model + the store (rows lam, group). Every counter is a 0-d
+    device tensor, so a captured chunk of rounds carries it: ``t`` int64,
+    ``sim_time`` fp32 (the straggler draw happens on the device), the
+    cumulative bits fp64 (exact integers)."""
     server: torch.Tensor
     pop: Population
-    t: int
+    t: torch.Tensor
     sim_time: torch.Tensor
-    bits_up: float
-    bits_down: float
+    bits_up: torch.Tensor
+    bits_down: torch.Tensor
 
     @property
     def bits_sent(self):
@@ -111,9 +113,7 @@ class FedAvg:
     def init(self, params0) -> FedAvgState:
         return FedAvgState(
             server=tree_flatten_vector(params0).to(self.device),
-            pop=self._pop0(), t=0,
-            sim_time=torch.zeros((), device=self.device), bits_up=0.0,
-            bits_down=0.0)
+            pop=self._pop0(), **counters0(self.device, torch.float32))
 
     # ------------------------------------------------------------------
     def _cohort(self, state, data, generator, draws):
@@ -194,6 +194,11 @@ class FedAvg:
                            bits_up=state.bits_up + bits_up,
                            bits_down=state.bits_down + bits_down), metrics
 
+    def device_round(self, state, data, generator: torch.Generator):
+        """:meth:`round` with every draw from ``generator``: the one round
+        body of the eager loop and the round engine's chunks."""
+        return self.round(state, data, generator)
+
     def eval_params(self, state):
         return tree_unflatten_vector(self.template, state.server)
 
@@ -205,10 +210,10 @@ class FedAvg:
 class CompressedFedAvgState(NamedTuple):
     server: torch.Tensor
     pop: Population              # rows: lam, group, codec_up (EF residuals)
-    t: int
+    t: torch.Tensor              # counters as FedAvgState's
     sim_time: torch.Tensor
-    bits_up: float
-    bits_down: float
+    bits_up: torch.Tensor
+    bits_down: torch.Tensor
     srv_prev: torch.Tensor       # previous server model (downlink ref)
     srv_dist_est: torch.Tensor   # running ‖X_t − X_{t-1}‖ (0-d)
 
@@ -239,9 +244,9 @@ class CompressedFedAvg(FedAvg):
         cs0 = init_client_states(self.codec_up, self.fed.n_clients, self.d,
                                  self.device)
         return CompressedFedAvgState(
-            server=x0, pop=self._pop0(codec_up=cs0), t=0,
-            sim_time=torch.zeros((), device=self.device), bits_up=0.0,
-            bits_down=0.0, srv_prev=x0.clone(),
+            server=x0, pop=self._pop0(codec_up=cs0),
+            **counters0(self.device, torch.float32),
+            srv_prev=x0.clone(),
             srv_dist_est=torch.tensor(1e-3, device=self.device))
 
     def round(self, state: CompressedFedAvgState, data,

@@ -24,13 +24,21 @@ single-completion step.
 Each completion's draws come from the round's generator, or from
 ``draws``: ``event_seed`` (int, first round only), ``batch_idx`` (Z, K, B),
 ``key_up`` and ``key_dn`` (:class:`MessageKey` of Z rows, row z for the
-round's z-th completion). The reference's device-resident
-``FedBuffDevice`` waits for the round engine (ROADMAP Queue 1 item 10).
+round's z-th completion).
+
+:class:`FedBuffDevice` (registry name ``fedbuff_device``) is the same event
+simulation with every value on the device: the heap becomes a
+:class:`~repro_torch.fed.engine.RingBuffer` and a flush is a Python loop
+over Z completions with no host read, so the round engine can capture
+chunks of flushes. Its durations are device draws, or, given a
+``completion_table`` (the seed bridge,
+:func:`~repro_torch.fed.engine.fedbuff_completion_table`), the host
+FedBuff's own numpy draws.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,7 +47,11 @@ from repro_torch import default_device
 from repro_torch.compression.codecs import IdentityCodec, resolve_codec
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.local import local_sgd
-from repro_torch.fed.clock import ArrivalQueue, completion_time, speeds_for
+from repro_torch.fed.api import counters0
+from repro_torch.fed.clock import (ArrivalQueue, completion_time,
+                                   completion_time_device, speeds_for)
+from repro_torch.fed.engine import RingBuffer, ring_init, ring_pop, ring_push
+from repro_torch.fed.population import Population, build_population, with_rows
 from repro_torch.utils.tree import (tree_flatten_vector, tree_size,
                                     tree_unflatten_vector)
 
@@ -258,3 +270,195 @@ class FedBuff:
                             state.bits_sent))
             next_eval += eval_every
         return history
+
+
+# ---------------------------------------------------------------------------
+# the device formulation (registry name fedbuff_device)
+# ---------------------------------------------------------------------------
+
+class FedBuffDeviceState(NamedTuple):
+    """FedBuff's state with every value on the device: the heap becomes a
+    :class:`RingBuffer` (one pending completion per client, so capacity n
+    and the ring always full), the per-client restart models and draw
+    counters rows of the :class:`Population` store; counters are 0-d
+    tensors. ``live`` (host) says the ring was seeded."""
+    server: torch.Tensor        # (d,)
+    pop: Population             # rows: lam, group, start (n, d), occ (n,)
+    queue: RingBuffer           # pending completion events
+    sim_time: torch.Tensor      # fp32
+    t: torch.Tensor             # int64, server updates applied
+    bits_up: torch.Tensor       # fp64
+    bits_down: torch.Tensor     # fp64
+    live: bool = False
+
+    @property
+    def start(self):
+        """(n, d) model each client restarted from, a row of the store."""
+        return self.pop.rows["start"]
+
+    @property
+    def occ(self):
+        """(n,) int64 completion-draw counters, a row of the store."""
+        return self.pop.rows["occ"]
+
+    @property
+    def bits_sent(self):
+        return self.bits_up + self.bits_down
+
+
+@dataclass(eq=False)
+class FedBuffDevice(FedBuff):
+    """Buffered asynchronous aggregation as a device round.
+
+    The event simulation of :class:`FedBuff`: pop the earliest completion
+    (a masked min on the device ring, the client id a 0-d tensor), run that
+    client's K local steps, encode and decode its delta, buffer it, flush
+    at the Z-th completion, send the restart model down, draw the client's
+    next duration and push it back. The draws of a completion follow
+    ``FedBuff._completion``: batch indices, the uplink key, the downlink
+    key, then the duration. With ``completion_table`` (the seed bridge,
+    built from the integer the first round draws) the duration is the
+    table's ``(client, occurrence)`` entry, NaN once the table is
+    exhausted, so the run walks the host FedBuff's events; without it a
+    device Gamma(K, 1/λ) draw.
+
+    The first round seeds the ring on the host side of the round
+    (:meth:`begin`): it draws the integer ``FedBuff._seed`` draws, then the
+    n initial durations (column 0 of the table, or device draws). The round
+    engine calls :meth:`begin` before each chunk, outside the captured
+    region; :meth:`device_round` is the captured body. A stateful uplink
+    codec runs its stateless encode, as in the reference.
+    """
+    completion_table: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        self._table = (None if self.completion_table is None else
+                       torch.as_tensor(np.asarray(self.completion_table,
+                                                  np.float32),
+                                       device=self.device))
+
+    def init(self, params0) -> FedBuffDeviceState:
+        server = tree_flatten_vector(params0).to(self.device)
+        n = self.fed.n_clients
+        pop = build_population(
+            self.fed, n, lam=self.lam, device=self.device,
+            start=server[None].repeat(n, 1),
+            occ=torch.zeros(n, dtype=torch.int64, device=self.device))
+        return FedBuffDeviceState(
+            server=server, pop=pop, queue=ring_init(n, self.device),
+            **counters0(self.device, torch.float32))
+
+    def begin(self, state: FedBuffDeviceState, generator: torch.Generator
+              ) -> FedBuffDeviceState:
+        """Seed the ring on the first round; the state as it is after."""
+        if state.live:
+            return state
+        n = self.fed.n_clients
+        # the integer FedBuff._seed draws: the draws after it then line up
+        # with the host FedBuff's, whose event rng it seeds (the table is
+        # built from it)
+        torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                      device=generator.device)
+        if self._table is not None:
+            times = self._table[:, 0].clone()
+        else:
+            times = completion_time_device(generator, self.fed.local_steps,
+                                           state.pop.rows["lam"])
+        queue = RingBuffer(times=times.to(torch.float32), clients=torch.arange(
+            n, dtype=torch.int64, device=self.device))
+        occ = torch.ones(n, dtype=torch.int64, device=self.device)
+        return state._replace(pop=with_rows(state.pop, occ=occ), queue=queue,
+                              live=True)
+
+    def _duration(self, generator, i1, occ_i, lam_i):
+        """Client i's next K-step duration, (1,): the table's entry (NaN
+        past its end, so an exhausted bridge is loud), else a device
+        draw."""
+        if self._table is not None:
+            last = self._table.shape[1] - 1
+            val = self._table[i1, occ_i.clamp(max=last)]
+            return torch.where(occ_i <= last, val, float("nan"))
+        return completion_time_device(generator, self.fed.local_steps,
+                                      lam_i)
+
+    def device_round(self, state: FedBuffDeviceState, data,
+                     generator: torch.Generator):
+        """One server update: exactly ``buffer_size`` completions, every
+        value on the device. Consumes ``state`` (its rows are updated in
+        place)."""
+        if not state.live:
+            raise ValueError("fedbuff_device: the ring is not seeded; call "
+                             "begin(state, generator) first (round does)")
+        K, d, Z = self.fed.local_steps, self.d, self.buffer_size
+        m = data["y"].shape[1]
+        start, occ = state.start, state.occ
+        lam_row = state.pop.rows["lam"]
+        queue, server, t_now = state.queue, state.server, state.sim_time
+        buffer, errs = [], []
+        for z in range(Z):
+            queue, t_now, i = ring_pop(queue)
+            i1 = i.reshape(1)
+            bidx = torch.randint(0, m, (K, self.batch_size),
+                                 generator=generator, device=self.device)
+            start_i = start.index_select(0, i1)[0]
+            xs = data["x"].index_select(0, i1)[:, bidx]
+            ys = data["y"].index_select(0, i1)[:, bidx]
+            end = local_sgd(self.loss_fn, self.template, start_i[None], xs,
+                            ys, self.fed.lr)[0]
+            delta = start_i - end
+            if self._up_compressed:
+                key = self.codec_up.keys(generator, 1, d)
+                hint = torch.linalg.vector_norm(delta) + 1e-12
+                msg = self.codec_up.encode(key, delta[None], hint[None])
+                dq = self.codec_up.decode(
+                    key, msg, torch.zeros((1, d), device=self.device))[0]
+                errs.append(torch.linalg.vector_norm(dq - delta)
+                            / (torch.linalg.vector_norm(delta) + 1e-12))
+                delta = dq
+            buffer.append(delta)
+            if z == Z - 1:
+                server = server - self.server_lr * torch.mean(
+                    torch.stack(buffer), 0)
+            if self._down_identity:
+                restart = server
+            else:
+                key = self.codec_down.keys(generator, 1, d)
+                hint_dn = torch.linalg.vector_norm(server - start_i) + 1e-12
+                msg_dn = self.codec_down.encode(key, server[None],
+                                                hint_dn[None])
+                restart = self.codec_down.decode(key, msg_dn,
+                                                 start_i[None])[0]
+            start.index_put_((i1,), restart[None])
+            occ_i = occ.index_select(0, i1)
+            dur = self._duration(generator, i1, occ_i,
+                                 lam_row.index_select(0, i1))
+            occ.index_put_((i1,), occ_i + 1)
+            queue = ring_push(queue, t_now + dur, i)
+
+        bits_up = Z * self.codec_up.message_bits(d)
+        bits_down = Z * self.codec_down.message_bits(d)
+        new_state = FedBuffDeviceState(
+            server=server, pop=state.pop, queue=queue, sim_time=t_now,
+            t=state.t + 1, bits_up=state.bits_up + bits_up,
+            bits_down=state.bits_down + bits_down, live=True)
+        metrics = {
+            "sim_time": t_now,
+            "round_time": t_now - state.sim_time,
+            "bits_up": float(bits_up),
+            "bits_down": float(bits_down),
+            "h_steps_mean": float(K),
+            "quant_err": (torch.mean(torch.stack(errs)) if errs else 0.0),
+            "buffer_flushes": 1.0,
+        }
+        return new_state, metrics
+
+    def round(self, state: FedBuffDeviceState, data,
+              generator: torch.Generator):
+        """One buffer flush: :meth:`begin` (seeds the ring on the first
+        round), then :meth:`device_round`."""
+        return self.device_round(self.begin(state, generator), data,
+                                 generator)
+
+    # the legacy time-budget loop belongs to the host FedBuff only
+    run = None

@@ -44,6 +44,7 @@ from repro_torch.compression.codecs import (GroupedLatticeCodec,
 from repro_torch.compression.pipeline import ExchangePipeline
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.local import batched_grads
+from repro_torch.fed.api import counters0
 from repro_torch.fed.clock import expected_steps, speeds_for
 from repro_torch.fed.population import (Population, build_population,
                                         gather_rows, resolve_participation,
@@ -52,17 +53,24 @@ from repro_torch.utils.tree import (tree_flatten_vector, tree_size,
                                     tree_unflatten_vector)
 
 
+def _metric(x):
+    """A host number as a python float (constant from round to round), a
+    tensor (the grouped uplink's bits) as it is."""
+    return x if isinstance(x, torch.Tensor) else float(x)
+
+
 class QuaflState(NamedTuple):
     """Server state + the :class:`Population` store of per-client rows.
-    Counters are host numbers (``t``, ``sim_time``, cumulative bits, kept
-    exact as python numbers); ``srv_dist_est`` stays on the device."""
+    Every counter is a 0-d device tensor, so a captured chunk of rounds
+    carries it: ``t`` int64, ``sim_time`` and the cumulative bits fp64
+    (the values python floats held: fp64 sums, exact integer bits)."""
     server: torch.Tensor       # X_t (d,)
     pop: Population            # rows: lam, group, model (n, d),
     #                          # last_time, codec_up (EF residuals or ())
-    t: int                     # server round
-    sim_time: float            # simulated wall-clock
-    bits_up: float             # cumulative client->server bits
-    bits_down: float           # cumulative server->client bits
+    t: torch.Tensor            # server round (int64)
+    sim_time: torch.Tensor     # simulated wall-clock (fp64)
+    bits_up: torch.Tensor      # cumulative client->server bits (fp64)
+    bits_down: torch.Tensor    # cumulative server->client bits (fp64)
     srv_dist_est: torch.Tensor  # running ‖X_t − X^i‖ estimate (0-d)
 
     @property
@@ -160,8 +168,8 @@ class QuAFL:
             last_time=torch.zeros(n, dtype=torch.float32,
                                   device=self.device),
             codec_up=self._codec_state0())
-        return QuaflState(server=x0.clone(), pop=pop, t=0, sim_time=0.0,
-                          bits_up=0.0, bits_down=0.0,
+        return QuaflState(server=x0.clone(), pop=pop,
+                          **counters0(self.device),
                           srv_dist_est=torch.tensor(1e-3,
                                                     device=self.device))
 
@@ -303,14 +311,20 @@ class QuAFL:
         metrics = {
             "sim_time": new_time,
             "round_time": dt,
-            "bits_up": float(bits_up),
+            "bits_up": _metric(bits_up),
             "bits_down": float(bits_down),
             "h_steps_mean": hs.mean(),
             "h_zero_frac": (hs == 0).to(torch.float32).mean(),
             "quant_err": rel_err,
-            "bits": float(bits_up + bits_down),
+            "bits": _metric(bits_up + bits_down),
         }
         return state, metrics
+
+    def device_round(self, state: QuaflState, data,
+                     generator: torch.Generator):
+        """:meth:`round` with every draw from ``generator``: the one round
+        body of the eager loop and the round engine's chunks."""
+        return self.round(state, data, generator)
 
     def eval_params(self, state: QuaflState):
         return tree_unflatten_vector(self.template, state.server)

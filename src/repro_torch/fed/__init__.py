@@ -4,8 +4,9 @@ harness (port of ``repro.fed``).
 One protocol (:class:`FedAlgorithm`: ``init / round / eval_params``), one
 metrics schema (:data:`METRIC_KEYS`), one clock, one registry
 (:func:`make_algorithm`), one population store with its participation
-specs, and one harness (:func:`simulate` / :func:`compare`) for every
-server variant:
+specs, one round engine (:class:`RoundEngine`: chunks of rounds, captured
+as CUDA graphs on the card) and one harness (:func:`simulate` /
+:func:`compare`) for every server variant:
 
     from repro_torch.fed import compare, make_algorithm
     algs = {n: make_algorithm(n, fed, loss_fn=..., template=...)
@@ -17,9 +18,15 @@ from repro_torch.fed.api import (FedAlgorithm, METRIC_KEYS,  # noqa: F401
                                  normalize_metrics)
 from repro_torch.fed.clock import (ArrivalQueue,  # noqa: F401
                                    client_speeds, completion_time,
-                                   expected_steps, lazy_h_steps,
-                                   sample_clients, speeds_for,
+                                   completion_time_device, expected_steps,
+                                   lazy_h_steps, sample_clients, speeds_for,
                                    straggler_round_time)
+from repro_torch.fed.engine import (AUTOTUNE_CANDIDATES,  # noqa: F401
+                                    DeviceFedAlgorithm, RingBuffer,
+                                    RoundEngine, fedbuff_completion_table,
+                                    fedbuff_event_seed, ring_init, ring_peek,
+                                    ring_pop, ring_push, ring_size,
+                                    supports_scan)
 from repro_torch.fed.population import (  # noqa: F401
     CyclicParticipation, GammaStragglerParticipation, Participation,
     Population, UniformParticipation, build_population, client_keys,

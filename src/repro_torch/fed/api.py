@@ -18,6 +18,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, Protocol, Tuple, runtime_checkable
 
+import torch
+
 METRIC_KEYS = ("sim_time", "round_time", "bits_up", "bits_down",
                "h_steps_mean", "quant_err")
 
@@ -50,3 +52,13 @@ def normalize_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
         except (TypeError, ValueError, RuntimeError):
             continue  # non-scalar extras are not part of the trace format
     return out
+
+
+def counters0(device, time_dtype=torch.float64):
+    """A state's zero counters as 0-d device tensors: ``t`` int64, the
+    simulated time in ``time_dtype`` (fp32 where it sums device draws),
+    the cumulative bits fp64 (exact integers)."""
+    def zero(dtype):
+        return torch.zeros((), dtype=dtype, device=device)
+    return dict(t=zero(torch.int64), sim_time=zero(time_dtype),
+                bits_up=zero(torch.float64), bits_down=zero(torch.float64))

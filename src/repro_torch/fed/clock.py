@@ -7,7 +7,8 @@ App. A). QuAFL polls s clients per round and lazily replays the
 since its last interaction (App. B.1). A synchronous round (FedAvg) lasts
 as long as its slowest client's K steps, Gamma(K, λ_i). FedBuff's event
 stream is host-side numpy, as in the reference, so the same numpy seed
-gives the same events draw for draw.
+gives the same events draw for draw; the device FedBuff draws its
+durations on the device (:func:`completion_time_device`).
 """
 from __future__ import annotations
 
@@ -76,6 +77,20 @@ def completion_time(rng: np.random.Generator, local_steps: int,
                     lam: float) -> float:
     """Duration of one client's K local steps: Gamma(K, 1/λ)."""
     return float(rng.gamma(local_steps, 1.0 / lam))
+
+
+def completion_time_device(generator: torch.Generator, local_steps: int,
+                           lam) -> torch.Tensor:
+    """:func:`completion_time` on the device, one draw per entry of
+    ``lam`` (a tensor): Gamma(K, 1/λ) as the sum of K Exp(1) draws over λ
+    (K is an integer), the form :func:`straggler_round_time` uses. The same
+    distribution as the host draw, not the same draws; the seed bridge
+    (``repro_torch.fed.engine.fedbuff_completion_table``) gives the host
+    stream's draws where they must agree."""
+    lam = torch.as_tensor(lam, dtype=torch.float32)
+    steps = torch.empty((*lam.shape, local_steps), dtype=torch.float32,
+                        device=lam.device)
+    return steps.exponential_(generator=generator).sum(-1) / lam
 
 
 class ArrivalQueue:

@@ -75,9 +75,13 @@ def scatter_rows(pop: Population, idx, updates: Dict[str, Any]
                  ) -> Population:
     """Write updated rows back in place (O(s·row)); returns the store.
     Rows not named in ``updates`` (an empty ``codec_up`` among them) are
-    left untouched."""
+    left untouched. A tensor value is cast to its row's dtype, as a host
+    number is."""
     for name, val in updates.items():
-        pop.rows[name][idx] = val
+        row = pop.rows[name]
+        if isinstance(val, torch.Tensor) and val.dtype != row.dtype:
+            val = val.to(row.dtype)
+        row[idx] = val
     return pop
 
 
@@ -161,7 +165,14 @@ def lazy_h_steps_per_client(base, ids, lam_i, elapsed,
 
 def floyd_sample(generator: torch.Generator, n: int, s: int) -> torch.Tensor:
     """Exact uniform s-subset of [0, n) without replacement in O(s²)
-    (Floyd's algorithm): no O(n) permutation is materialised."""
+    (Floyd's algorithm): no O(n) permutation is materialised. Its s draws
+    are read on the host, so it refuses to run inside a captured chunk."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"floyd_sample (uniform participation above DENSE_SAMPLE_MAX = "
+            f"{DENSE_SAMPLE_MAX} clients; n={n}) reads its draws on the host "
+            f"and cannot run inside a captured CUDA graph: run this "
+            f"algorithm eagerly (scan_chunk=0)")
     draws = [int(torch.randint(0, n - s + i + 1, (1,), generator=generator,
                                device=generator.device))
              for i in range(s)]
@@ -272,8 +283,9 @@ class CyclicParticipation(Participation):
     def rounds_per_phase(self) -> int:
         return self.period // self.phase_groups
 
-    def group_at(self, t: int) -> int:
-        """The phase group available during round t."""
+    def group_at(self, t):
+        """The phase group available during round t (an int, or a 0-d
+        integer tensor on the device, which stays there)."""
         return (t // self.rounds_per_phase()) % self.phase_groups
 
     def sample(self, generator, t, n: int, s: int, lam=None, noise=None):
@@ -287,7 +299,7 @@ class CyclicParticipation(Participation):
                              f"phase-group size {m} (= n/G = {n}/{G})")
         inner = (noise.long() if noise is not None
                  else uniform_sample(generator, m, s))
-        return self.group_at(int(t)) * m + inner
+        return self.group_at(t) * m + inner
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,9 @@ builds:
                          ``buffer_size``, ``server_lr``, ``quantize``,
                          ``quantizer``, ``uniform_speeds``, ``uplink``,
                          ``downlink``
+  ``fedbuff_device``     the same on a device ring buffer (the round
+                         engine can chunk it); FedBuff kwargs plus
+                         ``completion_table`` (the seed bridge)
   ``sequential``         single slow node, one step per round
   ``quafl_scaffold``     QuAFL with SCAFFOLD control variates
                          (beyond-paper); QuAFL kwargs
@@ -23,8 +26,8 @@ builds:
                          (beyond-paper); QuAFL kwargs plus ``lo``, ``hi``,
                          ``b_min``, ``b_max``
 
-and every algorithm takes ``device``. The reference's ``fedbuff_device``
-and ``spmd`` are registered by name and raise until their slice is ported.
+and every algorithm takes ``device``. The reference's ``spmd`` is
+registered by name and raises until its slice is ported.
 Third-party variants join through :func:`register_algorithm`.
 """
 from __future__ import annotations
@@ -54,6 +57,11 @@ def _build_compressed_fedavg(fed, loss_fn, template, **kw):
 def _build_fedbuff(fed, loss_fn, template, **kw):
     from repro_torch.core.fedbuff import FedBuff
     return FedBuff(fed=fed, loss_fn=loss_fn, template=template, **kw)
+
+
+def _build_fedbuff_device(fed, loss_fn, template, **kw):
+    from repro_torch.core.fedbuff import FedBuffDevice
+    return FedBuffDevice(fed=fed, loss_fn=loss_fn, template=template, **kw)
 
 
 def _build_sequential(fed, loss_fn, template, **kw):
@@ -98,7 +106,7 @@ _BUILDERS: Dict[str, Callable[..., FedAlgorithm]] = {
     "sequential": _build_sequential,
     "quafl_scaffold": _build_scaffold,
     "adaptive_quafl": _build_adaptive,
-    "fedbuff_device": _not_ported("fedbuff_device", "10"),
+    "fedbuff_device": _build_fedbuff_device,
     "spmd": _not_ported("spmd", "11"),
     "compressed_fedavg": _build_compressed_fedavg,
 }

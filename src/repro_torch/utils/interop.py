@@ -13,9 +13,10 @@ import torch
 
 from repro_torch.core.fedavg import CompressedFedAvgState, FedAvgState
 from repro_torch.core.extensions import ScaffoldState
-from repro_torch.core.fedbuff import FedBuffState
+from repro_torch.core.fedbuff import FedBuffDeviceState, FedBuffState
 from repro_torch.core.quafl import QuaflState
 from repro_torch.fed.clock import ArrivalQueue
+from repro_torch.fed.engine import RingBuffer
 from repro_torch.fed.population import Population
 
 QUAFL_ROWS = ("lam", "group", "model", "last_time")
@@ -39,6 +40,17 @@ def _tensor(a, device, dtype=None):
     else:
         t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype) if dtype else t.to(device)
+
+
+def _counters(t, sim_time, bits_up, bits_down, time_dtype, device):
+    """A state's counters as the port keeps them: 0-d tensors, ``t``
+    int64, the simulated time in ``time_dtype``, the bits fp64."""
+    def scalar(x, dtype):
+        return torch.tensor(np.asarray(x).item(), dtype=dtype, device=device)
+    return dict(t=scalar(t, torch.int64),
+                sim_time=scalar(sim_time, time_dtype),
+                bits_up=scalar(bits_up, torch.float64),
+                bits_down=scalar(bits_down, torch.float64))
 
 
 def params_from_numpy(params: Dict[str, np.ndarray], device
@@ -67,8 +79,8 @@ def quafl_state_from_numpy(*, server, rows: Dict[str, np.ndarray], t,
     if "control" in rows:
         pop.rows["control"] = _tensor(rows["control"], device, torch.float32)
     return QuaflState(server=_tensor(server, device, torch.float32),
-                      pop=pop, t=int(t), sim_time=float(sim_time),
-                      bits_up=float(bits_up), bits_down=float(bits_down),
+                      pop=pop, **_counters(t, sim_time, bits_up, bits_down,
+                                           torch.float64, device),
                       srv_dist_est=_tensor(srv_dist_est, device,
                                            torch.float32))
 
@@ -81,9 +93,8 @@ def fedavg_state_from_numpy(*, server, rows: Dict[str, np.ndarray], t,
     pop = Population(rows={k: _tensor(rows[k], device)
                            for k in FEDAVG_ROWS})
     return FedAvgState(server=_tensor(server, device, torch.float32),
-                       pop=pop, t=int(t),
-                       sim_time=_tensor(sim_time, device, torch.float32),
-                       bits_up=float(bits_up), bits_down=float(bits_down))
+                       pop=pop, **_counters(t, sim_time, bits_up, bits_down,
+                                            torch.float32, device))
 
 
 def scaffold_state_from_numpy(*, c_server, device, **quafl
@@ -129,6 +140,28 @@ def fedbuff_state_from_numpy(*, server, start_model: Sequence[np.ndarray],
         bits_down=float(bits_down), rng=new_rng,
         ef=None if ef is None else [_tensor(v, device, torch.float32)
                                     for v in ef])
+
+
+def fedbuff_device_state_from_numpy(*, server, rows: Dict[str, np.ndarray],
+                                    queue_times, queue_clients, sim_time, t,
+                                    bits_up, bits_down, live, device
+                                    ) -> FedBuffDeviceState:
+    """A reference ``FedBuffDeviceState`` — server, the store's rows
+    (``lam``, ``group``, ``start``, ``occ``), the ring's times and client
+    ids, the counters and ``live``, all as numpy — as the port's state.
+    The reference's event key has no counterpart: the port's rounds draw
+    from their generator."""
+    pop = Population(rows={
+        "lam": _tensor(rows["lam"], device, torch.float32),
+        "group": _tensor(rows["group"], device, torch.int32),
+        "start": _tensor(rows["start"], device, torch.float32),
+        "occ": _tensor(rows["occ"], device, torch.int64)})
+    queue = RingBuffer(times=_tensor(queue_times, device, torch.float32),
+                       clients=_tensor(queue_clients, device, torch.int64))
+    return FedBuffDeviceState(
+        server=_tensor(server, device, torch.float32), pop=pop, queue=queue,
+        **_counters(t, sim_time, bits_up, bits_down, torch.float32, device),
+        live=bool(live))
 
 
 def lm_params_from_numpy(params: Dict[str, np.ndarray], device

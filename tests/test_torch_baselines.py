@@ -287,8 +287,16 @@ def test_registry_builds_the_baselines():
              "fedbuff": "FedBuff", "sequential": "Sequential"}
     for name, cls in names.items():
         assert type(make_algorithm(name, fed, **kw)).__name__ == cls
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        make_algorithm("fedbuff_device", fed, **kw)
+    # fedbuff_device (ROADMAP Queue 1 item 10, ported): builds, and one
+    # flush of 4 completions runs with FedBuff's bits
+    dev = make_algorithm("fedbuff_device", fed, buffer_size=4,
+                         batch_size=16, **kw)
+    assert type(dev).__name__ == "FedBuffDevice"
+    g_dev = torch.Generator()
+    g_dev.manual_seed(0)
+    st, m = dev.round(dev.init(p0), part, g_dev)
+    assert int(st.t) == 1 and m["bits_up"] == m["bits_down"] == 4 * D * 32
+    assert bool(torch.isfinite(st.server).all())
     # QuAFL with a scalar uplink runs the per-message branch
     alg = make_algorithm("quafl", fed, uplink="scalar", batch_size=16, **kw)
     assert alg.pipeline is None and alg.codec_up.name == "scalar"

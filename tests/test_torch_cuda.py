@@ -931,3 +931,84 @@ def test_topk_ef_on_the_card_equals_the_cpu(dev, d, frac):
         dec = codec.decode(None, msg, zero)
         assert torch.equal(dec + new, x + state)
         state, state_c = new, new_c
+
+
+# ---------------------------------------------------------------------------
+# the round engine: chunks captured as CUDA graphs and replayed
+# ---------------------------------------------------------------------------
+
+def _engine_world(dev, n=8, s=4, name="quafl", **kw):
+    """A small federated world on the card: n clients of an MLP 16-32-4,
+    the kernels' backend, and the named algorithm."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.synthetic import make_federated_classification
+    from repro_torch.fed import make_algorithm
+    from repro_torch.models.mlp import init_mlp_classifier, mlp_loss_batched
+    fed = FedConfig(n_clients=n, s=s, local_steps=2, lr=0.3, bits=8,
+                    kernel_backend="cuda")
+    part, _ = make_federated_classification(0, n, d=16, n_classes=4,
+                                            iid=True, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    p0 = init_mlp_classifier(g, 16, 32, 4)
+    alg = make_algorithm(name, fed, loss_fn=mlp_loss_batched, template=p0,
+                         batch_size=8, device=dev, **kw)
+    return alg, p0, part
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("quafl", {}), ("quafl", {"uplink": "lattice_packed:bits=4"}),
+    ("fedbuff_device", {"buffer_size": 3, "quantize": True,
+                        "quantizer": "lattice"})])
+def test_captured_chunks_equal_eager_rounds(dev, name, kw):
+    """scan_chunk=2 over 5 rounds (chunks 2, 2, 1, each captured once as a
+    CUDA graph, the first replayed twice) against the eager loop from the
+    same generator state: every row exact, the final server within the
+    reference's lattice-chunk tolerance (exact in practice), the generator
+    left where the eager run leaves it, and the kernels run by the graph
+    (the Python launch counters see only the captured rounds)."""
+    from repro_torch.fed import simulate
+    from repro_torch.utils.tree import tree_flatten_vector
+    alg, p0, part = _engine_world(dev, name=name, **kw)
+
+    def run(chunk):
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        kx.reset_launches()
+        tr = simulate(alg, p0, part, g, rounds=5, eval_every=0,
+                      record_every=1, scan_chunk=chunk)
+        torch.cuda.synchronize()
+        return tr, g, dict(kx.LAUNCHES)
+
+    (tre, ge, le), (trs, gs, ls) = run(0), run(2)
+    assert tre.engine == "eager" and trs.engine == "scanned"
+    for a, b in zip(tre.rows, trs.rows):
+        assert {k: v for k, v in a.items() if k != "wall_time_s"} == \
+            {k: v for k, v in b.items() if k != "wall_time_s"}
+    fe = tree_flatten_vector(alg.eval_params(tre.final_state))
+    fs = tree_flatten_vector(alg.eval_params(trs.final_state))
+    torch.testing.assert_close(fs, fe, rtol=1e-4, atol=5e-7)
+    assert torch.equal(ge.get_state(), gs.get_state())
+    per_round = {k: v // 5 for k, v in le.items()}
+    assert all(v % 5 == 0 for v in le.values()) and any(per_round.values())
+    # captured: two graphs (lengths 2 and 1) saw 3 rounds of launches, on
+    # top of one warm-up round each
+    assert ls == {k: 5 * v for k, v in per_round.items()}
+    # a second run replays both graphs: no launch from Python at all
+    _, _, again = run(2)
+    assert not any(again.values()), again
+
+
+def test_a_chunk_that_syncs_raises_under_capture(dev):
+    """Above 4,096 clients the uniform sampler is Floyd's, which reads its
+    draws on the host: a chunk of it on the card raises instead of running
+    eagerly, and an eager run still works."""
+    from repro_torch.fed import RoundEngine
+    alg, p0, part = _engine_world(dev, n=4200, s=2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    eng = RoundEngine(alg)
+    with pytest.raises(RuntimeError, match="floyd_sample"):
+        eng.run_chunk(alg.init(p0), part, g, 2)
+    state, m = alg.round(alg.init(p0), part, g)
+    assert float(m["sim_time"]) == alg.fed.swt + alg.fed.sit

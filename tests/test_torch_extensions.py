@@ -25,7 +25,6 @@ from pathlib import Path
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 from test_torch_harness import (StepLog, npy, reference_message_keys,
@@ -49,6 +48,7 @@ from repro_torch.core.extensions import (AdaptiveBits,
 from repro_torch.core.quafl import QuAFL
 from repro_torch.examples import scaffold_noniid
 from repro_torch.fed import make_algorithm, simulate
+from repro_torch.fed.engine import clone_tree
 from repro_torch.models.mlp import mlp_loss, mlp_loss_batched
 from repro_torch.utils import interop
 
@@ -255,8 +255,15 @@ def test_adaptive_legacy_shim_and_scan_refusal():
     assert wrap.bits_trace[-1] < 12 and "bits_width" in m
     loss, _ = mlp_loss(wrap.eval_params(), test)
     assert np.isfinite(float(loss))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        wrap._impl.scan_rounds(wrap.state, data, g, 4)
+    # scan_rounds (ROADMAP Queue 1 item 10, ported): a chunk of 4 rounds
+    # at the state's width, the walk once after it (on a copy: a chunk
+    # consumes the state it is given)
+    bits = wrap.state.bits
+    st4, ms = wrap._impl.scan_rounds(clone_tree(wrap.state), data, g, 4)
+    assert st4.trace[-4:] == (bits,) * 4 and len(st4.trace) == 16
+    assert ms["quant_err"].shape == (4,) and ms["bits_width"] == float(bits)
+    assert st4.bits == extensions.AdaptiveBits.walk(
+        bits, float(ms["quant_err"][-1]), 0.01, 0.05, 4, 16)
     # the trace keeps the last _TRACE_CAP widths
     st = extensions.AdaptiveState(inner=wrap.state.inner, bits=8,
                                   trace=(8,) * extensions._TRACE_CAP)

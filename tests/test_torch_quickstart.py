@@ -129,8 +129,20 @@ def test_until_bits_stops_after_the_same_round():
             tr_ref.final["bits_up_total"]) == rounds * 131_200
     with pytest.raises(ValueError, match="until_bits"):
         simulate(port, template, data, g)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        simulate(port, template, data, g, rounds=2, scan_chunk=2)
+    # the scanned engine (ROADMAP Queue 1 item 10, ported): a chunk of 2
+    # rounds gives the eager rows
+    traces = []
+    for chunk in (0, 2):
+        g.manual_seed(1)
+        traces.append(simulate(port, template, data, g, rounds=2,
+                               eval_every=0, record_every=1,
+                               scan_chunk=chunk))
+    assert [t.engine for t in traces] == ["eager", "scanned"]
+    assert [{k: v for k, v in r.items() if k != "wall_time_s"}
+            for r in traces[0].rows] == [
+        {k: v for k, v in r.items() if k != "wall_time_s"}
+        for r in traces[1].rows]
+    assert traces[1].final["bits_up_total"] == 2 * 131_200
 
 
 @pytest.mark.parametrize("record_every,max_rounds", [(1, 3), (2, 3), (2, 4)])
@@ -196,11 +208,11 @@ def test_fed_algorithm_protocol_and_registry():
     kw = dict(loss_fn=mlp_loss_batched, template=template, batch_size=BATCH,
               device="cpu")
     for name in ("quafl", "fedavg", "compressed_fedavg", "fedbuff",
-                 "sequential", "quafl_scaffold", "adaptive_quafl"):
+                 "sequential", "quafl_scaffold", "adaptive_quafl",
+                 "fedbuff_device"):
         assert isinstance(make_algorithm(name, fed, **kw), FedAlgorithm)
-    for name in ("fedbuff_device", "spmd"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item"):
-            make_algorithm(name, fed, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        make_algorithm("spmd", fed, **kw)
     with pytest.raises(ValueError, match="already registered"):
         register_algorithm("quafl", None)
     with pytest.raises(ValueError, match="already registered"):
