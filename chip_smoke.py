@@ -53,6 +53,17 @@ then drives the port's paths:
   server within the reference's lattice-chunk tolerance, the same port
   kernels a round (from the profiler's device events), ms per round of
   each; then ``fedbuff_device`` against ``fedbuff``, pop for pop;
+* federated LM training through ``python -m repro_torch.launch.train``'s
+  ``run_registry``: llama3.2-1b at full width (1,235,814,400 parameters,
+  random weights from seed 0), five QuAFL rounds at b=8, n = s = 2, batch 8
+  of 128 tokens, in a process of its own: bits exact every round, the
+  peak memory, ms and device ms a round, one profiled round's launches
+  (1 encode, 3 rotations, 1 quantize, 2 snaps) and the four kernels'
+  device ms at this shape beside their byte bounds, and each launch of a
+  further round held against its plain version on its first 2^24
+  coordinates; then every registry algorithm two rounds at reduced width,
+  a ``--scan-chunk 2`` run against its eager run, and a checkpoint saved
+  and restored;
 * LM serving of gemma2-2b at full width (26 layers, random weights from
   seed 0) through ``ServeEngine``: two batches of four prompts (longest 512
   and 4,608 tokens), 32 greedy tokens each, twice, then one batch sampled
@@ -2064,10 +2075,364 @@ def time_ops(hd, lq, dev, gen, peak_bw):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: federated LM training through launch/train.py — llama3.2-1b at
+# full width in a process of its own (the card's memory to itself), then
+# every registry algorithm at reduced width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", "llama3.2-1b", "--algo", "quafl", "--bits", "8",
+              "--n-slots", "2", "--batch", "8", "--seq", "128",
+              "--local-steps", "2", "--lr", "0.02", "--steps", "5",
+              "--log-every", "1", "--seed", "0", "--kernel-backend", "cuda"]
+LLAMA_D, LLAMA_D_PAD = 1_235_814_400, 1_235_828_736
+TRAIN_S = 2
+# bits a round: s uplink messages and one downlink, d_pad·8 + 32 each
+TRAIN_BITS_UP, TRAIN_BITS_DOWN = 19_773_259_840, 9_886_629_920
+# a round's port launches: the fused uplink encode, the server's forward
+# rotation, the server's and the clients' inverse rotations, the downlink
+# quantize, and the uplink and downlink snaps
+TRAIN_LAUNCHES = {"fused_encode": 1, "fused_rotate": 3, "quantize_codes": 1,
+                  "snap_codes": 2, "fused_decode": 0}
+TRAIN_PREFIX = 1 << 24            # 1,024 whole blocks of 16,384
+TRAIN_TIMED = 3                   # rounds timed alone after the run
+TRAIN_FULL_TIMEOUT = 600          # seconds for the full-width process
+REDUCED_ARGV = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
+                "--seq", "64", "--log-every", "1", "--lr", "0.05"]
+TRAIN_ALGOS = ("quafl", "fedavg", "compressed_fedavg", "fedbuff",
+               "fedbuff_device", "sequential", "quafl_scaffold",
+               "adaptive_quafl")
+
+
+def lattice_bits(d_pad: int, bits: int = 8) -> int:
+    return d_pad * bits + 32
+
+
+def train_bytes(d_pad: int, s: int = TRAIN_S) -> dict:
+    """Bytes a round of each exchange kernel must move at (s, d_pad):
+    inputs read once, outputs written once. Encode: x, u, y, int32 codes
+    and the sign row; rotations: the server forward and inverse (1 row)
+    and the clients' inverse (s rows), 8 a coordinate, and the sign row
+    each; quantize: y, u, codes; snaps: up s code rows against the
+    server, down one code row against s rows, 8 an output coordinate plus
+    the broadcast side."""
+    return {"fused_encode": (16 * s + 4) * d_pad,
+            "fused_rotate": (8 * (2 + s) + 12) * d_pad,
+            "quantize_codes": 12 * d_pad,
+            "snap_codes": (8 * s + 4) * d_pad * 2}
+
+
+def recording_ops(ops, log: list):
+    """The pipeline's backend with every call's inputs and outputs cut to
+    their first TRAIN_PREFIX coordinates (whole blocks: each block rotates
+    on its own) and kept in ``log`` as (op, args, kwargs, out)."""
+    def head(x):
+        if isinstance(x, tuple):
+            return tuple(head(v) for v in x)
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.shape[-1] > TRAIN_PREFIX:
+            return x[..., :TRAIN_PREFIX].clone()
+        return x.clone()
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            log.append((name, [head(a) for a in args],
+                        {k: head(v) for k, v in kw.items()}, head(out)))
+            return out
+        return call
+
+    return ops._replace(**{f: wrap(f, getattr(ops, f))
+                           for f in ("rotate", "encode", "quantize",
+                                     "snap")})
+
+
+def check_train_prefixes(kx, log) -> dict:
+    """Each recorded launch of the round against its plain version on the
+    same prefix and the round's own γ: rotations within ROT_TOL of max|y|,
+    codes within ±1 mod L at rounding boundaries (counted), snaps within
+    DECODE_TOL of max|x|."""
+    plain = {"rotate": kx.rotate_plain, "encode": kx.encode_plain,
+             "quantize": kx.quantize_plain, "snap": kx.snap_plain}
+    out = []
+    for name, args, kw, got in log:
+        want = plain[name](*args, **kw)
+        row = {"op": name, "shape": list(args[0].shape)}
+        if name == "encode":
+            (y, codes), (y_w, codes_w) = got, want
+            row["rel_err"] = float((y - y_w).abs().max() / y_w.abs().max())
+            gap = code_gap(codes, codes_w, 1 << kw["bits"])
+            row.update(code_mismatches=int((gap > 0).sum()),
+                       max_gap=int(gap.max()))
+            assert row["rel_err"] <= ROT_TOL, row
+        elif name == "quantize":
+            gap = code_gap(got, want, 1 << kw["bits"])
+            row.update(code_mismatches=int((gap > 0).sum()),
+                       max_gap=int(gap.max()))
+        else:
+            tol = ROT_TOL if name == "rotate" else DECODE_TOL
+            row["rel_err"] = float((got - want).abs().max()
+                                   / want.abs().max())
+            assert row["rel_err"] <= tol, row
+        if "max_gap" in row:
+            assert row["max_gap"] <= 1, row
+            assert row["code_mismatches"] <= (ENC_MISMATCH_FRAC
+                                              * got_numel(got)), row
+        out.append(row)
+    return out
+
+
+def got_numel(got) -> int:
+    return (got[1] if isinstance(got, tuple) else got).numel()
+
+
+def time_train_kernels(kx, dev, peak_bw) -> dict:
+    """ms a call (CUDA events, host overhead included) of rows 1-4's
+    wrappers at the training round's shapes, on random inputs: the encode
+    of s messages with y kept, the inverse rotation of s rows and the
+    forward rotation of one, the downlink quantize, the uplink snap (s
+    code rows against one reference) and the downlink snap (one code row
+    against s references), each beside its byte bound."""
+    from repro_torch.compression.rotation import signs
+    s, d_pad = TRAIN_S, LLAMA_D_PAD
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    x = torch.randn((s, d_pad), generator=g, device=dev)
+    sg = signs(g, d_pad)
+    u = torch.rand((s, d_pad), generator=g, device=dev)
+    gam = torch.full((s,), 0.01, device=dev)
+    y, codes = kx.fused_encode(x, sg, u, gam, want_rotated=True)
+    x1, u1, g1 = x[:1], u[:1], gam[:1].contiguous()
+    y1, c1 = y[:1], codes[:1]
+    calls = {
+        "fused_encode": (lambda: kx.fused_encode(x, sg, u, gam,
+                                                 want_rotated=True),
+                         nbytes(x, u, y, codes) + nbytes(sg), [s, d_pad]),
+        "fused_rotate": (lambda: kx.fused_rotate(x, sg, inverse=True),
+                         2 * nbytes(x) + nbytes(sg), [s, d_pad]),
+        "fused_rotate_1": (lambda: kx.fused_rotate(x1, sg),
+                           2 * nbytes(x1) + nbytes(sg), [1, d_pad]),
+        "quantize_codes": (lambda: kx.quantize_codes(y1, u1, g1),
+                           nbytes(y1, u1, c1), [1, d_pad]),
+        "snap_codes": (lambda: kx.snap_codes(codes, y1, gam),
+                       nbytes(codes, y1) + nbytes(x), [s, d_pad]),
+        "snap_codes_down": (lambda: kx.snap_codes(c1, y, g1),
+                            nbytes(c1, y) + nbytes(x), [s, d_pad])}
+    out = {}
+    for name, (fn, nb, shape) in calls.items():
+        out[name] = {"ms": time_ms(fn, 5), "bound_ms": nb / peak_bw * 1e3,
+                     "bound_by": "bytes", "bytes": nb, "shape": shape}
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_full() -> int:
+    """The full-width phase, run as ``chip_smoke.py --train-full`` in its
+    own process: five QuAFL rounds of llama3.2-1b through
+    ``launch/train.py`` (counts from 0 just before, read just after), then
+    one profiled round and one round whose kernel launches are held
+    against their plain versions on a 2^24-coordinate prefix."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import exchange as kx
+    from repro_torch.launch import train
+
+    from repro_torch import default_device
+    from repro_torch.compression.rotation import pad_len
+
+    smi = smi_line()
+    peak_bw = peak_bytes_per_s(torch.cuda.get_device_name(0))
+    args = train.parse_args(TRAIN_ARGV)
+    dev = default_device(args.device)
+    cfg = get_config(args.arch)
+    fed = train.fed_config(args)
+    kx.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.run_registry(args, cfg, fed, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kx.LAUNCHES)
+    peak_run = torch.cuda.max_memory_allocated()
+    alg, tr, data = run.alg, run.trace, run.data
+    assert alg.d == LLAMA_D and pad_len(alg.d) == LLAMA_D_PAD, alg.d
+    up, down = TRAIN_BITS_UP, TRAIN_BITS_DOWN
+    assert (up, down) == (TRAIN_S * lattice_bits(LLAMA_D_PAD),
+                          lattice_bits(LLAMA_D_PAD))
+    for r in tr.rows:
+        assert r["bits_up"] == up and r["bits_down"] == down, r
+        assert r["bits_up_total"] == up * r["round"], r
+        assert math.isfinite(r["server_loss"]) and math.isfinite(
+            r["quant_err"]), r
+    state = tr.final_state
+    assert float(state.bits_up) == up * tr.rounds
+    assert float(state.bits_down) == down * tr.rounds
+    assert launches == {k: v * tr.rounds for k, v in
+                        TRAIN_LAUNCHES.items()}, launches
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), wall, kernels = profiled(
+        lambda: alg.round(state, data, gen))
+    peak_round = torch.cuda.max_memory_allocated()
+    assert math.isfinite(float(m["quant_err"]))
+    per_round = port_launches(kernels)
+    assert per_round == TRAIN_LAUNCHES, per_round
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    per_launch = ms_per_launch(kernels, KERNEL_SYMBOLS)
+    nb = train_bytes(LLAMA_D_PAD)
+    kernel_rows = {}
+    for k, b in nb.items():
+        n = TRAIN_LAUNCHES[k]
+        kernel_rows[k] = {"launches_a_round": n,
+                          "device_ms_per_launch": per_launch[k],
+                          "device_ms_a_round": per_launch[k] * n,
+                          "bound_ms_a_round": b / peak_bw * 1e3,
+                          "bound_ms_per_launch": b / peak_bw * 1e3 / n,
+                          "bytes_a_round": b}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    # ms a round, synchronised, with no eval and no profiler
+    walls = []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = alg.round(state, data, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+
+    log = []
+    alg.pipeline.ops = recording_ops(alg.pipeline.ops, log)
+    state, m = alg.round(state, data, gen)
+    torch.cuda.synchronize()
+    alg.pipeline.ops = alg.pipeline.ops._replace(
+        **{f: getattr(kx, n) for f, n in (("rotate", "fused_rotate"),
+                                          ("encode", "fused_encode"),
+                                          ("quantize", "quantize_codes"),
+                                          ("snap", "snap_codes"))})
+    checks = check_train_prefixes(kx, log)
+    res = {"phase": "train_full", "arch": cfg.name, "d": alg.d,
+          "d_pad": LLAMA_D_PAD, "n_clients": fed.n_clients, "s": fed.s,
+          "bits": fed.bits, "batch": args.batch, "seq": args.seq,
+          "local_steps": fed.local_steps, "rounds": tr.rounds,
+          "server_loss": [r["server_loss"] for r in tr.rows],
+          "quant_err": [r["quant_err"] for r in tr.rows],
+          "bits_up_a_round": up, "bits_down_a_round": down,
+          "ms_per_round": tr.us_per_round / 1e3,
+          "row_wall_s": [r["wall_time_s"] for r in tr.rows],
+          "timed_round_ms": walls,
+          "seconds_with_init": seconds,
+          "peak_bytes_run": peak_run, "peak_bytes_round": peak_round,
+          "peak_model_copies": peak_run / (4 * LLAMA_D_PAD),
+          "device_bytes_total": torch.cuda.mem_get_info()[1],
+          "launches": launches, "launches_a_round": per_round,
+          "profiled_round_wall_ms": wall * 1e3,
+          "device_ms_a_round": device_ms,
+          "device_launches_a_round": sum(e.count for e in kernels),
+          "device_busy_share": device_ms / (wall * 1e3),
+          "top_kernels": [(e.key[:70], e.count,
+                           e.self_device_time_total / 1e3) for e in top],
+          "kernels": kernel_rows, "prefix_checks": checks,
+          "nvidia_smi": smi}
+    # the model's state is no longer needed: the card's memory goes to the
+    # wrappers' timing at the round's shapes
+    del log, state, m, run, tr, alg, data
+    torch.cuda.empty_cache()
+    res["kernel_times"] = time_train_kernels(kx, dev, peak_bw)
+    emit(res)
+    return 0
+
+
+def bits_a_round(name, d, row) -> tuple:
+    """The exact bits up and down of one reduced-width round at n = s = 2,
+    b = 8 (an adaptive width of b <= 8 rides 8-bit codes)."""
+    from repro_torch.compression.rotation import pad_len
+    width = int(row.get("bits_width", 8))
+    msg = lattice_bits(pad_len(d), 8 if width <= 8 else 16)
+    full = 32 * d
+    return {"quafl": (2 * msg, msg), "adaptive_quafl": (2 * msg, msg),
+            "quafl_scaffold": (4 * msg, 2 * msg),
+            "fedavg": (2 * full, 2 * full),
+            "compressed_fedavg": (2 * lattice_bits(pad_len(d)), full),
+            "fedbuff": (2 * full, 2 * full),
+            "fedbuff_device": (2 * full, 2 * full),
+            "sequential": (0, 0)}[name]
+
+
+def run_train_reduced(kx) -> dict:
+    """Every registry algorithm two rounds of reduced llama3.2-1b through
+    ``launch/train.py`` on the card (counts from 0 just before, read just
+    after), bits exact; a ``--scan-chunk 2`` QuAFL run against its eager
+    run; a checkpoint saved and restored."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_size
+    kx.reset_launches()
+    runs = {}
+    for name in TRAIN_ALGOS:
+        run = train.main(REDUCED_ARGV + ["--steps", "2", "--algo", name])
+        d = tree_size(run.alg.eval_params(run.trace.final_state))
+        for r in run.trace.rows:
+            assert (r["bits_up"], r["bits_down"]) == bits_a_round(
+                name, d, r), (name, r)
+            assert math.isfinite(r["server_loss"]), (name, r)
+        runs[name] = [r["server_loss"] for r in run.trace.rows]
+    torch.cuda.synchronize()
+    launches = dict(kx.LAUNCHES)
+    emit({"phase": "launches", "path": "train_reduced",
+          "launches": launches})
+    for k in ("fused_encode", "fused_rotate", "quantize_codes", "snap_codes",
+              "fused_decode"):
+        assert launches[k] > 0, f"kernel {k} never launched on training"
+
+    eager = train.main(REDUCED_ARGV + ["--steps", "4"])
+    chunked = train.main(REDUCED_ARGV + ["--steps", "4", "--scan-chunk",
+                                         "2"])
+    assert chunked.trace.engine == "scanned"
+    for a, b in zip(eager.trace.rows, chunked.trace.rows):
+        for k in ("bits_up", "bits_down", "sim_time"):
+            assert a[k] == b[k], (k, a, b)
+    unequal = int((eager.trace.final_state.server
+                   != chunked.trace.final_state.server).sum())
+    assert unequal == 0, unequal
+
+    ckdir = ROOT / "build" / "train_ckpt"
+    run = train.main(REDUCED_ARGV + ["--steps", "2", "--checkpoint-dir",
+                                     str(ckdir)])
+    params = run.alg.eval_params(run.trace.final_state)
+    back = restore_checkpoint(str(ckdir), 2, params)
+    assert all(torch.equal(back[k], params[k]) for k in params)
+    res = {"phase": "train_reduced", "server_loss": runs,
+           "scan_chunk_unequal": unequal,
+           "scan_chunk_us_per_round": chunked.trace.us_per_round,
+           "eager_us_per_round": eager.trace.us_per_round,
+           "checkpoint_leaves": len(params)}
+    emit(res)
+    return res
+
+
+def run_train_full() -> None:
+    """``chip_smoke.py --train-full`` in a process of its own, so that the
+    model has the card's memory to itself; its lines relayed. (The
+    allocator's expandable segments fit the same peak but made a round
+    519-1,007 ms against 470-492 without them, measured on one H100.)"""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--train-full"], capture_output=True, text=True,
+                          timeout=TRAIN_FULL_TIMEOUT)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise RuntimeError(f"the full-width train phase exited "
+                           f"{proc.returncode}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--train-full"]:
+        return train_full()
     from repro_torch import default_device
     from repro_torch.fed.engine import clone_tree
     from repro_torch.kernels import build
@@ -2114,6 +2479,11 @@ def main() -> int:
               "nvcc_seconds": nvcc_s,
               "library": str(path.relative_to(ROOT)),
               "ptxas": ptxas})
+
+    # path 9, federated LM training at full width: its own process, with
+    # the card's memory to itself (counts from 0 just before and read just
+    # after, inside it)
+    run_train_full()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -2326,6 +2696,11 @@ def main() -> int:
     # chunks captured as CUDA graphs (counts from 0 just before, read just
     # after, inside run_engine), then fedbuff_device against fedbuff
     run_engine(dev, kx, smi)
+
+    # path 9 at reduced width: every registry algorithm through
+    # launch/train.py (counts from 0 just before, read just after, inside
+    # run_train_reduced), the chunked LM run, a checkpoint
+    run_train_reduced(kx)
 
     # path 6, the quickstart through compare (counts from 0 just before,
     # read just after, inside run_quickstart), then the three twins as CLIs

@@ -54,10 +54,13 @@ def pad_len(d: int, block: int = DEFAULT_BLOCK) -> int:
 
 def signs(generator: torch.Generator, n: int) -> torch.Tensor:
     """Rademacher ±1 diagonal of length n, fp32, on the generator's
-    device."""
+    device. The bits are drawn as int8: the generator gives the same 0/1
+    values, and moves on by the same amount, for every integer dtype, and
+    an int64 draw would be 8 bytes a coordinate (9.9 GB at an LM's
+    1.24e9)."""
     bits = torch.randint(0, 2, (n,), generator=generator,
-                         device=generator.device)
-    return (bits * 2 - 1).to(torch.float32)
+                         device=generator.device, dtype=torch.int8)
+    return bits.to(torch.float32).mul_(2).sub_(1)
 
 
 def rotate(x: torch.Tensor, signs: torch.Tensor, block: int = DEFAULT_BLOCK,

@@ -4,7 +4,8 @@ client and server. There is no communication, so both bit counters stay 0.
 
 ``round(state, data, generator, draws=None)``: ``draws`` may supply
 ``batch_idx`` (B,) of client 0's samples and ``duration`` (the round's
-Exp(λ_slow) step time).
+Exp(λ_slow) step time). With ``batch_fn`` the loss is the reference's
+per-client one (:mod:`repro_torch.core.local`).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 
 from repro_torch import default_device
 from repro_torch.configs.base import FedConfig
-from repro_torch.core.local import batched_grads
+from repro_torch.core.local import (batched_grads, client_data, client_grad,
+                                   pool_size)
 from repro_torch.fed.api import counters0
 from repro_torch.utils.tree import tree_flatten_vector, tree_unflatten_vector
 
@@ -37,8 +39,10 @@ class BaselineState(NamedTuple):
 @dataclass(eq=False)
 class Sequential:
     fed: FedConfig
-    loss_fn: Callable[[Any, Any], Any]   # batched over clients
+    loss_fn: Callable[[Any, Any], Any]   # batched over clients, or per
+    #                                    # client with batch_fn
     template: Dict[str, torch.Tensor]
+    batch_fn: Callable = None            # (client_data, rows) -> batch
     batch_size: int = 32
     device: Any = None                   # None = the card
 
@@ -56,11 +60,17 @@ class Sequential:
         if "batch_idx" in draws:
             bidx = draws["batch_idx"].long()
         else:
-            bidx = torch.randint(0, data["y"].shape[1], (self.batch_size,),
+            bidx = torch.randint(0, pool_size(data), (self.batch_size,),
                                  generator=generator, device=self.device)
-        batch = {"x": data["x"][0][bidx][None], "y": data["y"][0][bidx][None]}
-        g = batched_grads(self.loss_fn, self.template, state.server[None],
-                          batch)[0]
+        if self.batch_fn is not None:
+            zero = torch.zeros(1, dtype=torch.int64, device=self.device)
+            g = client_grad(self.loss_fn, self.template, state.server,
+                            self.batch_fn(client_data(data, zero), bidx))
+        else:
+            batch = {"x": data["x"][0][bidx][None],
+                     "y": data["y"][0][bidx][None]}
+            g = batched_grads(self.loss_fn, self.template,
+                              state.server[None], batch)[0]
         # a single SLOW node: Exp(λ_slow) step duration
         if "duration" in draws:
             dt = draws["duration"]

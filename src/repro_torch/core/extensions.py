@@ -20,8 +20,9 @@ Both implement :class:`repro_torch.fed.FedAlgorithm` (registry names
 ``AdaptiveQuAFL`` wrapper (state held inside, ``round(data, generator)``)
 is a thin shim over the protocol class.
 
-``QuaflScaffold.round(state, data, generator, draws=None)`` takes QuAFL's
-draws (``idx``, ``part_noise``, ``h_steps``, ``batch_idx``) and three
+Both take QuAFL's ``batch_fn`` (the per-client protocol, any model) and
+pass it on. ``QuaflScaffold.round(state, data, generator, draws=None)``
+takes QuAFL's draws (``idx``, ``part_noise``, ``h_steps``, ``batch_idx``) and three
 message keys: ``key_up`` (the s model messages), ``key_ctl`` (the s
 control messages) and ``key_dn`` (the one downlink broadcast).
 """
@@ -93,11 +94,11 @@ class QuaflScaffold(QuAFL):
         def draw(name, fn):
             return draws[name] if name in draws else fn()
 
-        idx, got, h_steps, xs, ys = self._cohort(base, data, generator,
-                                                 draws)
+        idx, got, h_steps, bidx = self._cohort(base, data, generator,
+                                               draws)
         cl, c_i = got["model"], got["control"]
         c_srv = state.c_server[None, :]
-        h_tilde = self._local_progress(cl, xs, ys, h_steps,
+        h_tilde = self._local_progress(cl, data, idx, bidx, h_steps,
                                        correction=c_i - c_srv)
         prog = fed.lr * self._eta_t[idx][:, None] * h_tilde
         Y = cl - prog

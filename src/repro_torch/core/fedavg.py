@@ -17,10 +17,12 @@ its per-client error-feedback residuals threaded through the store's
 ``codec_up`` row: the sampled clients' rows are gathered, encoded with,
 and scattered back.
 
-The s clients' K local steps run as one batched autograd per step
-(:mod:`repro_torch.core.local`). A round's uplink is one batched
-``encode`` and one batched ``decode`` over its s messages, so with a
-lattice codec one ``fused_encode`` and one ``fused_decode`` launch.
+The s clients' K local steps run as one batched autograd per step, or,
+given ``batch_fn`` (the reference's per-client protocol, any model), one
+client at a time (:mod:`repro_torch.core.local`). A round's uplink is one
+batched ``encode`` and one batched ``decode`` over its s messages, so
+with a lattice codec one ``fused_encode`` and one ``fused_decode``
+launch.
 
 ``round(state, data, generator, draws=None)``: ``draws`` may supply any of
 the values the reference takes from its key splits — ``idx`` (s,),
@@ -40,7 +42,8 @@ from repro_torch.compression.codecs import (IdentityCodec,
                                             init_client_states,
                                             resolve_codec)
 from repro_torch.configs.base import FedConfig
-from repro_torch.core.local import local_sgd
+from repro_torch.core.local import (cohort_sgd, gather_batches, local_sgd,
+                                   pool_size)
 from repro_torch.fed.api import counters0
 from repro_torch.fed.clock import speeds_for, straggler_round_time
 from repro_torch.fed.population import (Population, build_population,
@@ -79,8 +82,10 @@ class FedAvgState(NamedTuple):
 @dataclass(eq=False)
 class FedAvg:
     fed: FedConfig
-    loss_fn: Callable[[Any, Any], Any]   # batched over clients
+    loss_fn: Callable[[Any, Any], Any]   # batched over clients, or per
+    #                                    # client with batch_fn
     template: Dict[str, torch.Tensor]
+    batch_fn: Callable = None            # (client_data, rows) -> batch
     batch_size: int = 32
     uniform_speeds: bool = False
     uplink: Any = None                   # codec spec (default: identity)
@@ -117,36 +122,37 @@ class FedAvg:
 
     # ------------------------------------------------------------------
     def _cohort(self, state, data, generator, draws):
-        """The sampled clients' ids, their (s, K, B) minibatches and the
-        straggler round time of their K-step durations."""
+        """The sampled clients' ids, their (s, K, B) minibatch row
+        indices and the straggler round time of their K-step durations."""
         fed = self.fed
         n, s, K = fed.n_clients, fed.s, fed.local_steps
         lam_row = state.pop.rows["lam"]
         idx = _draw(draws, "idx", lambda: self.part.sample(
             generator, state.t, n, s, lam_row)).long()
-        m = data["y"].shape[1]
         bidx = _draw(draws, "batch_idx", lambda: torch.randint(
-            0, m, (s, K, self.batch_size), generator=generator,
-            device=self.device)).long()
-        rows = idx[:, None, None]
-        batch = (data["x"][rows, bidx], data["y"][rows, bidx])
+            0, pool_size(data), (s, K, self.batch_size),
+            generator=generator, device=self.device)).long()
         dt = straggler_round_time(generator, lam_row[idx], K, fed.sit,
                                   durations=draws.get("durations"))
-        return idx, batch, dt
+        return idx, bidx, dt
 
-    def _local(self, start, batch):
-        """EXACTLY K local SGD steps of every sampled client from the
-        (d,) ``start``."""
-        s = batch[0].shape[0]
+    def _local(self, start, data, idx, bidx):
+        """EXACTLY K local SGD steps of every sampled client ``idx`` from
+        the (d,) ``start``, at its minibatch rows ``bidx`` (s, K, B)."""
+        if self.batch_fn is not None:
+            return cohort_sgd(self.loss_fn, self.template, self.batch_fn,
+                              start, data, idx, bidx, self.fed.lr)
+        s = idx.shape[0]
         return local_sgd(self.loss_fn, self.template,
-                         start[None].repeat(s, 1), *batch, self.fed.lr)
+                         start[None].repeat(s, 1),
+                         *gather_batches(data, idx, bidx), self.fed.lr)
 
     def round(self, state: FedAvgState, data, generator: torch.Generator,
               draws: Dict[str, Any] = None):
         fed = self.fed
         s, K = fed.s, fed.local_steps
         draws = {k: v.to(self.device) for k, v in (draws or {}).items()}
-        _, batch, dt = self._cohort(state, data, generator, draws)
+        idx, bidx, dt = self._cohort(state, data, generator, draws)
 
         # downlink: ONE broadcast Enc(X_t); every sampled client decodes it
         # against the server reference before stepping
@@ -160,7 +166,7 @@ class FedAvg:
             start = self.codec_down.decode(
                 key, self.codec_down.encode(key, srv, hint), srv)[0]
 
-        models = self._local(start, batch)
+        models = self._local(start, data, idx, bidx)
 
         # uplink: client models decoded against the server
         if self._up_identity:
@@ -254,7 +260,7 @@ class CompressedFedAvg(FedAvg):
         fed = self.fed
         s, K, d = fed.s, fed.local_steps, self.d
         draws = {k: v.to(self.device) for k, v in (draws or {}).items()}
-        idx, batch, dt = self._cohort(state, data, generator, draws)
+        idx, bidx, dt = self._cohort(state, data, generator, draws)
 
         # downlink broadcast: Enc(X_t) decoded against X_{t-1}
         key_dn = _draw(draws, "key_dn",
@@ -264,7 +270,7 @@ class CompressedFedAvg(FedAvg):
         start = self.codec_down.decode(key_dn, msg_dn,
                                        state.srv_prev[None])[0]
 
-        models = self._local(start, batch)
+        models = self._local(start, data, idx, bidx)
         deltas = start[None] - models                # descent direction
 
         # uplink: codec-compressed deltas decoded against zero

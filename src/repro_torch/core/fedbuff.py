@@ -24,7 +24,9 @@ single-completion step.
 Each completion's draws come from the round's generator, or from
 ``draws``: ``event_seed`` (int, first round only), ``batch_idx`` (Z, K, B),
 ``key_up`` and ``key_dn`` (:class:`MessageKey` of Z rows, row z for the
-round's z-th completion).
+round's z-th completion). A client's K local steps run through the batched
+loss, or, given ``batch_fn`` (the reference's per-client protocol, any
+model), through the per-client one (:mod:`repro_torch.core.local`).
 
 :class:`FedBuffDevice` (registry name ``fedbuff_device``) is the same event
 simulation with every value on the device: the heap becomes a
@@ -46,7 +48,8 @@ import torch
 from repro_torch import default_device
 from repro_torch.compression.codecs import IdentityCodec, resolve_codec
 from repro_torch.configs.base import FedConfig
-from repro_torch.core.local import local_sgd
+from repro_torch.core.local import (client_data, client_steps, local_sgd,
+                                   pool_size)
 from repro_torch.fed.api import counters0
 from repro_torch.fed.clock import (ArrivalQueue, completion_time,
                                    completion_time_device, speeds_for)
@@ -87,8 +90,10 @@ class FedBuffState:
 @dataclass(eq=False)
 class FedBuff:
     fed: FedConfig
-    loss_fn: Callable[[Any, Any], Any]   # batched over clients
+    loss_fn: Callable[[Any, Any], Any]   # batched over clients, or per
+    #                                    # client with batch_fn
     template: Dict[str, torch.Tensor]
+    batch_fn: Callable = None            # (client_data, rows) -> batch
     batch_size: int = 32
     buffer_size: int = 10
     server_lr: float = 1.0
@@ -145,6 +150,20 @@ class FedBuff:
                        buffer=list(state.buffer), rng=_copy_rng(state.rng),
                        ef=None if state.ef is None else list(state.ef))
 
+    def _client_end(self, start, data, i, bidx):
+        """The model client ``i`` ends at after its K local steps from
+        ``start`` (d,), minibatch rows ``bidx`` (K, B); ``i`` an int or a
+        0-d or (1,) index tensor (gathered without a host read)."""
+        i1 = torch.as_tensor(i, device=self.device).reshape(1)
+        if self.batch_fn is not None:
+            return client_steps(self.loss_fn, self.template, self.batch_fn,
+                                start.clone(), client_data(data, i1), bidx,
+                                self.fed.lr)
+        xs = data["x"].index_select(0, i1)[:, bidx]
+        ys = data["y"].index_select(0, i1)[:, bidx]
+        return local_sgd(self.loss_fn, self.template, start[None], xs, ys,
+                         self.fed.lr)[0]
+
     def _key(self, codec, draws, name, z, generator):
         if name in draws:
             return draws[name].row(z)
@@ -161,13 +180,11 @@ class FedBuff:
         if "batch_idx" in draws:
             bidx = draws["batch_idx"][z].long()
         else:
-            bidx = torch.randint(0, data["y"].shape[1],
+            bidx = torch.randint(0, pool_size(data),
                                  (K, self.batch_size), generator=generator,
                                  device=self.device)
         start = state.start_model[i]
-        end = local_sgd(self.loss_fn, self.template, start[None],
-                        data["x"][i][bidx][None], data["y"][i][bidx][None],
-                        self.fed.lr)[0]
+        end = self._client_end(start, data, i, bidx)
         delta = start - end           # positive direction of descent
         rel_err = None
         if self._up_compressed:
@@ -383,15 +400,20 @@ class FedBuffDevice(FedBuff):
                                       lam_i)
 
     def device_round(self, state: FedBuffDeviceState, data,
-                     generator: torch.Generator):
+                     generator: torch.Generator,
+                     draws: Dict[str, Any] = None):
         """One server update: exactly ``buffer_size`` completions, every
         value on the device. Consumes ``state`` (its rows are updated in
-        place)."""
+        place). ``draws`` may supply the z-th completion's ``batch_idx``
+        (Z, K, B), ``key_up`` and ``key_dn`` (:class:`MessageKey` of Z
+        rows), as :class:`FedBuff`'s; the durations come from the table or
+        the generator."""
         if not state.live:
             raise ValueError("fedbuff_device: the ring is not seeded; call "
                              "begin(state, generator) first (round does)")
         K, d, Z = self.fed.local_steps, self.d, self.buffer_size
-        m = data["y"].shape[1]
+        m = pool_size(data)
+        draws = {k: v.to(self.device) for k, v in (draws or {}).items()}
         start, occ = state.start, state.occ
         lam_row = state.pop.rows["lam"]
         queue, server, t_now = state.queue, state.server, state.sim_time
@@ -399,16 +421,16 @@ class FedBuffDevice(FedBuff):
         for z in range(Z):
             queue, t_now, i = ring_pop(queue)
             i1 = i.reshape(1)
-            bidx = torch.randint(0, m, (K, self.batch_size),
-                                 generator=generator, device=self.device)
+            if "batch_idx" in draws:
+                bidx = draws["batch_idx"][z].long()
+            else:
+                bidx = torch.randint(0, m, (K, self.batch_size),
+                                     generator=generator, device=self.device)
             start_i = start.index_select(0, i1)[0]
-            xs = data["x"].index_select(0, i1)[:, bidx]
-            ys = data["y"].index_select(0, i1)[:, bidx]
-            end = local_sgd(self.loss_fn, self.template, start_i[None], xs,
-                            ys, self.fed.lr)[0]
+            end = self._client_end(start_i, data, i1, bidx)
             delta = start_i - end
             if self._up_compressed:
-                key = self.codec_up.keys(generator, 1, d)
+                key = self._key(self.codec_up, draws, "key_up", z, generator)
                 hint = torch.linalg.vector_norm(delta) + 1e-12
                 msg = self.codec_up.encode(key, delta[None], hint[None])
                 dq = self.codec_up.decode(
@@ -423,7 +445,8 @@ class FedBuffDevice(FedBuff):
             if self._down_identity:
                 restart = server
             else:
-                key = self.codec_down.keys(generator, 1, d)
+                key = self._key(self.codec_down, draws, "key_dn", z,
+                                generator)
                 hint_dn = torch.linalg.vector_norm(server - start_i) + 1e-12
                 msg_dn = self.codec_down.encode(key, server[None],
                                                 hint_dn[None])
@@ -454,11 +477,11 @@ class FedBuffDevice(FedBuff):
         return new_state, metrics
 
     def round(self, state: FedBuffDeviceState, data,
-              generator: torch.Generator):
+              generator: torch.Generator, draws: Dict[str, Any] = None):
         """One buffer flush: :meth:`begin` (seeds the ring on the first
-        round), then :meth:`device_round`."""
+        round), then :meth:`device_round` (``draws`` as there)."""
         return self.device_round(self.begin(state, generator), data,
-                                 generator)
+                                 generator, draws)
 
     # the legacy time-budget loop belongs to the host FedBuff only
     run = None

@@ -7,8 +7,10 @@ row (models X^i, speeds λ, last-interaction times). A round:
   * samples s clients by the participation spec (``uniform``,
     ``gamma_straggler``, ``cyclic:...``) and gathers their rows;
   * draws each one's lazy H_i = min(K, Poisson(λ_i · elapsed_i)) and replays
-    K masked SGD steps, all s clients at once through a batched loss, so
-    one autograd call per step gives every client's gradient;
+    K masked SGD steps: without ``batch_fn``, all s clients at once through
+    a batched loss, so one autograd call per step gives every client's
+    gradient; with ``batch_fn`` (the reference's protocol, any model) one
+    client at a time (:mod:`repro_torch.core.local`);
   * exchanges the models: when both codecs are lattice-family (including
     the sub-byte ``lattice_packed`` wire and a per-client ``{"fast": ...,
     "slow": ...}`` uplink) through the rotated-space pipeline
@@ -28,6 +30,12 @@ the values the reference takes from its key splits — ``idx``,
 pipeline's ``signs``, ``u_cl``, ``u_srv``, and the per-message branch's
 ``key_up`` (a :class:`MessageKey` of s rows) and ``key_dn`` (one row) — so
 a test can feed the reference's own draws to the port.
+
+A round holds few full-model copies at once: the sampled rows, their
+progress and Y are dropped once the exchange has Y, and the exchange
+itself frees each rotated temporary as soon as it is dead
+(:meth:`ExchangePipeline.quafl_round`), so an LM at full width fits the
+card (about 15 copies of the model at n = s = 2).
 """
 from __future__ import annotations
 
@@ -43,7 +51,8 @@ from repro_torch.compression.codecs import (GroupedLatticeCodec,
                                             is_lattice_family, resolve_codec)
 from repro_torch.compression.pipeline import ExchangePipeline
 from repro_torch.configs.base import FedConfig
-from repro_torch.core.local import batched_grads
+from repro_torch.core.local import (batched_grads, cohort_progress,
+                                   gather_batches, pool_size)
 from repro_torch.fed.api import counters0
 from repro_torch.fed.clock import expected_steps, speeds_for
 from repro_torch.fed.population import (Population, build_population,
@@ -98,8 +107,11 @@ class QuaflState(NamedTuple):
 class QuAFL:
     fed: FedConfig
     loss_fn: Callable[[Any, Any], Any]   # batched: (params_s, batch_s) ->
-    #                                    # ((s,) losses, aux)
+    #                                    # ((s,) losses, aux); per client
+    #                                    # with batch_fn: (params, batch)
+    #                                    # -> (loss, aux)
     template: Dict[str, torch.Tensor]    # params dict (shapes, leaf order)
+    batch_fn: Callable = None            # (client_data, rows) -> batch
     batch_size: int = 32                 # minibatch per local step
     avg_mode: str = "both"   # 'both'|'server_only'|'client_only'|'none'
     uniform_speeds: bool = False
@@ -168,18 +180,25 @@ class QuAFL:
             last_time=torch.zeros(n, dtype=torch.float32,
                                   device=self.device),
             codec_up=self._codec_state0())
-        return QuaflState(server=x0.clone(), pop=pop,
+        # x0 is a fresh vector, so the server takes it without a copy
+        return QuaflState(server=x0, pop=pop,
                           **counters0(self.device),
                           srv_dist_est=torch.tensor(1e-3,
                                                     device=self.device))
 
     # ------------------------------------------------------------------
-    def _local_progress(self, cl, xs, ys, h_steps, correction=None):
-        """Replay K masked SGD steps of every sampled client; returns h̃,
-        the sum of the active steps' gradients, (s, d). ``correction``
-        (s, d), when given, is taken off every gradient (SCAFFOLD's
-        c_i − c)."""
+    def _local_progress(self, cl, data, idx, rows, h_steps,
+                        correction=None):
+        """Replay K masked SGD steps of every sampled client ``idx`` at its
+        minibatch rows ``rows`` (s, K, B); returns h̃, the sum of the
+        active steps' gradients, (s, d). ``correction`` (s, d), when given,
+        is taken off every gradient (SCAFFOLD's c_i − c)."""
         eta = self.fed.lr
+        if self.batch_fn is not None:
+            return cohort_progress(self.loss_fn, self.template,
+                                   self.batch_fn, cl, data, idx, rows,
+                                   h_steps, eta, correction)
+        xs, ys = gather_batches(data, idx, rows)
         x, h = cl, torch.zeros_like(cl)
         for q in range(self.fed.local_steps):
             g = batched_grads(self.loss_fn, self.template, x,
@@ -235,7 +254,7 @@ class QuAFL:
     # ------------------------------------------------------------------
     def _cohort(self, state: QuaflState, data, generator, draws):
         """The round's cohort: the sampled ids, their gathered rows, their
-        H_i draws and their (s, K, B) minibatches (xs, ys), each from
+        H_i draws and their (s, K, B) minibatch row indices, each from
         ``draws`` where given."""
         fed = self.fed
         n, s, K = fed.n_clients, fed.s, fed.local_steps
@@ -251,29 +270,33 @@ class QuAFL:
         h_steps = draw("h_steps", lambda: self.part.h_steps(
             generator, idx, got["lam"], elapsed, K))
         bidx = draw("batch_idx", lambda: torch.randint(
-            0, data["y"].shape[1], (s, K, self.batch_size),
+            0, pool_size(data), (s, K, self.batch_size),
             generator=generator, device=self.device)).long()
-        rows = idx[:, None, None]
-        return idx, got, h_steps, data["x"][rows, bidx], data["y"][rows, bidx]
+        return idx, got, h_steps, bidx
 
     def round(self, state: QuaflState, data, generator: torch.Generator,
               draws: Dict[str, torch.Tensor] = None):
-        """One server round. data: per-client datasets {'x': (n, m, d_in),
-        'y': (n, m)}. Consumes ``state`` (its store is updated in place)."""
+        """One server round. data: per-client datasets, {'x': (n, m, d_in),
+        'y': (n, m)} under the batched protocol, any leaves (n, m, ...)
+        that ``batch_fn`` reads under the per-client one. Consumes
+        ``state`` (its store is updated in place)."""
         fed = self.fed
         s = fed.s
         draws = {k: v.to(self.device) for k, v in (draws or {}).items()}
-        idx, got, h_steps, xs, ys = self._cohort(state, data, generator,
-                                                 draws)
-        cl = got["model"]                                         # (s, d)
-        h_tilde = self._local_progress(cl, xs, ys, h_steps)
+        idx, got, h_steps, bidx = self._cohort(state, data, generator,
+                                               draws)
+        cl = got.pop("model")                                     # (s, d)
+        h_tilde = self._local_progress(cl, data, idx, bidx, h_steps)
         prog = fed.lr * self._eta_t[idx][:, None] * h_tilde       # η·η_i·h̃
+        del h_tilde
         Y = cl - prog
 
         hints_up = (torch.linalg.vector_norm(prog, dim=1)
                     + state.srv_dist_est + 1e-8)
+        del prog
         cs_new = None          # the sampled clients' new EF rows, if any
         if self.pipeline is not None:
+            del cl             # the rotated-space exchange reads Y only
             fn = (self.pipeline.quafl_round
                   if self.exchange_impl == "pipeline"
                   else self.pipeline.quafl_round_reference)
@@ -282,6 +305,7 @@ class QuAFL:
                 signs=draws.get("signs"), u_cl=draws.get("u_cl"),
                 u_srv=draws.get("u_srv"), avg_mode=self.avg_mode,
                 up=self.codec_up.wire(idx), down=self.codec_down.wire())
+            del Y
         else:
             server_new, cl_new, hint_srv, rel_err, cs_new = \
                 self._per_message(state.server, cl, Y, hints_up, generator,

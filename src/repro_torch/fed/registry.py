@@ -1,7 +1,21 @@
 """String registry of server algorithms (port of ``repro.fed.registry``).
 
-``make_algorithm(name, fed, loss_fn=..., template=..., batch_size=...)``
-builds:
+``make_algorithm(name, fed, loss_fn=..., template=..., batch_fn=None,
+batch_size=...)`` builds any algorithm under one of two client protocols:
+
+  * ``batch_fn`` given — the reference's protocol, any model:
+    ``loss_fn(params, batch) -> (loss, aux)`` of ONE client and
+    ``batch_fn(client_data, rows) -> batch``, the minibatch at the (B,) row
+    indices the algorithm drew from that client's pool (``data`` leaves
+    (n, m, ...)); gradients one client at a time. The LM task
+    (``data.synthetic.federated_token_task``) is in this shape.
+  * ``batch_fn`` None — the batched protocol of the paper's MLP:
+    ``loss_fn`` batched over a leading client axis
+    (``models.mlp.mlp_loss_batched``) on ``data = {"x", "y"}``; one autograd
+    call a step for every sampled client.
+
+Either way ``batch_size`` is B, and the algorithm draws the row indices
+(injectable as ``draws["batch_idx"]``). The names:
 
   ``quafl``              paper Alg. 1; kwargs ``avg_mode``,
                          ``uniform_speeds``, ``exchange_impl``, ``uplink``
@@ -27,7 +41,8 @@ builds:
                          ``b_min``, ``b_max``
 
 and every algorithm takes ``device``. The reference's ``spmd`` is
-registered by name and raises until its slice is ported.
+registered by name and raises until its slice is ported (ROADMAP Queue 1
+item 11).
 Third-party variants join through :func:`register_algorithm`.
 """
 from __future__ import annotations
@@ -38,40 +53,46 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.fed.api import FedAlgorithm
 
 
-def _build_quafl(fed, loss_fn, template, **kw):
+def _build_quafl(fed, loss_fn, template, batch_fn, **kw):
     from repro_torch.core.quafl import QuAFL
-    return QuAFL(fed=fed, loss_fn=loss_fn, template=template, **kw)
+    return QuAFL(fed=fed, loss_fn=loss_fn, template=template,
+                 batch_fn=batch_fn, **kw)
 
 
-def _build_fedavg(fed, loss_fn, template, **kw):
+def _build_fedavg(fed, loss_fn, template, batch_fn, **kw):
     from repro_torch.core.fedavg import FedAvg
-    return FedAvg(fed=fed, loss_fn=loss_fn, template=template, **kw)
+    return FedAvg(fed=fed, loss_fn=loss_fn, template=template,
+                  batch_fn=batch_fn, **kw)
 
 
-def _build_compressed_fedavg(fed, loss_fn, template, **kw):
+def _build_compressed_fedavg(fed, loss_fn, template, batch_fn, **kw):
     from repro_torch.core.fedavg import CompressedFedAvg
     return CompressedFedAvg(fed=fed, loss_fn=loss_fn, template=template,
-                            **kw)
+                            batch_fn=batch_fn, **kw)
 
 
-def _build_fedbuff(fed, loss_fn, template, **kw):
+def _build_fedbuff(fed, loss_fn, template, batch_fn, **kw):
     from repro_torch.core.fedbuff import FedBuff
-    return FedBuff(fed=fed, loss_fn=loss_fn, template=template, **kw)
+    return FedBuff(fed=fed, loss_fn=loss_fn, template=template,
+                   batch_fn=batch_fn, **kw)
 
 
-def _build_fedbuff_device(fed, loss_fn, template, **kw):
+def _build_fedbuff_device(fed, loss_fn, template, batch_fn, **kw):
     from repro_torch.core.fedbuff import FedBuffDevice
-    return FedBuffDevice(fed=fed, loss_fn=loss_fn, template=template, **kw)
+    return FedBuffDevice(fed=fed, loss_fn=loss_fn, template=template,
+                         batch_fn=batch_fn, **kw)
 
 
-def _build_sequential(fed, loss_fn, template, **kw):
+def _build_sequential(fed, loss_fn, template, batch_fn, **kw):
     from repro_torch.core.baseline import Sequential
-    return Sequential(fed=fed, loss_fn=loss_fn, template=template, **kw)
+    return Sequential(fed=fed, loss_fn=loss_fn, template=template,
+                      batch_fn=batch_fn, **kw)
 
 
-def _build_scaffold(fed, loss_fn, template, **kw):
+def _build_scaffold(fed, loss_fn, template, batch_fn, **kw):
     from repro_torch.core.extensions import QuaflScaffold
-    return QuaflScaffold(fed=fed, loss_fn=loss_fn, template=template, **kw)
+    return QuaflScaffold(fed=fed, loss_fn=loss_fn, template=template,
+                         batch_fn=batch_fn, **kw)
 
 
 # the keyword arguments adaptive_quafl hands to each of its QuAFL instances
@@ -80,13 +101,14 @@ _QUAFL_KW = ("avg_mode", "uniform_speeds", "exchange_impl", "uplink",
              "device")
 
 
-def _build_adaptive(fed, loss_fn, template, **kw):
+def _build_adaptive(fed, loss_fn, template, batch_fn, **kw):
     from repro_torch.core.extensions import AdaptiveQuaflAlgorithm
     from repro_torch.core.quafl import QuAFL
     quafl_kw = {k: kw.pop(k) for k in _QUAFL_KW if k in kw}
 
     def make_alg(f):
-        return QuAFL(fed=f, loss_fn=loss_fn, template=template, **quafl_kw)
+        return QuAFL(fed=f, loss_fn=loss_fn, template=template,
+                     batch_fn=batch_fn, **quafl_kw)
 
     return AdaptiveQuaflAlgorithm(fed, make_alg, **kw)
 
@@ -120,7 +142,8 @@ def registered_algorithms() -> Tuple[str, ...]:
 def register_algorithm(name: str,
                        builder: Callable[..., FedAlgorithm]) -> None:
     """Register a custom server variant. ``builder`` receives ``(fed,
-    loss_fn, template, **kwargs)`` and must return a
+    loss_fn, template, batch_fn=..., **kwargs)`` (``batch_fn`` by keyword,
+    so a builder taking ``**kwargs`` may pass it on) and must return a
     :class:`~repro_torch.fed.api.FedAlgorithm`."""
     if name in _BUILDERS:
         raise ValueError(f"algorithm {name!r} already registered")
@@ -128,14 +151,17 @@ def register_algorithm(name: str,
 
 
 def make_algorithm(name: str, fed: FedConfig, *, loss_fn, template,
-                   **kwargs) -> FedAlgorithm:
-    """Build the named server algorithm. ``loss_fn`` is batched over the
-    sampled clients (``repro_torch.models.mlp.mlp_loss_batched``);
-    ``template`` is the params dict the flat vectors unflatten against;
-    other keyword arguments go to the algorithm (``batch_size``,
-    ``uplink``, ``downlink``, ``avg_mode``, ``participation``, ``device``,
-    ...)."""
+                   batch_fn=None, **kwargs) -> FedAlgorithm:
+    """Build the named server algorithm. With ``batch_fn``, ``loss_fn`` is
+    one client's ``(params, batch) -> (loss, aux)``, as the reference's;
+    without it, batched over the sampled clients
+    (``repro_torch.models.mlp.mlp_loss_batched``). ``template`` is the
+    params dict the flat vectors unflatten against (only its shapes are
+    read: meta tensors do). Other keyword arguments go to the algorithm
+    (``batch_size``, ``uplink``, ``downlink``, ``avg_mode``,
+    ``participation``, ``device``, ...)."""
     if name not in _BUILDERS:
         raise ValueError(f"unknown algorithm {name!r}; choose from "
                          f"{sorted(_BUILDERS)}")
-    return _BUILDERS[name](fed, loss_fn, template, **kwargs)
+    return _BUILDERS[name](fed, loss_fn, template, batch_fn=batch_fn,
+                           **kwargs)

@@ -144,6 +144,9 @@ def simulate(alg: FedAlgorithm, params0, data, generator: torch.Generator,
             max_rounds=max_rounds, scan_chunk=scan_chunk)
     trace = Trace(algorithm=name or type(alg).__name__)
     state = alg.init(params0)
+    # the run reads params0 no more: a caller that handed over its last
+    # reference (an LM at full width) gets the memory back
+    del params0
     bits_up = bits_down = 0.0
     t0 = time.time()
     rec = _Recorder(trace, alg, eval_fn, on_row, t0)
@@ -217,6 +220,7 @@ def _simulate_scanned(alg, params0, data, generator, *, rounds,
         scan_chunk = engine.autotune(params0, data, probe, cap=cap)
     trace.scan_chunk = int(scan_chunk)
     state = alg.init(params0)
+    del params0
     bits_up = bits_down = 0.0
     t0 = time.time()
     rec = _Recorder(trace, alg, eval_fn, on_row, t0)

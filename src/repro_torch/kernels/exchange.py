@@ -210,6 +210,26 @@ _CHUNK, _MAX_CLUSTER = 2048, 8
 _VEC_THREADS, _FILL = 256, 1 << 17
 
 
+# the launchers take m and d_pad as C ints and round d_pad up to a CTA's
+# span of coordinates (at most 8 · _VEC_THREADS) in int arithmetic
+INT_MAX = 2**31 - 1
+MAX_D_PAD = INT_MAX - 8 * _VEC_THREADS + 1
+
+
+def check_launch_ints(m: int, d_pad: int) -> None:
+    """Refuse a launch whose message count ``m`` or padded length
+    ``d_pad`` the kernels' int arguments cannot hold (they would wrap);
+    offsets over the whole (m, d_pad) tensor are 64-bit in the kernels."""
+    if not 0 <= m <= INT_MAX:
+        raise ValueError(f"m={m} messages: the exchange kernels take m as "
+                         f"a C int, at most {INT_MAX}")
+    if not 0 <= d_pad <= MAX_D_PAD:
+        raise ValueError(f"d_pad={d_pad}: the exchange kernels take d_pad "
+                         f"as a C int and round it up to a CTA's span, so "
+                         f"it may be at most {MAX_D_PAD} (2**31 - "
+                         f"{8 * _VEC_THREADS}) coordinates a message")
+
+
 def library():
     """The built and loaded ``csrc/exchange.cu``."""
     return build.load("exchange", _SIGNATURES)
@@ -318,6 +338,7 @@ def fused_rotate(x2, signs, *, block=DEFAULT_BLOCK, inverse=False):
     if build.on_cpu(x2, signs):
         return rotate_plain(x2, signs, block=block, inverse=inverse)
     m, d_pad = x2.shape
+    check_launch_ints(m, d_pad)
     b, _ = _geometry(d_pad, block, 8, 1)
     cluster = _cluster(d_pad, block, 1)
     _require(x2, "x2", torch.float32, (m, d_pad))
@@ -364,6 +385,7 @@ def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
                             want_rotated=want_rotated, pack=pack,
                             levels2=levels2)
     m, d_pad = x2.shape
+    check_launch_ints(m, d_pad)
     b, c = _geometry(d_pad, block, bits, pack)
     cluster = _cluster(d_pad, block, pack)
     _require(x2, "x2", torch.float32, (m, d_pad))
@@ -415,6 +437,7 @@ def _launch_quantize(y2, u2, gammas, bits, block, pack, levels2,
     """The quantize kernel on CUDA tensors, ``per_thread`` (2 or 8)
     outputs a thread."""
     m, d_pad = y2.shape
+    check_launch_ints(m, d_pad)
     b, c = _geometry(d_pad, block, bits, pack)
     _require(y2, "y2", torch.float32, (m, d_pad))
     _require(u2, "u2", torch.float32, (m, d_pad))
@@ -454,6 +477,7 @@ def snap_codes(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     if d_padp * pack != d_pad or min(mc, mw) not in (1, m):
         raise ValueError(f"codes {tuple(codes2.shape)} (pack={pack}) do not "
                          f"broadcast against refs {tuple(wrot2.shape)}")
+    check_launch_ints(m, d_pad)
     b, c = _geometry(d_pad, block, bits, pack)
     _require(codes2, "codes2", torch.int32 if pack == 1 else torch.uint8,
              (mc, d_padp))
@@ -501,6 +525,7 @@ def fused_decode(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
     if d_padp * pack != d_pad or min(mc, mr) not in (1, m):
         raise ValueError(f"codes {tuple(codes2.shape)} (pack={pack}) do not "
                          f"broadcast against refs {tuple(ref2.shape)}")
+    check_launch_ints(m, d_pad)
     b, c = _geometry(d_pad, block, bits, pack)
     cluster = _cluster(d_pad, block, pack)
     _require(codes2, "codes2", torch.int32 if pack == 1 else torch.uint8,

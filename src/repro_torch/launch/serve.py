@@ -8,21 +8,29 @@ ServeEngine (port of ``repro.launch.serve``).
 
 It runs on the card unless ``--device cpu`` asks for the CPU. Weights are a
 fresh init from ``--seed`` (``--full``: the architecture's published
-widths; else its reduced member). ``--from-algo`` (serve the eval_params of
-a federated LM run) needs LM training through a federated algorithm, which
-is not ported yet (ROADMAP Queue 1 item 12).
+widths; else its reduced member). With ``--from-algo NAME`` the served
+weights are the ``eval_params`` of a short federated run of that registry
+algorithm on the LM token task (``--algo-rounds`` rounds, 4 clients), as
+the reference's:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --from-algo quafl --algo-rounds 5 --requests 4 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
 from repro_torch import default_device
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.models.model import init_lm
+from repro_torch.configs.base import FedConfig
+from repro_torch.data.synthetic import federated_token_task
+from repro_torch.fed import make_algorithm, simulate
+from repro_torch.models.model import init_lm, lm_loss
 from repro_torch.serving import Request, ServeEngine
 
 
@@ -40,19 +48,38 @@ def main(argv=None):
                          "omitted")
     ap.add_argument("--from-algo", default="",
                     help="registry algorithm whose eval_params to serve "
-                         "(not ported yet)")
+                         "(quafl|fedavg|fedbuff|sequential|...)")
+    ap.add_argument("--algo-rounds", type=int, default=5)
     args = ap.parse_args(argv)
 
-    if args.from_algo:
-        raise NotImplementedError(
-            "--from-algo trains the LM through a federated algorithm (lm_loss "
-            "and autograd, with a backward for the attention path): not "
-            "ported yet (ROADMAP Queue 1 item 12)")
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
     dev = default_device(args.device)
     params, _ = init_lm(cfg, seed=args.seed, device=dev)
-    eng = ServeEngine(cfg, params, max_batch=args.max_batch, max_seq=128,
-                      temperature=args.temperature)
+    if args.from_algo:
+        fed = FedConfig(n_clients=4, s=4, local_steps=2, lr=0.05,
+                        quantizer="lattice")
+        pool, batch, seq = 8, 2, 32
+        data, batch_fn = federated_token_task(args.seed, fed.n_clients,
+                                              pool, batch, seq,
+                                              cfg.vocab_size, device=dev)
+        alg = make_algorithm(args.from_algo, fed,
+                             loss_fn=partial(lm_loss, cfg),
+                             template=params, batch_fn=batch_fn,
+                             batch_size=batch, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 1)
+        trace = simulate(alg, params, data, gen, rounds=args.algo_rounds,
+                         eval_every=0)
+        print(f"serving eval_params of a {args.from_algo} run "
+              f"({trace.rounds} rounds, "
+              f"sim_t={float(trace.final_state.sim_time):.0f})")
+        eng = ServeEngine.from_algorithm(cfg, alg, trace.final_state,
+                                         max_batch=args.max_batch,
+                                         max_seq=128,
+                                         temperature=args.temperature)
+    else:
+        eng = ServeEngine(cfg, params, max_batch=args.max_batch, max_seq=128,
+                          temperature=args.temperature)
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         plen = int(rng.integers(4, 24))

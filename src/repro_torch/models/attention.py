@@ -3,9 +3,13 @@
 
 Prefill takes the flash-attention kernel of
 :mod:`repro_torch.kernels.flash_attention` under the reference's condition
-(not chunked, t % 128 == 0, head_dim % 8 == 0); otherwise the plain
-branches run as in the reference: block-diagonal chunks, one masked
-``sdpa``, or a loop over query chunks (with the sliding band). Decode
+(not chunked, t % 128 == 0, head_dim % 8 == 0) when no gradient is taken;
+otherwise the plain branches run as in the reference: block-diagonal
+chunks, one masked ``sdpa``, or a loop over query chunks (with the sliding
+band). Under autograd (``q.requires_grad``, the LM loss in training) the
+plain branches always run: the kernel has no backward, and the reference
+trains through its plain branches too (its ``USE_FLASH_KERNEL`` is
+False). Decode
 attends over a ring-buffer KV cache with the plain :func:`sdpa`.
 
 Caches are written in place: :func:`write_attn_cache` fills the given
@@ -88,7 +92,8 @@ def attention_prefill(cfg, spec, q, k, v):
     window = spec.window
     dev = q.device
 
-    if spec.attn != ATTN_CHUNKED and t % 128 == 0 and dh % 8 == 0:
+    if (spec.attn != ATTN_CHUNKED and t % 128 == 0 and dh % 8 == 0
+            and not q.requires_grad):
         return flash_attention(
             q, k, v, causal=True,
             window=window if spec.attn == ATTN_SLIDING else 0,

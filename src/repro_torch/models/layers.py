@@ -3,6 +3,8 @@ embeddings (port of ``repro.models.layers``). Same arithmetic, in the same
 dtypes: norms and RoPE in fp32 inside, matmuls in the activation dtype."""
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -46,12 +48,19 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+@lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
+    """:func:`rope_freqs` as a tensor on ``device``, copied there once (a
+    captured round must not copy from the host)."""
+    return torch.from_numpy(np.asarray(rope_freqs(head_dim, theta),
+                                       np.float32)).to(device)
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., t, heads, head_dim); positions: (..., t) integer. Half-split
     rotation in fp32, out in x's dtype."""
     head_dim = x.shape[-1]
-    freqs = torch.from_numpy(np.asarray(rope_freqs(head_dim, theta),
-                                        np.float32)).to(x.device)
+    freqs = _rope_freqs_on(head_dim, float(theta), x.device)
     ang = positions[..., None].to(torch.float32) * freqs   # (..., t, half)
     cos = torch.cos(ang)[..., None, :]                     # (..., t, 1, half)
     sin = torch.sin(ang)[..., None, :]
@@ -91,20 +100,28 @@ def init_embed(ctx, cfg):
 
 def embed_tokens(cfg, p, tokens):
     dt = torch_dtype(cfg.dtype)
-    x = p["embed/tok"][tokens].to(dt)
+    # a gather, as indexing; its backward, unlike indexing's accumulate on
+    # the CPU, sums repeated tokens in a fixed order, so a training run
+    # repeats bit for bit
+    x = torch.nn.functional.embedding(tokens, p["embed/tok"]).to(dt)
     if cfg.tie_embeddings:
         # tied-head models (gemma) scale the embedding stream; the factor is
         # cast to the activation dtype before the multiply
-        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dt, device=x.device)
+        # (a fill on the device, not a host copy: a captured round runs it)
+        x = x * torch.full((), float(np.sqrt(cfg.d_model)), dtype=dt,
+                           device=x.device)
     return x
 
 
 def lm_logits(cfg, p, x):
-    """fp32 logits: the matmul in the activation dtype, then the softcap."""
+    """fp32 logits: the matmul in the activation dtype, then the softcap
+    (in place, unless autograd needs its input for the backward)."""
     if cfg.tie_embeddings:
         logits = x @ p["embed/tok"].to(x.dtype).T
     else:
         logits = x @ p["lm_head/w"].to(x.dtype)
     out = logits.to(torch.float32)
     del logits
+    if out.requires_grad:
+        return softcap(out, cfg.logit_softcap)
     return softcap_(out, cfg.logit_softcap)

@@ -139,6 +139,15 @@ def _layer_slice(tree: Dict[str, torch.Tensor], i: int):
     return {k: v[i] for k, v in tree.items()}
 
 
+def _layers(tree: Dict[str, torch.Tensor], n: int):
+    """The n layers of a stacked subtree, each a dict of views. The leaves
+    are unbound once, so that under autograd each stacked leaf's gradient
+    is assembled once (indexing layer by layer would make every layer's
+    backward fill and add a zero gradient of the whole stack)."""
+    parts = {k: v.unbind(0) for k, v in tree.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
@@ -159,15 +168,15 @@ def forward(cfg: ModelConfig, params, batch, *, cache=None,
         x = apply_layer_prefill(cfg, spec, subtree(params, f"pre/{i}"), x,
                                 positions, cache=lc, write_pos=write_pos)
 
-    body_p = [subtree(params, f"body/{j}") for j in range(len(cfg.schedule))]
+    body_p = [_layers(subtree(params, f"body/{j}"), cfg.n_periods)
+              for j in range(len(cfg.schedule))]
     body_c = ([subtree(cache, f"body/{j}") for j in range(len(cfg.schedule))]
               if cache is not None else None)
     for n in range(cfg.n_periods):
         for j, spec in enumerate(cfg.schedule):
             lc = _layer_slice(body_c[j], n) if cache is not None else None
-            x = apply_layer_prefill(cfg, spec, _layer_slice(body_p[j], n),
-                                    x, positions, cache=lc,
-                                    write_pos=write_pos)
+            x = apply_layer_prefill(cfg, spec, body_p[j][n], x, positions,
+                                    cache=lc, write_pos=write_pos)
 
     x = _norm(cfg, params, "final_norm", x)
     logits = lm_logits(cfg, params, x)
@@ -198,8 +207,9 @@ def decode_step(cfg: ModelConfig, params, token, cur_pos: int, cache):
 # ---------------------------------------------------------------------------
 
 def lm_loss(cfg: ModelConfig, params, batch):
-    """Next-token cross-entropy (value only: the prefill kernel has no
-    backward). Returns (loss, metrics)."""
+    """Next-token cross-entropy, differentiable in ``params`` (under
+    autograd the prefill takes the plain attention branches). Returns
+    (loss, metrics)."""
     logits, _, aux = forward(cfg, params, batch)
     tokens = batch["tokens"]
     targets = tokens[:, 1:]

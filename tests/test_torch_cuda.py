@@ -1012,3 +1012,88 @@ def test_a_chunk_that_syncs_raises_under_capture(dev):
         eng.run_chunk(alg.init(p0), part, g, 2)
     state, m = alg.round(alg.init(p0), part, g)
     assert float(m["sim_time"]) == alg.fed.swt + alg.fed.sit
+
+
+# ---------------------------------------------------------------------------
+# federated LM training (launch/train.py) on the card
+# ---------------------------------------------------------------------------
+
+LM_ARGV = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4", "--seq",
+           "64", "--log-every", "1", "--lr", "0.05", "--steps", "3"]
+
+
+def test_lm_quafl_round_on_cuda_equals_torch_round(dev):
+    """One reduced-width QuAFL round of llama3.2-1b on the CUDA kernels
+    against the same round on their plain versions, from copies of one
+    generator (the same draws): bits equal, and the server and clients
+    within one lattice step (the round's largest γ: a code may flip at a
+    rounding boundary; the codes are otherwise exact)."""
+    from functools import partial
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.synthetic import federated_token_task
+    from repro_torch.fed import make_algorithm
+    from repro_torch.launch.train import shape_template
+    from repro_torch.models.model import init_lm, lm_loss
+    cfg = get_reduced("llama3.2-1b")
+    data, batch_fn = federated_token_task(0, 2, 16, 4, 64, cfg.vocab_size,
+                                          device=dev)
+    out = {}
+    for backend in ("cuda", "torch"):
+        p0, _ = init_lm(cfg, seed=0, device=dev)
+        fed = FedConfig(n_clients=2, s=2, local_steps=2, lr=0.05,
+                        kernel_backend=backend)
+        alg = make_algorithm("quafl", fed, loss_fn=partial(lm_loss, cfg),
+                             template=shape_template(p0), batch_fn=batch_fn,
+                             batch_size=4, device=dev)
+        gammas = []
+        enc = alg.pipeline.rotate_encode
+
+        def rotate_encode(x2, sg, u2, gam, _enc=enc, _log=gammas, **kw):
+            _log.append(float(gam.max()))
+            return _enc(x2, sg, u2, gam, **kw)
+
+        quant = alg.pipeline.quantize
+
+        def quantize(y2, u2, gam, wire=None, _q=quant, _log=gammas):
+            _log.append(float(gam.max()))
+            return _q(y2, u2, gam, wire)
+
+        alg.pipeline.rotate_encode = rotate_encode
+        alg.pipeline.quantize = quantize
+        g = torch.Generator(device=dev)
+        g.manual_seed(7)
+        state, m = alg.round(alg.init(p0), data, g)
+        out[backend] = (state, m, max(gammas))
+    (sc, mc, step), (sp, mp, _) = out["cuda"], out["torch"]
+    assert mc["bits_up"] == mp["bits_up"] and mc["bits"] == mp["bits"]
+    for a, b in ((sc.server, sp.server), (sc.clients, sp.clients)):
+        assert float((a - b).abs().max()) <= step
+
+
+def test_lm_scan_chunk_run_equals_eager_run(dev):
+    """``--scan-chunk 2`` (chunks captured as CUDA graphs) against the
+    eager run of the same reduced LM: rows and the server bit-equal."""
+    from repro_torch.launch import train
+    eager = train.main(LM_ARGV + ["--steps", "4"])
+    chunked = train.main(LM_ARGV + ["--steps", "4", "--scan-chunk", "2"])
+    assert chunked.trace.engine == "scanned"
+    for a, b in zip(eager.trace.rows, chunked.trace.rows):
+        for k in ("bits_up", "bits_down", "sim_time", "quant_err",
+                  "server_loss"):
+            assert a[k] == b[k], (k, a, b)
+    assert torch.equal(eager.trace.final_state.server,
+                       chunked.trace.final_state.server)
+
+
+def test_int8_sign_draws_equal_int64_on_the_card(dev):
+    g1, g2 = torch.Generator(device=dev), torch.Generator(device=dev)
+    g1.manual_seed(5)
+    g2.manual_seed(5)
+    n = 1_000_003
+    want = (torch.randint(0, 2, (n,), generator=g2, device=dev) * 2
+            - 1).to(torch.float32)
+    assert torch.equal(signs(g1, n), want)
+    assert torch.equal(torch.rand(7, generator=g1, device=dev),
+                       torch.rand(7, generator=g2, device=dev))

@@ -32,6 +32,12 @@ from repro_torch.compression.rotation import pad_len  # noqa: E402
 from repro_torch.utils import interop  # noqa: E402
 
 
+def pool_size(data) -> int:
+    """Rows per client of per-client datasets, (n, m, ...) leaves: the
+    classification task's ``x`` and ``y``, or the LM task's ``tokens``."""
+    return int(next(iter(data.values())).shape[1])
+
+
 def tt(a, dtype=None) -> torch.Tensor:
     """A numpy (or JAX) array as a CPU tensor."""
     t = torch.from_numpy(np.array(a, copy=True))
@@ -109,7 +115,7 @@ def reference_round_draws(alg, state, data, key, batch: int):
     got = gather_rows(state.pop, idx)
     elapsed = state.sim_time + fed.swt + fed.sit - got["last_time"]
     h_steps = alg.part.h_steps(k_h, idx, got["lam"], elapsed, K)
-    m = data["y"].shape[1]
+    m = pool_size(data)
     keys = jax.random.split(k_loc, s)
     bidx = np.stack([np.stack([np.asarray(jax.random.randint(
         jax.random.fold_in(keys[i], q), (batch,), 0, m)) for q in range(K)])
@@ -176,7 +182,7 @@ def reference_fedavg_draws(alg, state, data, key, batch: int, port):
     k_sel, k_loc, k_t = jax.random.split(key, 3)
     k_q = jax.random.fold_in(key, 17)
     idx = alg.part.sample(k_sel, state.t, n, s, state.pop.rows["lam"])
-    m = data["y"].shape[1]
+    m = pool_size(data)
     keys = jax.random.split(k_loc, s)
     bidx = np.stack([_batch_idx(keys[i], K, batch, m) for i in range(s)])
     lam = state.pop.rows["lam"][idx]
@@ -226,7 +232,7 @@ def reference_sequential_draws(alg, data, key, batch: int):
     """``Sequential.round``'s batch of client 0 and its Exp(λ_slow) step
     time (``core/baseline.py:55-60``)."""
     k_b, k_t = jax.random.split(key)
-    m = data["y"].shape[1]
+    m = pool_size(data)
     return {"batch_idx": tt(np.asarray(jax.random.randint(
                 k_b, (batch,), 0, m))),
             "duration": tt(np.asarray(jax.random.exponential(k_t)

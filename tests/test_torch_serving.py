@@ -165,5 +165,11 @@ def test_serve_cli_on_the_cpu(capsys):
                        "--requests", "5", "--max-new", "4"])
     assert len(done) == 5 and all(len(r.out_tokens) == 4 for r in done)
     assert "served 5 requests, 20 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        serve.main(["--from-algo", "quafl", "--device", "cpu"])
+    # --from-algo: two QuAFL rounds on the LM token task, then serve the
+    # run's eval_params
+    done = serve.main(["--arch", "llama3.2-1b", "--device", "cpu",
+                       "--from-algo", "quafl", "--algo-rounds", "2",
+                       "--requests", "3", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "serving eval_params of a quafl run (2 rounds, sim_t=22)" in out
+    assert len(done) == 3 and all(len(r.out_tokens) == 4 for r in done)
