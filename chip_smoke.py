@@ -64,6 +64,17 @@ then drives the port's paths:
   coordinates; then every registry algorithm two rounds at reduced width,
   a ``--scan-chunk 2`` run against its eager run, and a checkpoint saved
   and restored;
+* the mesh train step (``--algo spmd``, ``launch/train.py``'s default),
+  in a process of its own over an NCCL process group of one rank (an
+  in-memory store): llama3.2-1b at full width, five rounds of the default
+  ``dequant_psum`` transport (bits exact every round, 9,886,515,552 each
+  way; 2 encodes and 2 decodes a leaf), the peak memory, ms and device ms a
+  round and NCCL's kernels, then one ``shard_local`` round (2 encodes, 3
+  rotations, 2 snaps a leaf); at reduced width each of the five transports
+  on the local (1, 1) mesh and on the NCCL group, bit-equal, and
+  ``simulate(scan_chunk=2)`` bit-equal to eager with the collectives
+  captured; ``scatter_encode_gather`` at embed/tok's padded length in 4
+  shards, the quantize and the snap exact against their plain versions;
 * LM serving of gemma2-2b at full width (26 layers, random weights from
   seed 0) through ``ServeEngine``: two batches of four prompts (longest 512
   and 4,608 tokens), 32 greedy tokens each, twice, then one batch sampled
@@ -2098,7 +2109,8 @@ TRAIN_PREFIX = 1 << 24            # 1,024 whole blocks of 16,384
 TRAIN_TIMED = 3                   # rounds timed alone after the run
 TRAIN_FULL_TIMEOUT = 600          # seconds for the full-width process
 REDUCED_ARGV = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
-                "--seq", "64", "--log-every", "1", "--lr", "0.05"]
+                "--seq", "64", "--log-every", "1", "--lr", "0.05",
+                "--algo", "quafl"]
 TRAIN_ALGOS = ("quafl", "fedavg", "compressed_fedavg", "fedbuff",
                "fedbuff_device", "sequential", "quafl_scaffold",
                "adaptive_quafl")
@@ -2145,7 +2157,7 @@ def recording_ops(ops, log: list):
 
     return ops._replace(**{f: wrap(f, getattr(ops, f))
                            for f in ("rotate", "encode", "quantize",
-                                     "snap")})
+                                     "snap", "decode")})
 
 
 def check_train_prefixes(kx, log) -> dict:
@@ -2154,18 +2166,22 @@ def check_train_prefixes(kx, log) -> dict:
     codes within ±1 mod L at rounding boundaries (counted), snaps within
     DECODE_TOL of max|x|."""
     plain = {"rotate": kx.rotate_plain, "encode": kx.encode_plain,
-             "quantize": kx.quantize_plain, "snap": kx.snap_plain}
+             "quantize": kx.quantize_plain, "snap": kx.snap_plain,
+             "decode": kx.decode_plain}
     out = []
     for name, args, kw, got in log:
         want = plain[name](*args, **kw)
         row = {"op": name, "shape": list(args[0].shape)}
         if name == "encode":
-            (y, codes), (y_w, codes_w) = got, want
-            row["rel_err"] = float((y - y_w).abs().max() / y_w.abs().max())
+            codes, codes_w = got, want
+            if isinstance(got, tuple):
+                (y, codes), (y_w, codes_w) = got, want
+                row["rel_err"] = float((y - y_w).abs().max()
+                                       / y_w.abs().max())
+                assert row["rel_err"] <= ROT_TOL, row
             gap = code_gap(codes, codes_w, 1 << kw["bits"])
             row.update(code_mismatches=int((gap > 0).sum()),
                        max_gap=int(gap.max()))
-            assert row["rel_err"] <= ROT_TOL, row
         elif name == "quantize":
             gap = code_gap(got, want, 1 << kw["bits"])
             row.update(code_mismatches=int((gap > 0).sum()),
@@ -2180,6 +2196,19 @@ def check_train_prefixes(kx, log) -> dict:
             assert row["code_mismatches"] <= (ENC_MISMATCH_FRAC
                                               * got_numel(got)), row
         out.append(row)
+    return out
+
+
+def check_summary(rows) -> dict:
+    """Per op: calls checked, the largest relative error, the ±1 code
+    mismatches."""
+    out = {}
+    for r in rows:
+        o = out.setdefault(r["op"], {"calls": 0, "max_rel_err": 0.0,
+                                     "code_mismatches": 0})
+        o["calls"] += 1
+        o["max_rel_err"] = max(o["max_rel_err"], r.get("rel_err", 0.0))
+        o["code_mismatches"] += r.get("code_mismatches", 0)
     return out
 
 
@@ -2427,12 +2456,352 @@ def run_train_full() -> None:
                            f"{proc.returncode}")
 
 
+# ---------------------------------------------------------------------------
+# path 10: the mesh train step (spmd) on an NCCL process group of one rank
+# ---------------------------------------------------------------------------
+
+SPMD_ARGV = ["--arch", "llama3.2-1b", "--batch", "8", "--seq", "128",
+             "--local-steps", "2", "--lr", "0.02", "--steps", "5",
+             "--log-every", "1", "--seed", "0", "--kernel-backend", "cuda"]
+# one uplink message and the downlink broadcast of the 11 leaves, each
+# padded on its own (n_slots = 1; dequant_psum charges no extra)
+SPMD_BITS = 9_886_515_552
+SPMD_LEAVES = 11
+# launches a leaf: the whole-leaf family's uplink and downlink encodes and
+# decodes; the shard-local exchange's 2 encodes, 3 rotations and 2 snaps
+SPMD_LAUNCHES = {"fused_encode": 2, "fused_rotate": 0, "quantize_codes": 0,
+                 "snap_codes": 0, "fused_decode": 2}
+SHARD_LOCAL_LAUNCHES = {"fused_encode": 2, "fused_rotate": 3,
+                        "quantize_codes": 0, "snap_codes": 2,
+                        "fused_decode": 0}
+SPMD_TIMED = 3
+SPMD_TIMEOUT = 600                # seconds for the spmd process
+SPMD_REDUCED = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
+                "--seq", "64", "--local-steps", "2", "--lr", "0.05",
+                "--seed", "0"]
+SPMD_TRANSPORTS = ("dequant_psum", "code_allgather", "shard_local",
+                   "shard_local_codes", "shard_local_rs")
+SPMD_ROUNDS = 3
+EMBED_D_PAD, SCATTER_SHARDS = 262_668_288, 4     # embed/tok, 128,256 × 2,048
+
+
+def nccl_group_of_one() -> None:
+    """An NCCL process group of one rank on the card, from an in-memory
+    store (no port)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def nccl_kernels(kernels) -> dict:
+    """Launches of NCCL's kernels among the device events."""
+    return {e.key[:60]: e.count for e in kernels if "nccl" in e.key.lower()}
+
+
+def spmd_full(smi, kx) -> dict:
+    """Five rounds of ``launch/train.py``'s defaults (``--algo spmd
+    --transport dequant_psum``) on llama3.2-1b at full width over the NCCL
+    group of one (counts from 0 just before, read just after), bits exact;
+    a profiled round, rounds timed alone, then a round of each family with
+    every launch held against its plain version on its first TRAIN_PREFIX
+    coordinates: the whole-leaf round, and one with ``--transport
+    shard_local`` on the same state."""
+    from repro_torch.compression import pipeline
+    from repro_torch.configs import get_config
+    from repro_torch.fed import make_algorithm
+    from repro_torch.launch import train
+    from repro_torch.models.model import lm_loss
+    args = train.parse_args(SPMD_ARGV)
+    assert (args.algo, args.transport) == ("spmd", "dequant_psum")
+    cfg = get_config(args.arch)
+    dev = torch.device("cuda", 0)
+    kx.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.run_registry(args, cfg, train.fed_config(args), device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kx.LAUNCHES)
+    peak_run = torch.cuda.max_memory_allocated()
+    alg, tr, data = run.alg, run.trace, run.data
+    state, tr.final_state = tr.final_state, None
+    del run
+    assert alg.mesh.distributed and alg.n_slots == 1, alg.mesh
+    assert alg._bits_up_msg == alg._bits_down_msg == SPMD_BITS
+    for r in tr.rows:
+        assert r["bits_up"] == SPMD_BITS and r["bits_down"] == SPMD_BITS, r
+        assert math.isfinite(r["server_loss"]), r
+    assert float(state.bits_up) == float(state.bits_down) == \
+        SPMD_BITS * tr.rounds
+    want = {k: v * SPMD_LEAVES * tr.rounds for k, v in SPMD_LAUNCHES.items()}
+    assert launches == want, (launches, want)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), wall, kernels = profiled(
+        lambda: alg.round(state, data, gen))
+    peak_round = torch.cuda.max_memory_allocated()
+    per_round = port_launches(kernels)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    walls = []
+    for _ in range(SPMD_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = alg.round(state, data, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+
+    # a round of each family with every launch recorded on its first
+    # TRAIN_PREFIX coordinates (whole blocks) and held against the plain
+    # versions: the whole-leaf round, then one of the shard-local exchange
+    # on the same state (its pipeline takes the recording backend when
+    # built)
+    cuda_ops, log = pipeline._REGISTRY["cuda"], []
+    pipeline._REGISTRY["cuda"] = recording_ops(cuda_ops, log)
+    try:
+        state, _ = alg.round(state, data, gen)
+        torch.cuda.synchronize()
+        checks = check_train_prefixes(kx, log)
+        log.clear()
+        fed_sl = dataclasses.replace(alg.fed, transport="shard_local")
+        sl = make_algorithm("spmd", fed_sl, loss_fn=None,
+                            template=alg.template, cfg=cfg, mesh=alg.mesh,
+                            batch=args.batch, seq=args.seq, device=dev)
+        kx.reset_launches()
+        state, m_sl = sl.round(state, data, gen)
+        torch.cuda.synchronize()
+        sl_launches = dict(kx.LAUNCHES)
+        sl_checks = check_train_prefixes(kx, log)
+    finally:
+        pipeline._REGISTRY["cuda"] = cuda_ops
+    del log
+    ops_of = {"fused_encode": "encode", "fused_rotate": "rotate",
+              "snap_codes": "snap", "fused_decode": "decode"}
+    for rows, per_leaf in ((checks, SPMD_LAUNCHES),
+                           (sl_checks, SHARD_LOCAL_LAUNCHES)):
+        got = check_summary(rows)
+        assert {op: got[op]["calls"] for op in got} == {
+            ops_of[k]: n * SPMD_LEAVES for k, n in per_leaf.items() if n}, got
+    assert sl_launches == {k: v * SPMD_LEAVES for k, v in
+                           SHARD_LOCAL_LAUNCHES.items()}, sl_launches
+    assert m_sl["bits_up"] == m_sl["bits_down"] == SPMD_BITS
+    with torch.no_grad():
+        loss_sl = float(lm_loss(cfg, sl.eval_params(state),
+                                {"tokens": data["tokens"][0, :args.batch]})[0])
+    assert math.isfinite(loss_sl) and math.isfinite(float(m_sl["quant_err"]))
+    v_bytes = 4 * LLAMA_D
+    res = {"phase": "spmd_full", "arch": cfg.name,
+           "mesh": dict(alg.mesh.shape),
+           "backend": "nccl", "world_size": 1, "transport": args.transport,
+           "d": LLAMA_D, "n_slots": alg.n_slots, "batch": args.batch,
+           "seq": args.seq, "local_steps": args.local_steps,
+           "rounds": tr.rounds,
+           "server_loss": [r["server_loss"] for r in tr.rows],
+           "quant_err": [r["quant_err"] for r in tr.rows],
+           "bits_up_a_round": SPMD_BITS, "bits_down_a_round": SPMD_BITS,
+           "launches": launches, "launches_a_round_profiled": per_round,
+           "ms_per_round": tr.us_per_round / 1e3,
+           "row_wall_s": [r["wall_time_s"] for r in tr.rows],
+           "timed_round_ms": walls, "seconds_with_init": seconds,
+           "profiled_round_wall_ms": wall * 1e3,
+           "device_ms_a_round": device_ms,
+           "device_launches_a_round": sum(e.count for e in kernels),
+           "device_busy_share": device_ms / (wall * 1e3),
+           "nccl_kernels_a_round": nccl_kernels(kernels),
+           "peak_bytes_run": peak_run, "peak_bytes_round": peak_round,
+           "peak_model_copies": peak_run / v_bytes,
+           "top_kernels": [(e.key[:70], e.count,
+                            e.self_device_time_total / 1e3) for e in top],
+           "shard_local": {"launches": sl_launches, "loss": loss_sl,
+                           "quant_err": float(m_sl["quant_err"])},
+           "prefix_checks": {"dequant_psum": check_summary(checks),
+                             "shard_local": check_summary(sl_checks)},
+           "nvidia_smi": smi}
+    emit(res)
+    return res
+
+
+def spmd_states_equal(a, b) -> int:
+    """Unequal elements between two spmd states' servers and clients."""
+    n = 0
+    for part in ("server", "clients"):
+        x, y = getattr(a.train, part), getattr(b.train, part)
+        n += sum(int((x[k] != y[k]).sum()) for k in x)
+    return n
+
+
+def spmd_reduced(smi, kx) -> dict:
+    """Reduced llama3.2-1b: each transport on the local (1, 1) mesh and on
+    the NCCL group of one, bit-equal (servers, clients, metrics), NCCL's
+    kernels counted in a profiled round; ``simulate(scan_chunk=2)`` against
+    the eager run on the NCCL mesh, bit for bit (the collectives captured
+    in the chunk's graph); ``scatter_encode_gather`` at embed/tok's padded
+    length in 4 shards on the kernels against the plain versions."""
+    from repro_torch.compression.pipeline import ExchangePipeline, LatticeWire
+    from repro_torch.compression.transports import scatter_encode_gather
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.synthetic import federated_token_task
+    from repro_torch.fed import make_algorithm, simulate
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh, make_mesh
+    from repro_torch.models.model import init_lm
+    args = train.parse_args(SPMD_REDUCED)
+    cfg = get_reduced(args.arch)
+    dev = torch.device("cuda", 0)
+    meshes = {"local": Mesh((1, 1), ("data", "model")),
+              "nccl": make_mesh((1, 1), ("data", "model"))}
+    assert meshes["nccl"].distributed and not meshes["local"].distributed
+    p0, _ = init_lm(cfg, seed=0, device=dev)
+    data, _ = federated_token_task(0, 1, 64, args.batch, args.seq,
+                                   cfg.vocab_size, device=dev)
+    out = {"phase": "spmd", "arch": cfg.name + " (reduced)",
+           "transports": {}, "nvidia_smi": smi}
+    kx.reset_launches()
+    for tr_name in SPMD_TRANSPORTS:
+        fed = dataclasses.replace(train.fed_config(args), n_clients=1, s=1,
+                                  transport=tr_name)
+        runs = {}
+        for label, mesh in meshes.items():
+            alg = make_algorithm("spmd", fed, loss_fn=None, template=p0,
+                                 cfg=cfg, mesh=mesh, batch=args.batch,
+                                 seq=args.seq, device=dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(7)
+            st, ms = alg.init(p0), []
+            for _ in range(SPMD_ROUNDS):
+                st, m = alg.round(st, data, gen)
+                ms.append({k: float(v) for k, v in m.items()})
+            runs[label] = (alg, st, ms)
+        unequal = spmd_states_equal(runs["local"][1], runs["nccl"][1])
+        assert unequal == 0, (tr_name, unequal)
+        assert runs["local"][2] == runs["nccl"][2], tr_name
+        alg, st, _ = runs["nccl"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(8)
+        _, wall, kernels = profiled(lambda: alg.round(st, data, gen))
+        out["transports"][tr_name] = {
+            "unequal": unequal, "metrics": runs["nccl"][2][-1],
+            "nccl_kernels_a_round": nccl_kernels(kernels),
+            "port_launches_a_round": port_launches(kernels),
+            "profiled_round_wall_ms": wall * 1e3}
+    torch.cuda.synchronize()
+    out["launches"] = dict(kx.LAUNCHES)
+
+    # chunked against eager on the NCCL mesh: the collectives inside the
+    # captured graph
+    out["chunked"] = {}
+    for tr_name in ("dequant_psum", "shard_local_codes"):
+        fed = dataclasses.replace(train.fed_config(args), n_clients=1, s=1,
+                                  transport=tr_name)
+        traces = {}
+        for chunk in (0, 2):
+            alg = make_algorithm("spmd", fed, loss_fn=None, template=p0,
+                                 cfg=cfg, mesh=meshes["nccl"],
+                                 batch=args.batch, seq=args.seq, device=dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(9)
+            traces[chunk] = simulate(alg, p0, data, gen, rounds=4,
+                                     eval_every=0, record_every=1,
+                                     scan_chunk=chunk)
+        assert traces[2].engine == "scanned"
+        for key in ("bits_up", "bits_down", "sim_time", "quant_err",
+                    "h_steps_mean"):
+            assert traces[0].column(key) == traces[2].column(key), key
+        unequal = spmd_states_equal(traces[0].final_state,
+                                    traces[2].final_state)
+        assert unequal == 0, (tr_name, unequal)
+        out["chunked"][tr_name] = {
+            "unequal": unequal,
+            "us_per_round_eager": traces[0].us_per_round,
+            "us_per_round_chunked": traces[2].us_per_round,
+            "graph_times": round_graph_times(alg)}
+
+    # the fused reduce-scatter's redistribution at embed/tok's padded
+    # length, 4 shards: quantize_codes then snap_codes on the kernels
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    vec = torch.randn((1, EMBED_D_PAD), generator=g, device=dev)
+    ref = vec + 0.01 * torch.randn((1, EMBED_D_PAD), generator=g, device=dev)
+    u = torch.rand((SCATTER_SHARDS, EMBED_D_PAD // SCATTER_SHARDS),
+                   generator=g, device=dev)
+    gam = torch.full((1,), 0.002, device=dev)
+    wire = LatticeWire(bits=8)
+    pipes = {b: ExchangePipeline(bits=8, backend=b)
+             for b in ("cuda", "torch")}
+    kx.reset_launches()
+    dec, codes = scatter_encode_gather(pipes["cuda"], wire, vec, ref, gam, u,
+                                       SCATTER_SHARDS)
+    torch.cuda.synchronize()
+    sc_launches = dict(kx.LAUNCHES)
+    assert sc_launches["quantize_codes"] == 1 and \
+        sc_launches["snap_codes"] == 1, sc_launches
+    dec_p, codes_p = scatter_encode_gather(pipes["torch"], wire, vec, ref,
+                                           gam, u, SCATTER_SHARDS)
+    code_unequal = int((codes != codes_p).sum())
+    dec_unequal = int((dec != dec_p).sum())
+    assert code_unequal == 0 and dec_unequal == 0, (code_unequal,
+                                                    dec_unequal)
+    del dec_p, codes_p, dec, codes
+    torch.cuda.empty_cache()
+    ms = {b: time_ms(lambda b=b: scatter_encode_gather(
+        pipes[b], wire, vec, ref, gam, u, SCATTER_SHARDS), 5)
+        for b in ("cuda", "torch")}
+    out["scatter_encode_gather"] = {
+        "d_pad": EMBED_D_PAD, "shards": SCATTER_SHARDS,
+        "launches": sc_launches, "code_unequal": code_unequal,
+        "decode_unequal": dec_unequal, "ms": ms["cuda"],
+        "plain_ms": ms["torch"]}
+    emit(out)
+    return out
+
+
+def round_graph_times(alg) -> dict:
+    from repro_torch.fed.simulate import round_engine
+    return round_engine(alg).graph_times()
+
+
+def spmd_phases() -> int:
+    """``chip_smoke.py --spmd``, in a process of its own: the NCCL group
+    of one, then ``spmd_full`` and ``spmd`` (each path's counts from 0
+    just before, read just after)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import exchange as kx
+    smi = smi_line()
+    nccl_group_of_one()
+    try:
+        spmd_full(smi, kx)
+        torch.cuda.empty_cache()
+        spmd_reduced(smi, kx)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_spmd() -> None:
+    """``chip_smoke.py --spmd`` in a process of its own, its lines
+    relayed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--spmd"], capture_output=True, text=True,
+                          timeout=SPMD_TIMEOUT)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise RuntimeError(f"the spmd phases exited {proc.returncode}")
+    emit({"phase": "spmd_process", "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:] == ["--train-full"]:
         return train_full()
+    if sys.argv[1:] == ["--spmd"]:
+        return spmd_phases()
     from repro_torch import default_device
     from repro_torch.fed.engine import clone_tree
     from repro_torch.kernels import build
@@ -2442,6 +2811,7 @@ def main() -> int:
     from repro_torch.kernels import lattice_quant as lq
     from repro_torch.kernels import ops
 
+    t_script = time.perf_counter()
     dev = default_device()
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
@@ -2484,6 +2854,8 @@ def main() -> int:
     # the card's memory to itself (counts from 0 just before and read just
     # after, inside it)
     run_train_full()
+    # path 10, the mesh train step: its own process, an NCCL group of one
+    run_spmd()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -2718,6 +3090,7 @@ def main() -> int:
     launches.update(ops_launches)
     device_ms.update({k: ops_times[k]["device_ms"] for k in OPS_SYMBOLS})
 
+    emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     emit({"kernels": [dict(name=k, route="cuda", source=SOURCES[k],
                            replaces=REPLACES[k], launches=launches[k],
                            max_abs_err=errors[k], **timings[k],

@@ -2,7 +2,8 @@
 
 A codec is ``keys(generator, m, d) -> MessageKey``, ``encode(key, x, hint)
 -> msg``, ``decode(key, msg, ref) -> x̂`` and ``message_bits(d)``, the wire
-accounting every algorithm's ``bits_up`` / ``bits_down`` come from. Every
+accounting every algorithm's ``bits_up`` / ``bits_down`` come from
+(``wire_declaration(d)`` states the same wire as data). Every
 call is batched over a leading message axis (:mod:`.lattice`). Codecs that
 carry encoder state from round to round (error feedback) set ``stateful``
 and implement ``init_state(d)`` and ``encode_stateful(key, x, hint, state)
@@ -47,6 +48,34 @@ from repro_torch.utils.specs import parse_spec
 # FedConfig.quantizer legacy names -> codec names
 _LEGACY_QUANTIZER = {"lattice": "lattice", "qsgd": "scalar",
                      "none": "identity"}
+
+
+class WirePart(NamedTuple):
+    """One named component of a codec's per-message wire format:
+    ``elems`` values in ``container_bits``-wide containers, charging
+    ``charged_bits`` of ``message_bits(d)``."""
+    part: str             # "codes" | "idx" | "vals" | "gamma" | "levels"
+    elems: int            # per-message element count on the wire
+    container_bits: int   # width of the container that crosses the wire
+    charged_bits: int     # contribution to message_bits(d)
+    kind: str             # "int" | "float"
+    payload: bool         # coordinate payload vs. 32-bit side-channel row
+
+
+class WireDecl(NamedTuple):
+    """A codec's declared wire format (the transports' byte budgets read
+    it); ``moduli`` are the lattice wrap moduli, ``safety`` the wrap
+    window's head-room factor."""
+    codec: str
+    parts: Tuple[WirePart, ...]
+    moduli: Tuple[int, ...] = ()
+    safety: float = 0.0
+
+    def part(self, name: str) -> WirePart:
+        for p in self.parts:
+            if p.part == name:
+                return p
+        raise KeyError(name)
 
 
 @runtime_checkable
@@ -116,6 +145,10 @@ class IdentityCodec(CodecBase):
     def message_bits(self, d: int) -> int:
         return d * 32
 
+    def wire_declaration(self, d: int) -> WireDecl:
+        return WireDecl(codec=self.name, parts=(
+            WirePart("codes", d, 32, d * 32, "float", True),))
+
 
 @dataclass(frozen=True)
 class ScalarCodec(CodecBase):
@@ -146,6 +179,12 @@ class ScalarCodec(CodecBase):
 
     def message_bits(self, d: int) -> int:
         return self.quant.message_bits(d)
+
+    def wire_declaration(self, d: int) -> WireDecl:
+        return WireDecl(codec=self.name, parts=(
+            WirePart("codes", d, _storage_bits(self.bits), d * self.bits,
+                     "int", True),
+            WirePart("gamma", 1, 32, 32, "float", False)))
 
 
 @dataclass(frozen=True)
@@ -191,6 +230,18 @@ class LatticeCodec(CodecBase):
     def message_bits(self, d: int) -> int:
         per = self.bits if self.packed else _storage_bits(self.bits)
         return pad_len(d, self.block) * per + 32  # + γ scalar
+
+    def wire_declaration(self, d: int) -> WireDecl:
+        dp = pad_len(d, self.block)
+        per = self.bits if self.packed else _storage_bits(self.bits)
+        # packed wire: d_pad/pack uint8 containers each holding `pack`
+        # codes; unpacked: d_pad containers at the storage width
+        container = 8 if self.packed else _storage_bits(self.bits)
+        return WireDecl(codec=self.name, parts=(
+            WirePart("codes", dp // self.pack, container, dp * per,
+                     "int", True),
+            WirePart("gamma", 1, 32, 32, "float", False)),
+            moduli=(1 << self.bits,), safety=self.safety)
 
 
 @dataclass(frozen=True)
@@ -255,6 +306,18 @@ class GroupedLatticeCodec(CodecBase):
         # cannot snap a heterogeneous-width message without its modulus,
         # so the row is charged wire traffic
         return pad_len(d, self.block) * max(self.wire_width_per_client) + 64
+
+    def wire_declaration(self, d: int) -> WireDecl:
+        dp = pad_len(d, self.block)
+        w_max = max(self.wire_width_per_client)
+        return WireDecl(codec=self.name, parts=(
+            WirePart("codes", dp, _storage_bits(self.bits), dp * w_max,
+                     "int", True),
+            WirePart("gamma", 1, 32, 32, "float", False),
+            WirePart("levels", 1, 32, 32, "float", False)),
+            moduli=tuple(sorted({1 << int(b)
+                                 for b in self.bits_per_client})),
+            safety=self.safety)
 
     def message_bits_per_client(self, d: int) -> np.ndarray:
         dp = pad_len(d, self.block)
@@ -350,6 +413,12 @@ class TopKEFCodec(CodecBase):
 
     def message_bits(self, d: int) -> int:
         return self.k_for(d) * (32 + 32)   # (index, value) pairs
+
+    def wire_declaration(self, d: int) -> WireDecl:
+        k = self.k_for(d)
+        return WireDecl(codec=self.name, parts=(
+            WirePart("idx", k, 32, k * 32, "int", True),
+            WirePart("vals", k, 32, k * 32, "float", True)))
 
 
 def _reject_extra(kw: Dict[str, Any], name: str):

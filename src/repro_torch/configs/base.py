@@ -3,7 +3,8 @@ schedule and model architecture of the LM zoo, and the federation knobs.
 The port's model runs the dense decoders, so ``ModelConfig`` holds only the
 fields they read; the MoE, Mamba and MLA blocks' configs and the reference's
 long-context and frontend sizes come with the slice that ports those blocks
-(ROADMAP Queue 1 item 12)."""
+(ROADMAP Queue 1 item 12). ``ShapeConfig`` holds the fields the mesh
+train step reads."""
 from __future__ import annotations
 
 import dataclasses
@@ -99,3 +100,22 @@ class FedConfig:
     # 'gamma_straggler:strength=2', 'cyclic:period=8,phase_groups=4');
     # "" = uniform
     participation: str = ""
+    # aggregation transport on the mesh:
+    #  'dequant_psum'  — faithful: decode locally then all-reduce fp32
+    #  'code_allgather'— beyond-paper: all-gather packed codes, decode after
+    #  'shard_local' / 'shard_local_codes' / 'shard_local_rs' — the whole
+    #  exchange on each rank's blocks (repro_torch.core.exchange_local),
+    #  client sum carried by the named repro_torch.compression.transports
+    #  strategy (fp32 psum / packed-code all-gather / fused reduce_scatter
+    #  with the scatter-resident coded re-gather)
+    transport: str = "dequant_psum"
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape: the mesh train step reads ``seq_len`` and
+    ``global_batch`` (``kind`` 'train')."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # 'train' | 'prefill' | 'decode'

@@ -12,7 +12,10 @@
   ``scan_rounds(state, data, generator, length)`` and chunks itself; one
   with host set-up before its first round (the device FedBuff seeds its
   ring) provides ``begin(state, generator) -> state``, which the engine
-  calls before each chunk, outside any captured region.
+  calls before each chunk, outside any captured region. One that draws
+  from generators of its own besides the caller's (the mesh algorithm's
+  exchange streams) lists them in ``generators()``: the engine registers
+  them with its graphs and keeps the warm-up from moving them.
 
 * **:class:`RoundEngine`.** ``run_chunk`` runs ``length`` rounds. On the
   CPU it is a plain Python loop over ``device_round``, the engine's plain
@@ -21,6 +24,10 @@
   that, so a chunk costs one graph launch instead of a few hundred kernel
   launches a round. A chunk that cannot be captured raises; the engine
   never runs a CUDA chunk eagerly unless built with ``capture=False``.
+  The mesh algorithm (``spmd``) captures its collectives too: its state
+  stays on the rank's device, and a chunk replays the process group's
+  collectives inside the graph. Capture runs in thread-local mode, so a
+  process group's watchdog thread may poll its events meanwhile.
 
 * **:class:`RingBuffer`.** A fixed-capacity event set on the device (times
   and client ids, empty slots at ``+inf``) in place of the host heap
@@ -402,12 +409,13 @@ class RoundEngine:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(device=dev)
         gen = self._gen
+        gens = (gen,) + tuple(getattr(self.alg, "generators", tuple)())
         times = {}
         static = clone_tree(state)
-        # warm-up on a copy, on the capture stream, from a saved generator
-        # state that is then restored: kernels build, per-device constants
-        # are made and nothing the run draws is consumed
-        saved = gen.get_state()
+        # warm-up on a copy, on the capture stream, from saved generator
+        # states that are then restored: kernels build, per-device
+        # constants are made and nothing the run draws is consumed
+        saved = [g.get_state() for g in gens]
         t0 = time.perf_counter()
         warm = clone_tree(state)
         self._stream.wait_stream(torch.cuda.current_stream(dev))
@@ -416,12 +424,15 @@ class RoundEngine:
         torch.cuda.current_stream(dev).wait_stream(self._stream)
         torch.cuda.synchronize(dev)
         del warm
-        gen.set_state(saved)
+        for g, st in zip(gens, saved):
+            g.set_state(st)
         times["warmup_ms"] = (time.perf_counter() - t0) * 1e3
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(gen)
+        for g in gens:
+            graph.register_generator_state(g)
         t0 = time.perf_counter()
-        ctx = torch.cuda.graph(graph, pool=self._pool, stream=self._stream)
+        ctx = torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                               capture_error_mode="thread_local")
         ctx.__enter__()
         try:
             st, ms = static, []

@@ -40,9 +40,14 @@ Either way ``batch_size`` is B, and the algorithm draws the row indices
                          (beyond-paper); QuAFL kwargs plus ``lo``, ``hi``,
                          ``b_min``, ``b_max``
 
-and every algorithm takes ``device``. The reference's ``spmd`` is
-registered by name and raises until its slice is ported (ROADMAP Queue 1
-item 11).
+  ``spmd``               the mesh train step behind the protocol (one
+                         client per mesh data slice,
+                         :mod:`repro_torch.launch.spmd`); kwargs ``cfg``
+                         (the ModelConfig, required), ``mesh``, ``batch``,
+                         ``seq``, ``fed_mode``, ``transport`` (``batch``
+                         is the registry's ``batch_size``)
+
+and every algorithm takes ``device``.
 Third-party variants join through :func:`register_algorithm`.
 """
 from __future__ import annotations
@@ -113,11 +118,14 @@ def _build_adaptive(fed, loss_fn, template, batch_fn, **kw):
     return AdaptiveQuaflAlgorithm(fed, make_alg, **kw)
 
 
-def _not_ported(name: str, item: str) -> Callable:
-    def build(*args, **kw):
-        raise NotImplementedError(f"algorithm {name!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item {item})")
-    return build
+def _build_spmd(fed, loss_fn, template, batch_fn, **kw):
+    # loss_fn / batch_fn are protocol-uniform arguments the mesh path does
+    # not consume: the step takes the LM loss and samples its minibatches
+    # from the token pools itself; the registry's batch_size is its batch
+    from repro_torch.launch.spmd import SpmdAlgorithm
+    if "batch_size" in kw:
+        kw.setdefault("batch", kw.pop("batch_size"))
+    return SpmdAlgorithm(fed=fed, template=template, **kw)
 
 
 # the reference's registration order
@@ -129,7 +137,7 @@ _BUILDERS: Dict[str, Callable[..., FedAlgorithm]] = {
     "quafl_scaffold": _build_scaffold,
     "adaptive_quafl": _build_adaptive,
     "fedbuff_device": _build_fedbuff_device,
-    "spmd": _not_ported("spmd", "11"),
+    "spmd": _build_spmd,
     "compressed_fedavg": _build_compressed_fedavg,
 }
 

@@ -1,37 +1,53 @@
-"""Federated LM training through the registry (port of the registry path of
+"""Federated LM training through the registry (port of
 ``repro.launch.train``).
 
-Any registry algorithm trains any ported decoder: the algorithm samples
-each client's minibatch rows from a per-client token pool
-(:func:`~repro_torch.data.synthetic.federated_token_task`) and takes the
-LM loss's gradient one client at a time (the per-client protocol of
-:mod:`repro_torch.fed.registry`), then runs its exchange, on the CUDA
-kernels by default. Rows print as the reference's.
+Every algorithm runs through the registry and ``simulate``, the mesh train
+step included:
+
+  * ``--algo spmd`` (default) — the mesh train step behind
+    :class:`repro_torch.launch.spmd.SpmdAlgorithm`: one client per mesh
+    data slice, the quantized exchange as collectives over the mesh's
+    process groups, ``--transport`` choosing the exchange
+    (``dequant_psum`` by default, ``code_allgather``, ``shard_local``,
+    ``shard_local_codes``, ``shard_local_rs``). ``--mesh-data`` ×
+    ``--mesh-model`` ranks, one process each: a single process runs the
+    (1, 1) mesh; more ranks run under ``torchrun --nproc-per-node N``
+    (gloo on the CPU, NCCL on cards, one card a rank), and a single process
+    asked for more raises.
+  * ``--algo quafl|fedavg|...`` — any other registry algorithm: each client's
+    minibatch rows are sampled from its token pool
+    (:func:`~repro_torch.data.synthetic.federated_token_task`) and the LM
+    loss's gradient is taken one client at a time, then the exchange runs
+    on the CUDA kernels by default. The mesh flags are read by ``spmd``
+    only.
+
+Rows print as the reference's (from rank 0).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
       --reduced --steps 4 --batch 4 --seq 64 --log-every 1 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --reduced --mesh-data 2 --steps 4 --batch 4 --seq 64 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
-      --algo quafl --steps 5 --batch 8 --seq 128 --log-every 1
+      --steps 5 --batch 8 --seq 128 --log-every 1
 
-The second runs on the card at the published width (1,235,814,400
-parameters; about 15 fp32 copies of the model live at once at n = s = 2).
-It runs on the card unless ``--device cpu`` asks for the CPU.
+The last runs on the card at the published width (1,235,814,400
+parameters). It runs on the card unless ``--device cpu`` asks for the CPU.
 ``--scan-chunk K`` runs the round engine's K-round chunks (CUDA graphs on
-the card); ``--kernel-backend`` picks the exchange's CUDA kernels
-(``cuda``) or their plain versions (``torch``); ``--checkpoint-dir`` saves
-the final ``eval_params`` in the reference's checkpoint layout.
-
-The reference's default ``--algo spmd`` (the mesh-sharded train step) and
-the flags only the mesh path reads (``--transport``, ``--mesh-data``,
-``--mesh-model``) raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+the card, the mesh's collectives captured inside); ``--kernel-backend``
+picks the exchange's CUDA kernels (``cuda``) or their plain versions
+(``torch``); ``--checkpoint-dir`` saves the final ``eval_params`` in the
+reference's checkpoint layout.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 from functools import partial
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import default_device
 from repro_torch.checkpoint import save_checkpoint
@@ -41,9 +57,6 @@ from repro_torch.data.synthetic import federated_token_task, lm_token_stream
 from repro_torch.fed import make_algorithm, simulate
 from repro_torch.models.model import init_lm, lm_loss
 
-MESH_ONLY = "the mesh path (ROADMAP Queue 1 item 11) is not ported yet"
-# the reference's defaults of the flags only its mesh path reads
-MESH_DEFAULTS = {"transport": "dequant_psum", "mesh_data": 1, "mesh_model": 1}
 EVAL_SEED = 999
 
 
@@ -60,36 +73,57 @@ def shape_template(params):
             for k, v in params.items()}
 
 
-def refuse_mesh_flags(args) -> None:
-    if args.algo == "spmd":
-        raise NotImplementedError(f"--algo spmd: {MESH_ONLY}")
-    for flag, default in MESH_DEFAULTS.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {getattr(args, flag)}: only the "
-                f"mesh path reads it, and {MESH_ONLY}")
+def init_distributed(device) -> torch.device:
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment): join the
+    process group — gloo on the CPU, NCCL on cards, rank r on card
+    ``LOCAL_RANK`` — unless the caller already made one. Returns the
+    device this rank runs on."""
+    dev = default_device(device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not dist.is_initialized():
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo" if dev.type == "cpu" else "nccl")
+    return dev
+
+
+def is_rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def run_registry(args, cfg, fed: FedConfig, device=None) -> TrainRun:
     """Train through the registry and ``simulate``; prints a row every
     ``--log-every`` rounds and the engine line, as the reference."""
-    refuse_mesh_flags(args)
     dev = default_device(device)
     loss_fn = partial(lm_loss, cfg)
     # per-client token pool: every algorithm samples its minibatches with
     # replacement from these rows (the reference's sizing)
     pool = args.pool or max(256, max(4, args.local_steps) * args.batch)
-    extra = {}
+    extra = {"batch_size": args.batch}
     if args.algo in ("fedbuff", "fedbuff_device"):
-        extra = {"buffer_size": max(2, args.n_slots)}
+        extra["buffer_size"] = max(2, args.n_slots)
+    elif args.algo == "spmd":
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((args.mesh_data, args.mesh_model),
+                         ("data", "model"))
+        extra = {"cfg": cfg, "mesh": mesh, "batch": args.batch,
+                 "seq": args.seq, "seed": args.seed}
+        # spmd maps ONE client per mesh data slice: the client count is
+        # --mesh-data, not --n-slots
+        if args.n_slots != args.mesh_data and is_rank0():
+            print(f"[train] --algo spmd: client count comes from "
+                  f"--mesh-data ({args.mesh_data}), overriding "
+                  f"--n-slots {args.n_slots}", flush=True)
+        fed = dataclasses.replace(fed, n_clients=args.mesh_data,
+                                  s=args.mesh_data)
     data, batch_fn = federated_token_task(args.seed, fed.n_clients, pool,
                                           args.batch, args.seq,
                                           cfg.vocab_size, device=dev)
     params = [init_lm(cfg, seed=args.seed, device=dev)[0]]
     alg = make_algorithm(args.algo, fed, loss_fn=loss_fn,
                          template=shape_template(params[0]),
-                         batch_fn=batch_fn, batch_size=args.batch,
-                         device=dev, **extra)
+                         batch_fn=batch_fn, device=dev, **extra)
     gen = torch.Generator(device=dev)
     gen.manual_seed(EVAL_SEED)
     eval_toks = lm_token_stream(gen, args.batch, args.seq, cfg.vocab_size,
@@ -101,6 +135,8 @@ def run_registry(args, cfg, fed: FedConfig, device=None) -> TrainRun:
         return {"server_loss": float(loss)}
 
     def on_row(row):
+        if not is_rank0():
+            return
         print(f"round {row['round']:5d} server_loss="
               f"{row.get('server_loss', float('nan')):.4f} "
               f"sim_t={row['sim_time']:.0f} "
@@ -117,13 +153,15 @@ def run_registry(args, cfg, fed: FedConfig, device=None) -> TrainRun:
     trace = simulate(alg, params.pop(), data, gen, rounds=args.steps,
                      eval_every=args.log_every, eval_fn=eval_fn,
                      on_row=on_row, scan_chunk=args.scan_chunk)
-    print(f"engine={trace.engine} us_per_round={trace.us_per_round:.0f}",
-          flush=True)
+    if is_rank0():
+        print(f"engine={trace.engine} us_per_round="
+              f"{trace.us_per_round:.0f}", flush=True)
     if args.checkpoint_dir:
-        save_checkpoint(args.checkpoint_dir, trace.rounds,
-                        alg.eval_params(trace.final_state),
-                        extra={"arch": cfg.name, "algo": args.algo})
-        print(f"checkpoint saved to {args.checkpoint_dir}", flush=True)
+        final = alg.eval_params(trace.final_state)   # every rank gathers
+        if is_rank0():
+            save_checkpoint(args.checkpoint_dir, trace.rounds, final,
+                            extra={"arch": cfg.name, "algo": args.algo})
+            print(f"checkpoint saved to {args.checkpoint_dir}", flush=True)
     return TrainRun(trace, alg, data)
 
 
@@ -131,11 +169,11 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--algo", default="quafl",
-                    help="any registry name: quafl|fedavg|compressed_fedavg|"
-                         "fedbuff|fedbuff_device|sequential|quafl_scaffold|"
-                         "adaptive_quafl ('spmd', the mesh path, is not "
-                         "ported yet)")
+    ap.add_argument("--algo", default="spmd",
+                    help="any registry name: spmd|quafl|fedavg|"
+                         "compressed_fedavg|fedbuff|fedbuff_device|"
+                         "sequential|quafl_scaffold|adaptive_quafl ('spmd' "
+                         "= the mesh train step behind the same protocol)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -160,9 +198,12 @@ def parse_args(argv=None):
                          "derives from --quantizer/--bits")
     ap.add_argument("--codec-down", default="",
                     help="downlink codec spec (as --codec-up)")
-    ap.add_argument("--transport", default=MESH_DEFAULTS["transport"],
-                    help="mesh aggregation (the mesh path only; not ported "
-                         "yet)")
+    ap.add_argument("--transport", default="dequant_psum",
+                    help="mesh aggregation: dequant_psum|code_allgather|"
+                         "shard_local|shard_local_codes|shard_local_rs "
+                         "(the shard_local* family runs the shard-local "
+                         "exchange with the psum / code all-gather / "
+                         "reduce-scatter transport)")
     ap.add_argument("--kernel-backend", default="cuda",
                     choices=["cuda", "torch"],
                     help="the exchange's CUDA kernels, or their plain "
@@ -171,8 +212,11 @@ def parse_args(argv=None):
                     help=">=2 runs the round engine's K-round chunks (CUDA "
                          "graphs on the card); 'auto' picks K from a timed "
                          "probe")
-    ap.add_argument("--mesh-data", type=int, default=1)
-    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="clients of the spmd mesh (its data axis)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="ranks a client's blocks spread over (the spmd "
+                         "mesh's model axis)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--seed", type=int, default=0)
@@ -195,15 +239,16 @@ def fed_config(args) -> FedConfig:
                      local_steps=args.local_steps, lr=args.lr,
                      bits=args.bits, quantizer=args.quantizer,
                      codec_up=args.codec_up, codec_down=args.codec_down,
+                     transport=args.transport,
                      participation=args.participation,
                      kernel_backend=args.kernel_backend)
 
 
 def main(argv=None) -> TrainRun:
     args = parse_args(argv)
-    refuse_mesh_flags(args)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    return run_registry(args, cfg, fed_config(args), device=args.device)
+    dev = init_distributed(args.device)
+    return run_registry(args, cfg, fed_config(args), device=dev)
 
 
 if __name__ == "__main__":

@@ -111,6 +111,12 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None):
     return build_params(cfg, seed=seed, device=device)
 
 
+def abstract_lm(cfg: ModelConfig):
+    """(params as meta tensors, axes): the shapes and logical axes of the
+    LM's leaves, holding no memory."""
+    return build_params(cfg, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------

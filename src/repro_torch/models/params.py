@@ -51,6 +51,9 @@ class Ctx:
         self.axes: Dict[str, Axes] = {}
 
     def _make(self, path: str, shape, init: str, scale):
+        if self.device.type == "meta":    # shapes only (abstract_lm)
+            return torch.empty(tuple(shape), dtype=self.param_dtype,
+                               device=self.device)
         if init == "zeros":
             return torch.zeros(tuple(shape), dtype=self.param_dtype,
                                device=self.device)

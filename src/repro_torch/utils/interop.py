@@ -53,6 +53,21 @@ def _counters(t, sim_time, bits_up, bits_down, time_dtype, device):
                 bits_down=scalar(bits_down, torch.float64))
 
 
+def train_state_from_numpy(server: Dict[str, np.ndarray],
+                          clients: Dict[str, np.ndarray], t, mesh, specs,
+                          device):
+    """A reference mesh ``TrainState`` (server leaves, clients stacked
+    (n_slots, ...), all numpy) as the port's on the rank of ``mesh``: its
+    blocks of every leaf by ``specs`` (the state specs of
+    :func:`repro_torch.launch.steps.abstract_train_state`)."""
+    from repro_torch.launch.steps import shard_train_state
+    return shard_train_state(params_from_numpy(server, device),
+                             params_from_numpy(clients, device),
+                             torch.tensor(int(np.asarray(t)),
+                                          dtype=torch.int64, device=device),
+                             mesh, specs)
+
+
 def params_from_numpy(params: Dict[str, np.ndarray], device
                       ) -> Dict[str, torch.Tensor]:
     """The reference's params dict (numpy leaves) as fp32 tensors."""

@@ -1019,7 +1019,8 @@ def test_a_chunk_that_syncs_raises_under_capture(dev):
 # ---------------------------------------------------------------------------
 
 LM_ARGV = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4", "--seq",
-           "64", "--log-every", "1", "--lr", "0.05", "--steps", "3"]
+           "64", "--log-every", "1", "--lr", "0.05", "--steps", "3",
+           "--algo", "quafl"]
 
 
 def test_lm_quafl_round_on_cuda_equals_torch_round(dev):
@@ -1097,3 +1098,90 @@ def test_int8_sign_draws_equal_int64_on_the_card(dev):
     assert torch.equal(signs(g1, n), want)
     assert torch.equal(torch.rand(7, generator=g1, device=dev),
                        torch.rand(7, generator=g2, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the mesh train step (spmd) over an NCCL process group of one rank
+# ---------------------------------------------------------------------------
+
+SPMD_TRANSPORTS = ("dequant_psum", "code_allgather", "shard_local",
+                   "shard_local_codes", "shard_local_rs")
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """The (1, 1) mesh over an NCCL group of one rank (an in-memory store,
+    no port), made once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield make_mesh((1, 1), ("data", "model"))
+    dist.destroy_process_group()
+
+
+def _spmd(dev, mesh, transport):
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.synthetic import federated_token_task
+    from repro_torch.fed import make_algorithm
+    from repro_torch.models.model import init_lm
+    cfg = get_reduced("llama3.2-1b")
+    p0, _ = init_lm(cfg, seed=0, device=dev)
+    fed = FedConfig(n_clients=1, s=1, local_steps=2, lr=0.05, bits=8,
+                    transport=transport)
+    alg = make_algorithm("spmd", fed, loss_fn=None, template=p0, cfg=cfg,
+                         mesh=mesh, batch=2, seq=32, device=dev)
+    data, _ = federated_token_task(0, 1, 16, 2, 32, cfg.vocab_size,
+                                   device=dev)
+    return alg, p0, data
+
+
+def _train_equal(a, b) -> bool:
+    return all(torch.equal(a.server[k], b.server[k])
+               and torch.equal(a.clients[k], b.clients[k]) for k in a.server)
+
+
+@pytest.mark.parametrize("transport", SPMD_TRANSPORTS)
+def test_spmd_nccl_group_of_one_equals_local_mesh(dev, nccl_mesh, transport):
+    """Every collective through NCCL at one rank changes nothing: servers,
+    clients and metrics bit-equal to the local mesh's, the kernels
+    launched on both."""
+    from repro_torch.launch.mesh import Mesh
+    out = []
+    for mesh in (Mesh((1, 1), ("data", "model")), nccl_mesh):
+        alg, p0, data = _spmd(dev, mesh, transport)
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        st, ms = alg.init(p0), []
+        kx.reset_launches()
+        for _ in range(2):
+            st, m = alg.round(st, data, g)
+            ms.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        out.append((st.train, ms, dict(kx.LAUNCHES)))
+    assert _train_equal(out[0][0], out[1][0])
+    assert out[0][1] == out[1][1] and out[0][2] == out[1][2]
+    assert out[1][2]["fused_encode"] == 2 * 2 * 11
+
+
+@pytest.mark.parametrize("transport", ["dequant_psum", "shard_local_rs"])
+def test_spmd_captured_chunks_equal_eager(dev, nccl_mesh, transport):
+    """scan_chunk=2 on the NCCL mesh (the collectives captured in the
+    chunk's graph) against the eager loop: rows and state bit for bit."""
+    from repro_torch.fed import simulate
+    traces = {}
+    for chunk in (0, 2):
+        alg, p0, data = _spmd(dev, nccl_mesh, transport)
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        traces[chunk] = simulate(alg, p0, data, g, rounds=4, eval_every=0,
+                                 record_every=1, scan_chunk=chunk)
+    assert traces[2].engine == "scanned"
+    for a, b in zip(traces[0].rows, traces[2].rows):
+        assert {k: v for k, v in a.items() if k != "wall_time_s"} == \
+            {k: v for k, v in b.items() if k != "wall_time_s"}
+    assert _train_equal(traces[0].final_state.train,
+                        traces[2].final_state.train)

@@ -30,6 +30,7 @@ from repro_torch.compression.codecs import ScalarCodec  # noqa: E402
 from repro_torch.compression.lattice import MessageKey  # noqa: E402
 from repro_torch.compression.rotation import pad_len  # noqa: E402
 from repro_torch.utils import interop  # noqa: E402
+from lattice_log import LatticeLog  # noqa: E402,F401
 
 
 def pool_size(data) -> int:
@@ -242,3 +243,180 @@ def reference_sequential_draws(alg, data, key, batch: int):
 def test_alias_makes_reference_pipeline_importable():
     assert hasattr(ref_pipeline, "ExchangePipeline")
     assert jax.core.Primitive is jax.extend.core.Primitive
+
+
+# ---------------------------------------------------------------------------
+# the mesh train step (repro.launch.steps / repro.core.exchange_local)
+# ---------------------------------------------------------------------------
+
+def reference_step_draws(step, key_raw, coords, exchange_key=None):
+    """The values the reference ``build_train_step``'s step takes from its
+    key (``launch/steps.py:182-192``) for the rank at mesh ``coords`` of the
+    port's ``step`` (a :class:`repro_torch.launch.steps.TrainStep`), as its
+    ``draws``: ``h_steps``; then for the shard-local family each leaf's
+    ``signs``, ``u_up``, ``u_dn`` (and ``u_rs`` on the fused reduce-scatter
+    path) folded as ``exchange_local.py:112-148, 207-214`` fold them (the
+    leaf name, the model index, the client index), or the generic pair's
+    ``key_up`` / ``key_dn``; for the whole-leaf family each leaf's uplink
+    keys ``fold_in_str(split(fold_in(k_q, 1), n)[i], leaf)`` and the
+    downlink key ``fold_in_str(fold_in(k_q, n + 7), leaf)``. With
+    ``exchange_key`` (the raw key the reference's shard-local exchange is
+    called with directly) only that exchange's draws."""
+    from repro.core.quafl import client_speeds as ref_speeds
+    from repro.utils.tree import fold_in_str
+    from repro_torch.compression.transports import _shardable
+    from repro_torch.sharding.rules import block_shape
+    fed, n, mesh_shape = step.fed, step.n_slots, step.mesh.shape
+    K = fed.local_steps
+    full = step.state_spec.server
+    qu, qd = step.quant_up, step.quant_down
+    draws = {}
+    if exchange_key is None:
+        key = jax.random.wrap_key_data(jnp.asarray(key_raw))
+        k_h, k_q, _ = jax.random.split(key, 3)
+        lam = ref_speeds(fed, n) if n > 1 else np.array([fed.lam_fast],
+                                                        np.float32)
+        h = jnp.minimum(jax.random.poisson(
+            k_h, jnp.asarray(lam) * (fed.swt + fed.sit), (n,)), K)
+        draws["h_steps"] = tt(npy(h.astype(jnp.int32)))
+        kx = jax.random.fold_in(k_q, 3)
+    else:
+        kx = jax.random.wrap_key_data(jnp.asarray(exchange_key))
+    if step._slx is None:
+        q_keys = jax.random.split(jax.random.fold_in(k_q, 1), n)
+        k_srv = jax.random.fold_in(k_q, n + 7)
+        draws["keys_up"] = {k: message_key(
+            qu, [fold_in_str(q_keys[i], k) for i in range(n)],
+            int(full[k].numel())) for k in full}
+        draws["key_dn"] = {k: message_key(qd, [fold_in_str(k_srv, k)],
+                                          int(full[k].numel()))
+                           for k in full}
+        return draws
+    axis = step.client_axis
+    model_axes = [a for a in mesh_shape if a != axis]
+    mid = 0
+    for a in model_axes:
+        mid = mid * mesh_shape[a] + coords[a]
+    ci = coords.get(axis, 0) if axis in mesh_shape else 0
+    n_cl = mesh_shape.get(axis, 1)
+    lattice = getattr(qu, "family", "") == "lattice" and getattr(
+        qd, "family", "") == "lattice"
+    ex = {}
+    for k, v in full.items():
+        numel = int(np.prod(block_shape(v.shape, step.specs.server[k],
+                                        mesh_shape)))
+        d = numel + (-numel) % 1024
+        kk = jax.random.fold_in(fold_in_str(kx, k), mid)
+        k_up, k_dn = jax.random.fold_in(kk, 1), jax.random.fold_in(kk, 2)
+        if not lattice:
+            ex[k] = {"key_up": message_key(qu, [k_up], d),
+                     "key_dn": message_key(qd, [k_dn], d)}
+            continue
+        d_pad = pad_len(d, qu.block)
+        r = {"signs": tt(npy(ref_signs(jax.random.split(k_up)[0], d_pad))),
+             "u_up": tt(npy(jax.random.uniform(
+                 jax.random.fold_in(jax.random.split(k_up)[1], ci),
+                 (1, d_pad), jnp.float32))),
+             "u_dn": tt(npy(jax.random.uniform(
+                 jax.random.split(k_dn)[1], (1, d_pad), jnp.float32)))}
+        if (step.transport == "shard_local_rs" and axis in mesh_shape
+                and _shardable(d_pad, n_cl, qd.wire(), qu.block)):
+            r["u_rs"] = tt(npy(jax.random.uniform(
+                jax.random.fold_in(jax.random.split(k_dn)[0], ci),
+                (1, d_pad // n_cl), jnp.float32)))
+        ex[k] = r
+    draws["exchange"] = ex
+    return draws
+
+
+def _rotated(call):
+    """y/γ + u of a recorded call, by the reference's rotation."""
+    be = ref_pipeline.get_backend("jnp")
+    y = call["x"]
+    if call["kind"] == "encode":
+        y = np.asarray(be.rotate(jnp.asarray(y), jnp.asarray(call["signs"]),
+                                 block=call["kw"]["block"]))
+    return y / call["gam"].reshape(-1, 1) + call["u"]
+
+
+def lattice_flips(call, boundary: float = 1e-3) -> int:
+    """The codes of a recorded call that differ from the reference's
+    encode (or quantize) of the same inputs; every difference is asserted
+    ±1 mod L where y/γ + u lies within ``boundary`` of an integer."""
+    be = ref_pipeline.get_backend("jnp")
+    kw = call["kw"]
+    bits, pack, block = kw["bits"], kw.get("pack", 1), kw["block"]
+    assert pack == 1 and kw.get("levels2") is None
+    args = [jnp.asarray(call["x"]), jnp.asarray(call["u"]),
+            jnp.asarray(call["gam"])]
+    if call["kind"] == "encode":
+        ref = be.encode(args[0], jnp.asarray(call["signs"]), *args[1:],
+                        bits=bits, block=block, want_rotated=False,
+                        pack=pack)
+    else:
+        ref = be.quantize(*args, bits=bits, block=block, pack=pack)
+    ref = np.asarray(ref)
+    diff = call["codes"] != ref
+    if diff.any():
+        assert circular_gap(call["codes"], ref, 1 << bits)[diff].max() == 1
+        t = _rotated(call)
+        assert np.abs(t - np.round(t))[diff].max() < boundary
+    return int(diff.sum())
+
+
+def lattice_candidates(call, eps: float = 1e-4) -> int:
+    """Places where y/γ + u lies within ``eps`` of an integer: the only
+    places a code can round the other way when y differs in its last
+    bits."""
+    t = _rotated(call)
+    return int((np.abs(t - np.round(t)) < eps).sum())
+
+
+def leaf_stats(log: LatticeLog, leaves, count) -> dict:
+    """``{leaf: {"up"|"rs"|"down": (count(call), max γ, γ a unit of
+    hint)}}`` of one exchange's recorded calls (``count`` is
+    :func:`lattice_flips` or :func:`lattice_candidates`). The last, the
+    wrap window's slope at the call's padded length and width (safety 8),
+    turns a γ back into its hint."""
+    from repro_torch.compression.pipeline import wrap_gamma
+
+    def slope(c):
+        kw = c["kw"]
+        return float(wrap_gamma(torch.tensor(1.0), c["x"].shape[-1],
+                                bits=kw["bits"], block=kw["block"],
+                                safety=8.0))
+    return {k: {part: (count(c), float(c["gam"].max()), slope(c))
+                for part, c in g.items() if c is not None}
+            for k, g in log.by_leaf(leaves).items()}
+
+
+def flip_slack(stats, n_slots: int, srv_scale, cl_scale):
+    """What the counted code changes can move, from :func:`leaf_stats` of
+    every rank, per leaf (L2, so also elementwise):
+    * the server: γ/(n+1) for each changed uplink or redistribution code;
+      and, on the reduce-scatter path, its γ's rescaling by the uplink's
+      shift of its hint, times ``srv_scale[leaf]`` (max |X|);
+    * the clients: γ/(n+1) for each changed downlink code; and the
+      downlink γ's rescaling — its hint is the decoded uplink's distance to
+      X_t, which each changed uplink code shifts by up to γ_up — times
+      ``cl_scale[leaf]``;
+    and ``quant_err_sq``'s change: at most 4γ²/n a changed uplink code."""
+    denom = n_slots + 1
+    shift, srv, cl, qerr = {}, {}, {}, 0.0
+    h_dn, h_rs = {}, {}
+    for st in stats:
+        for k, parts in st.items():
+            up, dn, rs = parts["up"], parts["down"], parts.get("rs")
+            shift[k] = shift.get(k, 0.0) + up[0] * up[1]
+            srv[k] = srv.get(k, 0.0) + up[0] * up[1] / denom
+            cl[k] = cl.get(k, 0.0) + dn[0] * dn[1] / denom
+            h_dn[k] = min(h_dn.get(k, np.inf), dn[1] / dn[2])
+            if rs is not None:
+                srv[k] += rs[0] * rs[1] / denom
+                h_rs[k] = min(h_rs.get(k, np.inf), rs[1] / rs[2])
+            qerr += up[0] * 4 * up[1] ** 2 / n_slots
+    for k in srv:
+        cl[k] += cl_scale[k] * 2 * shift[k] / h_dn[k]
+        if k in h_rs:
+            srv[k] += srv_scale[k] * shift[k] / h_rs[k]
+    return srv, cl, qerr

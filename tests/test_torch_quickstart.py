@@ -211,7 +211,8 @@ def test_fed_algorithm_protocol_and_registry():
                  "sequential", "quafl_scaffold", "adaptive_quafl",
                  "fedbuff_device"):
         assert isinstance(make_algorithm(name, fed, **kw), FedAlgorithm)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    # the mesh path needs its ModelConfig, as the reference's
+    with pytest.raises(ValueError, match="cfg"):
         make_algorithm("spmd", fed, **kw)
     with pytest.raises(ValueError, match="already registered"):
         register_algorithm("quafl", None)

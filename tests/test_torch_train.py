@@ -315,7 +315,7 @@ def test_fedbuff_device_lm_flushes_match_reference():
 
 CLI = ["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "2",
        "--batch", "2", "--seq", "16", "--pool", "8", "--log-every", "1",
-       "--lr", "0.05"]
+       "--lr", "0.05", "--algo", "quafl"]
 
 
 def _bits_a_round(name, d, row):
@@ -364,11 +364,19 @@ def test_scan_chunk_lm_run_equals_eager(capsys):
                        chunked.trace.final_state.server)
 
 
-def test_mesh_flags_refused_naming_item_11():
-    for extra in (["--algo", "spmd"], ["--transport", "shard_local"],
-                  ["--mesh-data", "2"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            train.main(CLI + extra)
+def test_mesh_flags_refused_naming_item_11(capsys):
+    """The mesh path's flags run now that it is ported (ROADMAP Queue 1
+    item 11): ``--algo spmd``, with ``--transport shard_local``, with
+    ``--mesh-data 1 --mesh-model 1``; a single process asked for two data
+    ranks raises, naming torchrun."""
+    spmd = ["--algo", "spmd"]
+    for extra in (spmd, spmd + ["--transport", "shard_local"],
+                  spmd + ["--mesh-data", "1", "--mesh-model", "1"]):
+        run = train.main(CLI + extra)
+        assert [r["round"] for r in run.trace.rows] == [1, 2]
+        assert all(np.isfinite(r["server_loss"]) for r in run.trace.rows)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        train.main(CLI + spmd + ["--mesh-data", "2"])
 
 
 def test_checkpoints_cross_between_packages(tmp_path, capsys):
