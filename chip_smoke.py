@@ -81,7 +81,19 @@ then drives the port's paths:
   at temperature 0.8; every prefill attention on the bf16 tensor-core
   flash-attention kernel (``csrc/flash_wgmma.cu``). Then a prefill/decode
   consistency check in fp32 (the CUDA-core flash kernel) and bf16, and the
-  serve CLI (``repro_torch.launch.serve --full``) once.
+  serve CLI (``repro_torch.launch.serve --full``) once;
+* the rest of the decoder zoo, in a process of its own (``--zoo``):
+  mamba2-370m at full width (368,338,432 parameters) through five QuAFL
+  rounds and five ``--algo spmd`` rounds as above (bits exact, every
+  launch of a further round held on a 2^24 prefix); then served through
+  ``ServeEngine``, greedy twice with identical tokens, with the fp32
+  prefill/decode check: mamba2 (batches A and B), gemma3-12b whole (48
+  flash launches a prefill), deepseek-v2-236b cut to 2 layers (the MLA
+  prefix layer and one MLA-MoE layer, top-6 of 160 experts), llama4-scout
+  cut to 4 layers (one iRoPE period; its global NoPE layer on the flash
+  kernel at a GQA group of 5) and reduced jamba-1.5-large; then two QuAFL
+  rounds of reduced jamba. The flash kernel is held against its plain
+  version at the zoo's shapes with the other flash checks.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It prints JSON lines per phase, a ``kernels`` line, the card's name
@@ -1569,9 +1581,18 @@ FLASH_CASES = [
     ("llama3.2-1b_fp32", 4, 512, 32, 8, 64, 0, 0.0, FP32),
     ("gemma2_B_global_fp32", 4, 4608, 8, 4, 256, 0, 50.0, FP32),
     ("gemma2_B_local_fp32", 4, 4608, 8, 4, 256, 4096, 50.0, FP32),
+    # the zoo's serve path (path 11): gemma3-12b's local and global layers,
+    # llama4-scout's global NoPE layer (a GQA group of 5) in bf16 and in
+    # fp32 (its consistency check), reduced jamba's attention layer (fp32)
+    ("gemma3_A_local", 4, 512, 16, 8, 256, 1024, 0.0, BF16),
+    ("gemma3_A_global", 4, 512, 16, 8, 256, 0, 0.0, BF16),
+    ("llama4_A_global", 4, 512, 40, 8, 128, 0, 0.0, BF16),
+    ("llama4_A_global_fp32", 2, 640, 40, 8, 128, 0, 0.0, FP32),
+    ("jamba_reduced_B_fp32", 4, 4608, 4, 2, 32, 0, 0.0, FP32),
 ]
 FLASH_TIMED = ("gemma2_A_global", "gemma2_A_local", "gemma2_B_global",
-               "gemma2_B_local")
+               "gemma2_B_local", "gemma3_A_local", "gemma3_A_global",
+               "llama4_A_global")
 FLASH_MAIN = "gemma2_B_global"    # the kernels line's shape, also timed
                                   # at softcap 0 beside SDPA
 FLASH_SYMBOL = r"flash_(wgmma_)?kernel"   # either flash kernel, profiled
@@ -2097,9 +2118,12 @@ TRAIN_ARGV = ["--arch", "llama3.2-1b", "--algo", "quafl", "--bits", "8",
               "--local-steps", "2", "--lr", "0.02", "--steps", "5",
               "--log-every", "1", "--seed", "0", "--kernel-backend", "cuda"]
 LLAMA_D, LLAMA_D_PAD = 1_235_814_400, 1_235_828_736
+MAMBA_D, MAMBA_D_PAD = 368_338_432, 368_345_088     # mamba2-370m (--zoo)
 TRAIN_S = 2
-# bits a round: s uplink messages and one downlink, d_pad·8 + 32 each
-TRAIN_BITS_UP, TRAIN_BITS_DOWN = 19_773_259_840, 9_886_629_920
+# bits a round by d_pad: s uplink messages and one downlink, d_pad·8 + 32
+# each
+TRAIN_BITS = {LLAMA_D_PAD: (19_773_259_840, 9_886_629_920),
+              MAMBA_D_PAD: (5_893_521_472, 2_946_760_736)}
 # a round's port launches: the fused uplink encode, the server's forward
 # rotation, the server's and the clients' inverse rotations, the downlink
 # quantize, and the uplink and downlink snaps
@@ -2216,7 +2240,7 @@ def got_numel(got) -> int:
     return (got[1] if isinstance(got, tuple) else got).numel()
 
 
-def time_train_kernels(kx, dev, peak_bw) -> dict:
+def time_train_kernels(kx, dev, peak_bw, d_pad) -> dict:
     """ms a call (CUDA events, host overhead included) of rows 1-4's
     wrappers at the training round's shapes, on random inputs: the encode
     of s messages with y kept, the inverse rotation of s rows and the
@@ -2224,7 +2248,7 @@ def time_train_kernels(kx, dev, peak_bw) -> dict:
     code rows against one reference) and the downlink snap (one code row
     against s references), each beside its byte bound."""
     from repro_torch.compression.rotation import signs
-    s, d_pad = TRAIN_S, LLAMA_D_PAD
+    s = TRAIN_S
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
     x = torch.randn((s, d_pad), generator=g, device=dev)
@@ -2256,12 +2280,13 @@ def time_train_kernels(kx, dev, peak_bw) -> dict:
     return out
 
 
-def train_full() -> int:
+def train_full(argv=TRAIN_ARGV, d=LLAMA_D, d_pad=LLAMA_D_PAD,
+               phase="train_full") -> int:
     """The full-width phase, run as ``chip_smoke.py --train-full`` in its
-    own process: five QuAFL rounds of llama3.2-1b through
-    ``launch/train.py`` (counts from 0 just before, read just after), then
-    one profiled round and one round whose kernel launches are held
-    against their plain versions on a 2^24-coordinate prefix."""
+    own process (llama3.2-1b; mamba2-370m in ``--zoo``): five QuAFL rounds
+    through ``launch/train.py`` (counts from 0 just before, read just
+    after), then one profiled round and one round whose kernel launches are
+    held against their plain versions on a 2^24-coordinate prefix."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import exchange as kx
     from repro_torch.launch import train
@@ -2271,7 +2296,7 @@ def train_full() -> int:
 
     smi = smi_line()
     peak_bw = peak_bytes_per_s(torch.cuda.get_device_name(0))
-    args = train.parse_args(TRAIN_ARGV)
+    args = train.parse_args(argv)
     dev = default_device(args.device)
     cfg = get_config(args.arch)
     fed = train.fed_config(args)
@@ -2284,10 +2309,9 @@ def train_full() -> int:
     launches = dict(kx.LAUNCHES)
     peak_run = torch.cuda.max_memory_allocated()
     alg, tr, data = run.alg, run.trace, run.data
-    assert alg.d == LLAMA_D and pad_len(alg.d) == LLAMA_D_PAD, alg.d
-    up, down = TRAIN_BITS_UP, TRAIN_BITS_DOWN
-    assert (up, down) == (TRAIN_S * lattice_bits(LLAMA_D_PAD),
-                          lattice_bits(LLAMA_D_PAD))
+    assert alg.d == d and pad_len(alg.d) == d_pad, alg.d
+    up, down = TRAIN_BITS[d_pad]
+    assert (up, down) == (TRAIN_S * lattice_bits(d_pad), lattice_bits(d_pad))
     for r in tr.rows:
         assert r["bits_up"] == up and r["bits_down"] == down, r
         assert r["bits_up_total"] == up * r["round"], r
@@ -2310,7 +2334,7 @@ def train_full() -> int:
     assert per_round == TRAIN_LAUNCHES, per_round
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     per_launch = ms_per_launch(kernels, KERNEL_SYMBOLS)
-    nb = train_bytes(LLAMA_D_PAD)
+    nb = train_bytes(d_pad)
     kernel_rows = {}
     for k, b in nb.items():
         n = TRAIN_LAUNCHES[k]
@@ -2340,8 +2364,8 @@ def train_full() -> int:
                                           ("quantize", "quantize_codes"),
                                           ("snap", "snap_codes"))})
     checks = check_train_prefixes(kx, log)
-    res = {"phase": "train_full", "arch": cfg.name, "d": alg.d,
-          "d_pad": LLAMA_D_PAD, "n_clients": fed.n_clients, "s": fed.s,
+    res = {"phase": phase, "arch": cfg.name, "d": alg.d,
+          "d_pad": d_pad, "n_clients": fed.n_clients, "s": fed.s,
           "bits": fed.bits, "batch": args.batch, "seq": args.seq,
           "local_steps": fed.local_steps, "rounds": tr.rounds,
           "server_loss": [r["server_loss"] for r in tr.rows],
@@ -2352,7 +2376,7 @@ def train_full() -> int:
           "timed_round_ms": walls,
           "seconds_with_init": seconds,
           "peak_bytes_run": peak_run, "peak_bytes_round": peak_round,
-          "peak_model_copies": peak_run / (4 * LLAMA_D_PAD),
+          "peak_model_copies": peak_run / (4 * d_pad),
           "device_bytes_total": torch.cuda.mem_get_info()[1],
           "launches": launches, "launches_a_round": per_round,
           "profiled_round_wall_ms": wall * 1e3,
@@ -2367,7 +2391,7 @@ def train_full() -> int:
     # wrappers' timing at the round's shapes
     del log, state, m, run, tr, alg, data
     torch.cuda.empty_cache()
-    res["kernel_times"] = time_train_kernels(kx, dev, peak_bw)
+    res["kernel_times"] = time_train_kernels(kx, dev, peak_bw, d_pad)
     emit(res)
     return 0
 
@@ -2498,20 +2522,21 @@ def nccl_kernels(kernels) -> dict:
     return {e.key[:60]: e.count for e in kernels if "nccl" in e.key.lower()}
 
 
-def spmd_full(smi, kx) -> dict:
+def spmd_full(smi, kx, argv=SPMD_ARGV, bits=SPMD_BITS, leaves=SPMD_LEAVES,
+              d=LLAMA_D, phase="spmd_full") -> dict:
     """Five rounds of ``launch/train.py``'s defaults (``--algo spmd
-    --transport dequant_psum``) on llama3.2-1b at full width over the NCCL
-    group of one (counts from 0 just before, read just after), bits exact;
-    a profiled round, rounds timed alone, then a round of each family with
-    every launch held against its plain version on its first TRAIN_PREFIX
-    coordinates: the whole-leaf round, and one with ``--transport
-    shard_local`` on the same state."""
+    --transport dequant_psum``) at full width (llama3.2-1b; mamba2-370m in
+    ``--zoo``) over the NCCL group of one (counts from 0 just before, read
+    just after), bits exact; a profiled round, rounds timed alone, then a
+    round of each family with every launch held against its plain version
+    on its first TRAIN_PREFIX coordinates: the whole-leaf round, and one
+    with ``--transport shard_local`` on the same state."""
     from repro_torch.compression import pipeline
     from repro_torch.configs import get_config
     from repro_torch.fed import make_algorithm
     from repro_torch.launch import train
     from repro_torch.models.model import lm_loss
-    args = train.parse_args(SPMD_ARGV)
+    args = train.parse_args(argv)
     assert (args.algo, args.transport) == ("spmd", "dequant_psum")
     cfg = get_config(args.arch)
     dev = torch.device("cuda", 0)
@@ -2527,13 +2552,13 @@ def spmd_full(smi, kx) -> dict:
     state, tr.final_state = tr.final_state, None
     del run
     assert alg.mesh.distributed and alg.n_slots == 1, alg.mesh
-    assert alg._bits_up_msg == alg._bits_down_msg == SPMD_BITS
+    assert alg._bits_up_msg == alg._bits_down_msg == bits
     for r in tr.rows:
-        assert r["bits_up"] == SPMD_BITS and r["bits_down"] == SPMD_BITS, r
+        assert r["bits_up"] == bits and r["bits_down"] == bits, r
         assert math.isfinite(r["server_loss"]), r
     assert float(state.bits_up) == float(state.bits_down) == \
-        SPMD_BITS * tr.rounds
-    want = {k: v * SPMD_LEAVES * tr.rounds for k, v in SPMD_LAUNCHES.items()}
+        bits * tr.rounds
+    want = {k: v * leaves * tr.rounds for k, v in SPMD_LAUNCHES.items()}
     assert launches == want, (launches, want)
 
     gen = torch.Generator(device=dev)
@@ -2583,24 +2608,24 @@ def spmd_full(smi, kx) -> dict:
                            (sl_checks, SHARD_LOCAL_LAUNCHES)):
         got = check_summary(rows)
         assert {op: got[op]["calls"] for op in got} == {
-            ops_of[k]: n * SPMD_LEAVES for k, n in per_leaf.items() if n}, got
-    assert sl_launches == {k: v * SPMD_LEAVES for k, v in
+            ops_of[k]: n * leaves for k, n in per_leaf.items() if n}, got
+    assert sl_launches == {k: v * leaves for k, v in
                            SHARD_LOCAL_LAUNCHES.items()}, sl_launches
-    assert m_sl["bits_up"] == m_sl["bits_down"] == SPMD_BITS
+    assert m_sl["bits_up"] == m_sl["bits_down"] == bits
     with torch.no_grad():
         loss_sl = float(lm_loss(cfg, sl.eval_params(state),
                                 {"tokens": data["tokens"][0, :args.batch]})[0])
     assert math.isfinite(loss_sl) and math.isfinite(float(m_sl["quant_err"]))
-    v_bytes = 4 * LLAMA_D
-    res = {"phase": "spmd_full", "arch": cfg.name,
+    v_bytes = 4 * d
+    res = {"phase": phase, "arch": cfg.name,
            "mesh": dict(alg.mesh.shape),
            "backend": "nccl", "world_size": 1, "transport": args.transport,
-           "d": LLAMA_D, "n_slots": alg.n_slots, "batch": args.batch,
+           "d": d, "n_slots": alg.n_slots, "batch": args.batch,
            "seq": args.seq, "local_steps": args.local_steps,
            "rounds": tr.rounds,
            "server_loss": [r["server_loss"] for r in tr.rows],
            "quant_err": [r["quant_err"] for r in tr.rows],
-           "bits_up_a_round": SPMD_BITS, "bits_down_a_round": SPMD_BITS,
+           "bits_up_a_round": bits, "bits_down_a_round": bits,
            "launches": launches, "launches_a_round_profiled": per_round,
            "ms_per_round": tr.us_per_round / 1e3,
            "row_wall_s": [r["wall_time_s"] for r in tr.rows],
@@ -2794,6 +2819,177 @@ def run_spmd() -> None:
     emit({"phase": "spmd_process", "seconds": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# path 11: the rest of the decoder zoo (Mamba2, MoE, MLA, hybrid) at
+# published widths, in a process of its own
+# ---------------------------------------------------------------------------
+
+MAMBA = "mamba2-370m"
+MAMBA_TRAIN_ARGV = ["--arch", MAMBA] + TRAIN_ARGV[2:]
+MAMBA_SPMD_ARGV = ["--arch", MAMBA] + SPMD_ARGV[2:]
+MAMBA_SPMD_BITS = 2_946_818_400   # 11 leaves, each padded on its own
+MAMBA_LEAVES = 11
+ZOO_TIMEOUT = 900                 # seconds for the zoo process
+# (arch, depth on the card: 0 the whole model, "reduced" the reduced
+# config; the serve batches). Depth is cut where a whole model would not
+# fit: deepseek to the dense MLA prefix layer and one MLA-MoE layer,
+# llama4 to one iRoPE period (3 chunked + 1 global NoPE), jamba (one
+# 8-layer period at published widths holds 45.1 B params) to its reduced
+# config.
+ZOO_SERVE = ((MAMBA, 0, "AB"), ("gemma3-12b", 0, "A"),
+             ("deepseek-v2-236b", 2, "A"), ("llama4-scout-17b-a16e", 4, "A"),
+             ("jamba-1.5-large-398b", "reduced", "AB"))
+JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--reduced", "--batch", "4",
+              "--seq", "64", "--log-every", "1", "--lr", "0.05", "--steps",
+              "2", "--algo", "quafl"]
+
+
+def flash_layers(cfg) -> int:
+    """Layers whose prefill takes the flash kernel (t % 128 == 0):
+    attention that is neither chunked nor MLA, at a head dim the kernel
+    takes."""
+    from repro_torch.configs.base import (ATTN_FULL, ATTN_SLIDING,
+                                          KIND_ATTN)
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    specs = list(cfg.prefix) + list(cfg.schedule) * cfg.n_periods
+    return sum(s.kind == KIND_ATTN and s.attn in (ATTN_FULL, ATTN_SLIDING)
+               and cfg.head_dim in HEAD_DIMS for s in specs)
+
+
+def zoo_serve(smi, dev, arch, depth, names) -> dict:
+    """One arch of the zoo through ``ServeEngine`` (counts from 0 just
+    before, read just after): greedy batches, run twice and identical,
+    every prefill's flash launches, the peak memory, ms and the profiled
+    device ms of batch A's prefill and 8 decode steps, then the fp32
+    prefill/decode consistency."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import init_lm
+    cfg = get_reduced(arch) if depth == "reduced" else get_config(arch)
+    reduced = {"reduced": ["width and depth: the reduced config"]}.get(
+        depth, [])
+    if depth and depth != "reduced":
+        reduced = [f"depth: {depth} of {cfg.n_layers} layers"]
+        cfg = cfg.replace(n_layers=depth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = init_lm(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(v.numel()) for v in params.values())
+    rng = np.random.default_rng(SEED)
+    batch_a = serve_prompts(rng, 64, 512, cfg.vocab_size)
+    batch_b = serve_prompts(rng, 1000, 4608, cfg.vocab_size)
+    batches = [batch_a, batch_b][:len(names)]
+    n_flash = flash_layers(cfg)
+
+    # the path: counts from 0 just before, read just after
+    fa.reset_launches()
+    done, rec, wall = serve_run(cfg, params, batches)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    check_requests(done, batches, cfg.vocab_size)
+    assert launches == len(batches) * n_flash, (arch, launches)
+    assert all(bool(torch.isfinite(x).all()) for x in rec.logits), arch
+    done2, rec2, wall2 = serve_run(cfg, params, batches)
+    same_tokens = ([r.out_tokens for r in done2]
+                   == [r.out_tokens for r in done])
+    logit_diff = max(float((a - b).abs().max())
+                     for a, b in zip(rec.logits, rec2.logits))
+    assert same_tokens and logit_diff == 0.0, (arch, same_tokens,
+                                               logit_diff)
+    stats = batch_stats(done, rec, batches)
+    stats_2 = batch_stats(done2, rec2, batches)
+    del rec, rec2
+    prof = profile_serve(cfg, params, batch_a, 9)
+    err, scale, n = prefill_decode_consistency(cfg, params, dev, "float32")
+    assert n == 2 * n_flash, (arch, n)
+    assert err <= CONSIST_TOL * scale, (arch, err, scale)
+    res = {"phase": "zoo_serve", "arch": arch, "reduced": reduced,
+           "n_layers": cfg.n_layers, "params": n_params,
+           "init_seconds": init_s, "flash_layers": n_flash,
+           "flash_launches": launches, "requests": len(done),
+           "wall_s": [wall, wall2], "peak_memory_bytes": peak,
+           "batches": stats, "batches_run_2": stats_2,
+           "same_tokens": same_tokens,
+           "max_abs_logit_diff_vs_run_1": logit_diff,
+           "profile_A_prefill_8_decode": prof,
+           "consistency_fp32": {"prefill": 640, "split": 512,
+                                "max_abs_diff": err, "max_abs_logit": scale,
+                                "rel": err / scale, "flash_launches": n},
+           "tokens": [r.out_tokens for r in done], "nvidia_smi": smi}
+    emit(res)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_jamba_rounds(kx) -> dict:
+    """Two QuAFL rounds of reduced jamba (Mamba, attention and MoE layers)
+    through ``launch/train.py`` on the card (counts from 0 just before,
+    read just after), bits exact."""
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_size
+    kx.reset_launches()
+    run = train.main(JAMBA_ARGV)
+    torch.cuda.synchronize()
+    launches = dict(kx.LAUNCHES)
+    d = tree_size(run.alg.eval_params(run.trace.final_state))
+    for r in run.trace.rows:
+        assert (r["bits_up"], r["bits_down"]) == bits_a_round("quafl", d, r)
+        assert math.isfinite(r["server_loss"]), r
+    assert launches == {k: 2 * v for k, v in TRAIN_LAUNCHES.items()}, \
+        launches
+    res = {"phase": "zoo_train_reduced", "arch": "jamba-1.5-large-398b",
+           "reduced": ["width and depth: the reduced config"], "d": d,
+           "server_loss": [r["server_loss"] for r in run.trace.rows],
+           "launches": launches}
+    emit(res)
+    return res
+
+
+def zoo_phases() -> int:
+    """``chip_smoke.py --zoo``, in a process of its own: mamba2-370m at
+    full width through the registry's QuAFL and the mesh train step (an
+    NCCL group of one), then each arch of ``ZOO_SERVE`` served, then two
+    QuAFL rounds of reduced jamba (each path's counts from 0 just before,
+    read just after)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import exchange as kx
+    smi = smi_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    train_full(MAMBA_TRAIN_ARGV, MAMBA_D, MAMBA_D_PAD, "zoo_train_full")
+    torch.cuda.empty_cache()
+    nccl_group_of_one()
+    try:
+        spmd_full(smi, kx, MAMBA_SPMD_ARGV, MAMBA_SPMD_BITS, MAMBA_LEAVES,
+                  MAMBA_D, "zoo_spmd_full")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    for arch, depth, names in ZOO_SERVE:
+        zoo_serve(smi, dev, arch, depth, names)
+    zoo_jamba_rounds(kx)
+    emit({"phase": "zoo", "seconds": time.perf_counter() - t0})
+    return 0
+
+
+def run_zoo() -> None:
+    """``chip_smoke.py --zoo`` in a process of its own (the card's memory
+    to itself), its lines relayed."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--zoo"], capture_output=True, text=True,
+                          timeout=ZOO_TIMEOUT)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise RuntimeError(f"the zoo phases exited {proc.returncode}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2802,6 +2998,8 @@ def main() -> int:
         return train_full()
     if sys.argv[1:] == ["--spmd"]:
         return spmd_phases()
+    if sys.argv[1:] == ["--zoo"]:
+        return zoo_phases()
     from repro_torch import default_device
     from repro_torch.fed.engine import clone_tree
     from repro_torch.kernels import build
@@ -2856,6 +3054,8 @@ def main() -> int:
     run_train_full()
     # path 10, the mesh train step: its own process, an NCCL group of one
     run_spmd()
+    # path 11, the rest of the decoder zoo: its own process
+    run_zoo()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)

@@ -2,8 +2,9 @@
 
 Each ported architecture lives in its own module exposing ``config()`` (the
 exact published numbers) and ``reduced()`` (a 2-layer, narrow member of the
-same family for the CPU tests). The port runs the dense decoders; asking for
-an architecture of the reference's zoo that is not ported raises
+same family for the CPU tests). The port runs the decoder-only zoo (dense,
+MoE, MLA, Mamba2 and hybrid); asking for an architecture of the reference's
+zoo that is not ported (an encoder-decoder or a frontend model) raises
 ``KeyError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -13,20 +14,24 @@ from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401 (re-export)
     ATTN_CHUNKED, ATTN_FULL, ATTN_MLA, ATTN_SLIDING, KIND_ATTN, KIND_MAMBA,
-    FedConfig, LayerSpec, ModelConfig,
+    FedConfig, LayerSpec, MambaConfig, MLAConfig, ModelConfig, MoEConfig,
 )
 
 # arch id -> module name
 _ARCHS: Dict[str, str] = {
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "gemma2-2b": "gemma2_2b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "mamba2-370m": "mamba2_370m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "gemma3-12b": "gemma3_12b",
     "olmo-1b": "olmo_1b",
     "llama3.2-1b": "llama3_2_1b",
 }
 
-# the reference's architectures that need blocks the port does not have yet
-_NOT_PORTED = ("llama4-scout-17b-a16e", "deepseek-v2-236b", "mamba2-370m",
-               "llava-next-34b", "seamless-m4t-medium",
-               "jamba-1.5-large-398b", "gemma3-12b")
+# the reference's architectures that need an encoder or a modality
+# frontend, which the port does not have yet
+_NOT_PORTED = ("llava-next-34b", "seamless-m4t-medium")
 
 
 def list_archs() -> List[str]:

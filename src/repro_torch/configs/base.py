@@ -1,15 +1,15 @@
 """Configuration dataclasses (port of ``repro.configs.base``): the layer
-schedule and model architecture of the LM zoo, and the federation knobs.
-The port's model runs the dense decoders, so ``ModelConfig`` holds only the
-fields they read; the MoE, Mamba and MLA blocks' configs and the reference's
-long-context and frontend sizes come with the slice that ports those blocks
-(ROADMAP Queue 1 item 12). ``ShapeConfig`` holds the fields the mesh
-train step reads."""
+schedule and model architecture of the LM zoo, the MoE, Mamba and MLA
+blocks' configs, and the federation knobs. ``ModelConfig`` holds the
+fields the port's decoders read; the reference's long-context variant and
+frontend sizes come with the encoder-decoder and frontend archs (ROADMAP
+Queue 1 item 12). ``ShapeConfig`` holds the fields the mesh train step
+reads."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 # attention kinds
 ATTN_FULL = "full"
@@ -32,6 +32,37 @@ class LayerSpec:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    d_ff_shared: int = 0           # defaults to d_ff_expert * n_shared if 0
+    router_aux_coef: float = 0.01
+    impl: str = "ragged"           # 'ragged' (grouped product) | 'dense'
+    capacity_factor: float = 1.25  # only for the dense impl
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    conv_width: int = 4
+    chunk: int = 256               # SSD chunk length
+    ngroups: int = 1
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     arch_type: str                 # dense | moe | ssm | hybrid | vlm | audio
@@ -46,6 +77,9 @@ class ModelConfig:
     # layer layout: n_layers == len(prefix) + n_periods * len(schedule)
     schedule: Tuple[LayerSpec, ...] = (LayerSpec(),)
     prefix: Tuple[LayerSpec, ...] = ()
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
+    mla: Optional[MLAConfig] = None
     rope_theta: float = 10_000.0
     logit_softcap: float = 0.0
     attn_softcap: float = 0.0

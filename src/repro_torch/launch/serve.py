@@ -1,10 +1,13 @@
-"""Serving driver: batched requests against a dense LM through the
-ServeEngine (port of ``repro.launch.serve``).
+"""Serving driver: batched requests against any decoder of the zoo
+through the ServeEngine (port of ``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+      --device cpu    # also deepseek-v2-236b, llama4-scout-17b-a16e,
+                      # jamba-1.5-large-398b, gemma3-12b
 
 It runs on the card unless ``--device cpu`` asks for the CPU. Weights are a
 fresh init from ``--seed`` (``--full``: the architecture's published

@@ -31,9 +31,18 @@ Rows print as the reference's (from rank 0).
       --steps 5 --batch 8 --seq 128 --log-every 1
 
 The last runs on the card at the published width (1,235,814,400
-parameters). It runs on the card unless ``--device cpu`` asks for the CPU.
+parameters). Every decoder of the zoo trains the same way, e.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+      --algo quafl --steps 5 --batch 8 --seq 128 --log-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch deepseek-v2-236b --reduced --algo quafl --steps 2 --device cpu
+
+(llama4, deepseek and jamba take cohort mode under ``--algo spmd``). It
+runs on the card unless ``--device cpu`` asks for the CPU.
 ``--scan-chunk K`` runs the round engine's K-round chunks (CUDA graphs on
-the card, the mesh's collectives captured inside); ``--kernel-backend``
+the card, the mesh's collectives captured inside; refused for MoE archs,
+whose routing reads group sizes on the host); ``--kernel-backend``
 picks the exchange's CUDA kernels (``cuda``) or their plain versions
 (``torch``); ``--checkpoint-dir`` saves the final ``eval_params`` in the
 reference's checkpoint layout.
@@ -66,6 +75,10 @@ class TrainRun(NamedTuple):
     data: Any      # {"tokens": (n_clients, pool, seq)}
 
 
+def has_moe(cfg) -> bool:
+    return any(s.mlp == "moe" for s in cfg.prefix + cfg.schedule)
+
+
 def shape_template(params):
     """The params' shapes as meta tensors: the template an algorithm
     unflattens against, holding no memory."""
@@ -96,6 +109,12 @@ def run_registry(args, cfg, fed: FedConfig, device=None) -> TrainRun:
     """Train through the registry and ``simulate``; prints a row every
     ``--log-every`` rounds and the engine line, as the reference."""
     dev = default_device(device)
+    if args.scan_chunk and has_moe(cfg):
+        raise ValueError(
+            f"--scan-chunk {args.scan_chunk}: {cfg.name}'s MoE layers read "
+            f"their expert group sizes on the host, which a captured chunk "
+            f"cannot; run eager (a grouped GEMM on device offsets is ROADMAP "
+            f"Queue 2 work)")
     loss_fn = partial(lm_loss, cfg)
     # per-client token pool: every algorithm samples its minibatches with
     # replacement from these rows (the reference's sizing)

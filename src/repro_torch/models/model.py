@@ -1,17 +1,18 @@
-"""Model assembly for the dense decoders: layer blocks, the stacked body,
-prefill and decode, and the LM loss (port of the dense subset of
-``repro.models.model``).
+"""Model assembly for the decoder-only zoo: layer blocks (attention or
+MLA or Mamba2, then a dense MLP, an MoE or nothing), the stacked body,
+prefill and decode, and the LM loss (port of ``repro.models.model``).
 
 Params and caches are FLAT dicts keyed like the reference's:
   embed/tok, lm_head/w, final_norm/scale,
   pre/{i}/<layer params>                      (unstacked prefix layers)
   body/{j}/<layer params>                     (leading 'layers' axis)
-Caches mirror the layer paths. The reference scans the body over periods;
-here a Python loop indexes the stacked tensors' leading axis, and the cache
+Caches mirror the layer paths (``attn/{k,v}``, ``mla/{c_kv,k_rope}``,
+``mamba/{conv,ssm}``). The reference scans the body over periods; here a
+Python loop indexes the stacked tensors' leading axis, and the cache
 slices it writes are views, so the stacked cache fills in place.
 
-Mamba, MLA and MoE layers, encoder-decoder models and modality frontends
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 12).
+Encoder-decoder models and modality frontends raise
+``NotImplementedError`` (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -22,26 +23,21 @@ import torch
 from repro_torch import default_device
 from repro_torch.configs.base import ATTN_MLA, KIND_MAMBA, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_mlp, embed_tokens, init_embed,
                                        init_mlp, lm_logits, rms_norm)
-from repro_torch.models.params import Ctx, subtree, torch_dtype
+from repro_torch.models.params import Ctx, subtree
 
 NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 12)"
 
 
-def _require_dense(cfg: ModelConfig):
+def _require_decoder(cfg: ModelConfig):
     if cfg.encdec or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models and modality frontends are "
             f"{NOT_PORTED}")
-    for spec in cfg.prefix + cfg.schedule:
-        _require_dense_layer(spec)
-
-
-def _require_dense_layer(spec):
-    if spec.kind == KIND_MAMBA or spec.attn == ATTN_MLA or spec.mlp != "dense":
-        raise NotImplementedError(
-            f"layer {spec}: Mamba, MLA and MoE layers are {NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -58,34 +54,70 @@ def _norm(cfg, p, name, x):
     return rms_norm(x, w)
 
 
+def _mixer(spec) -> str:
+    """The sequence mixer of a layer, also its params' and cache's path."""
+    if spec.kind == KIND_MAMBA:
+        return "mamba"
+    return "mla" if spec.attn == ATTN_MLA else "attn"
+
+
 def init_layer(ctx, cfg: ModelConfig, spec):
-    _require_dense_layer(spec)
     _init_norm(ctx, cfg, "ln_seq")
-    attn.init_attention(ctx.sub("attn"), cfg)
-    _init_norm(ctx, cfg, "ln_mlp")
-    init_mlp(ctx.sub("mlp"), cfg.d_model, cfg.d_ff)
+    kind = _mixer(spec)
+    {"mamba": mam.init_mamba, "mla": mla_mod.init_mla,
+     "attn": attn.init_attention}[kind](ctx.sub(kind), cfg)
+    if spec.mlp == "dense":
+        _init_norm(ctx, cfg, "ln_mlp")
+        init_mlp(ctx.sub("mlp"), cfg.d_model, cfg.d_ff)
+    elif spec.mlp == "moe":
+        _init_norm(ctx, cfg, "ln_mlp")
+        moe_mod.init_moe(ctx.sub("moe"), cfg)
+
+
+def _apply_mlp(cfg, spec, p, x):
+    """The layer's MLP half: (x, aux loss or None)."""
+    if spec.mlp == "dense":
+        return x + apply_mlp(p, _norm(cfg, p, "ln_mlp", x), prefix="mlp"), None
+    if spec.mlp == "moe":
+        y, aux = moe_mod.apply_moe(cfg, p, _norm(cfg, p, "ln_mlp", x),
+                                   prefix="moe")
+        return x + y, aux
+    return x, None
 
 
 def apply_layer_prefill(cfg, spec, p, x, positions, cache=None,
                         write_pos: int = 0):
-    """One layer over the sequence; writes its K/V into ``cache`` (in
-    place) when given. Dense layers carry no auxiliary loss."""
+    """One layer over the sequence; writes its cache (in place) when
+    given. Returns (x, aux loss: the MoE router's, None for other
+    layers)."""
     h = _norm(cfg, p, "ln_seq", x)
-    lc = ({"k": cache["attn/k"], "v": cache["attn/v"]}
-          if cache is not None else None)
-    x = x + attn.attn_block_prefill(cfg, spec, p, h, positions,
+    kind = _mixer(spec)
+    lc = subtree(cache, kind) if cache is not None else None
+    if kind == "mamba":
+        y = mam.mamba_prefill(cfg, p, h, prefix="mamba", cache=lc)
+    elif kind == "mla":
+        y = mla_mod.mla_prefill(cfg, p, h, positions, prefix="mla", cache=lc,
+                                write_pos=write_pos)
+    else:
+        y = attn.attn_block_prefill(cfg, spec, p, h, positions,
                                     prefix="attn", cache=lc,
                                     write_pos=write_pos)
-    return x + apply_mlp(p, _norm(cfg, p, "ln_mlp", x), prefix="mlp")
+    return _apply_mlp(cfg, spec, p, x + y)
 
 
 def apply_layer_decode(cfg, spec, p, x, cur_pos: int, cache):
     """Single-token decode of one layer; writes the cache in place."""
     h = _norm(cfg, p, "ln_seq", x)
-    x = x + attn.attn_block_decode(
-        cfg, spec, p, h, cur_pos,
-        {"k": cache["attn/k"], "v": cache["attn/v"]}, prefix="attn")
-    return x + apply_mlp(p, _norm(cfg, p, "ln_mlp", x), prefix="mlp")
+    kind = _mixer(spec)
+    lc = subtree(cache, kind)
+    if kind == "mamba":
+        y = mam.mamba_decode(cfg, p, h, lc, prefix="mamba")
+    elif kind == "mla":
+        y = mla_mod.mla_decode(cfg, p, h, cur_pos, lc, prefix="mla")
+    else:
+        y = attn.attn_block_decode(cfg, spec, p, h, cur_pos, lc,
+                                   prefix="attn")
+    return _apply_mlp(cfg, spec, p, x + y)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +127,7 @@ def apply_layer_decode(cfg, spec, p, x, cur_pos: int, cache):
 def build_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Returns (params flat dict, axes flat dict), on ``device`` (the card
     when None)."""
-    _require_dense(cfg)
+    _require_decoder(cfg)
     ctx = Ctx(seed, cfg.param_dtype, default_device(device))
     root = ctx.sub("")
     init_embed(root, cfg)
@@ -121,22 +153,31 @@ def abstract_lm(cfg: ModelConfig):
 # caches
 # ---------------------------------------------------------------------------
 
+def _layer_cache(cfg, spec, batch: int, max_seq: int, device):
+    kind = _mixer(spec)
+    if kind == "mamba":
+        c = mam.init_mamba_cache(cfg, batch, device)
+    elif kind == "mla":
+        c = mla_mod.init_mla_cache(cfg, batch, max_seq, device)
+    else:
+        c = attn.init_attn_cache(cfg, spec, batch, max_seq, device)
+    return {f"{kind}/{k}": v for k, v in c.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     """Flat zero cache dict mirroring layer paths, stacked for the body."""
-    _require_dense(cfg)
+    _require_decoder(cfg)
     dev = default_device(device)
     cache: Dict[str, torch.Tensor] = {}
     for i, spec in enumerate(cfg.prefix):
-        for k, v in attn.init_attn_cache(cfg, spec, batch, max_seq,
-                                         dev).items():
-            cache[f"pre/{i}/attn/{k}"] = v
+        for k, v in _layer_cache(cfg, spec, batch, max_seq, dev).items():
+            cache[f"pre/{i}/{k}"] = v
     n = cfg.n_periods
+    meta = torch.device("meta")
     for j, spec in enumerate(cfg.schedule):
-        s = attn.cache_len(spec, max_seq)
-        for k in ("k", "v"):
-            cache[f"body/{j}/attn/{k}"] = torch.zeros(
-                (n, batch, s, cfg.n_kv_heads, cfg.head_dim),
-                dtype=torch_dtype(cfg.dtype), device=dev)
+        for k, v in _layer_cache(cfg, spec, batch, max_seq, meta).items():
+            cache[f"body/{j}/{k}"] = torch.zeros((n,) + tuple(v.shape),
+                                                 dtype=v.dtype, device=dev)
     return cache
 
 
@@ -162,17 +203,25 @@ def forward(cfg: ModelConfig, params, batch, *, cache=None,
             write_pos: int = 0):
     """Full-sequence forward (prefill). batch: {'tokens': (b, t)}.
     Returns (fp32 logits (b, t, V), the cache written in place or None,
-    aux loss)."""
-    _require_dense(cfg)
+    the fp32 aux loss summed over the prefix and body layers)."""
+    _require_decoder(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     t = x.shape[1]
     positions = torch.arange(t, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(spec, p, x, lc):
+        nonlocal aux
+        x, a = apply_layer_prefill(cfg, spec, p, x, positions, cache=lc,
+                                   write_pos=write_pos)
+        if a is not None:
+            aux = aux + a
+        return x
 
     for i, spec in enumerate(cfg.prefix):
         lc = subtree(cache, f"pre/{i}") if cache is not None else None
-        x = apply_layer_prefill(cfg, spec, subtree(params, f"pre/{i}"), x,
-                                positions, cache=lc, write_pos=write_pos)
+        x = layer(spec, subtree(params, f"pre/{i}"), x, lc)
 
     body_p = [_layers(subtree(params, f"body/{j}"), cfg.n_periods)
               for j in range(len(cfg.schedule))]
@@ -181,19 +230,18 @@ def forward(cfg: ModelConfig, params, batch, *, cache=None,
     for n in range(cfg.n_periods):
         for j, spec in enumerate(cfg.schedule):
             lc = _layer_slice(body_c[j], n) if cache is not None else None
-            x = apply_layer_prefill(cfg, spec, body_p[j][n], x, positions,
-                                    cache=lc, write_pos=write_pos)
+            x = layer(spec, body_p[j][n], x, lc)
 
     x = _norm(cfg, params, "final_norm", x)
     logits = lm_logits(cfg, params, x)
-    return logits, cache, torch.zeros((), device=logits.device)
+    return logits, cache, aux
 
 
 def decode_step(cfg: ModelConfig, params, token, cur_pos: int, cache):
     """One-token decode. token: (b, 1) integer; cur_pos: absolute position
     of this token (tokens already in the cache). Writes the cache in place.
     Returns (fp32 logits (b, 1, V), cache)."""
-    _require_dense(cfg)
+    _require_decoder(cfg)
     x = embed_tokens(cfg, params, token)
     for i, spec in enumerate(cfg.prefix):
         x = apply_layer_decode(cfg, spec, subtree(params, f"pre/{i}"), x,
@@ -213,9 +261,9 @@ def decode_step(cfg: ModelConfig, params, token, cur_pos: int, cache):
 # ---------------------------------------------------------------------------
 
 def lm_loss(cfg: ModelConfig, params, batch):
-    """Next-token cross-entropy, differentiable in ``params`` (under
-    autograd the prefill takes the plain attention branches). Returns
-    (loss, metrics)."""
+    """Next-token cross-entropy plus the MoE routers' aux loss,
+    differentiable in ``params`` (under autograd the prefill takes the plain
+    attention branches). Returns (loss, {'ce', 'aux'})."""
     logits, _, aux = forward(cfg, params, batch)
     tokens = batch["tokens"]
     targets = tokens[:, 1:]

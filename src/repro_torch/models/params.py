@@ -23,6 +23,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
+# uniform inits of the Mamba block: (low, high, map of the draw)
+_UNIFORM = {
+    # dt_bias: softplus^-1(U(1e-3, 1e-1))
+    "uniform_dt": (1e-3, 1e-1, lambda u: torch.log(torch.expm1(u))),
+    # A_log: log of A in [1, 16]
+    "a_log": (1.0, 16.0, torch.log),
+}
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype of a config's dtype name."""
     return _DTYPES[name]
@@ -57,12 +66,19 @@ class Ctx:
         if init == "zeros":
             return torch.zeros(tuple(shape), dtype=self.param_dtype,
                                device=self.device)
+        if init == "ones":
+            return torch.ones(tuple(shape), dtype=self.param_dtype,
+                              device=self.device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(fold_in_str(self.seed, path))
         if init == "normal":
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(fold_in_str(self.seed, path))
             return normal_param(gen, tuple(shape), scale).to(self.param_dtype)
-        raise ValueError(f"init {init!r} is not ported (dense models use "
-                         f"'normal' and 'zeros')")
+        if init in _UNIFORM:
+            lo, hi, f = _UNIFORM[init]
+            u = torch.rand(tuple(shape), generator=gen, device=self.device,
+                           dtype=torch.float32)
+            return f(u * (hi - lo) + lo).to(self.param_dtype)
+        raise ValueError(f"unknown init {init!r}")
 
     def add(self, path: str, shape, axes, init: str, scale):
         if len(shape) != len(axes):

@@ -1,9 +1,11 @@
-"""Batched serving engine over the dense decoders' prefill and decode steps
-(port of ``repro.serving.engine``).
+"""Batched serving engine over the decoder zoo's prefill and decode steps
+(port of ``repro.serving.engine``): KV caches, MLA's latent cache and
+Mamba2's conv and SSM states alike.
 
 Static-batch serving: requests queue up, the engine assembles a batch
 (left-padding prompts with token 0 to a common length, with no padding
-mask, as the reference), prefills once, then decodes token by token until
+mask, as the reference: a Mamba state absorbs the pads as the
+reference's does), prefills once, then decodes token by token until
 every sequence hits its max_new_tokens or emits EOS. It serves the server
 model of a federated run: inference of the federated result.
 """

@@ -188,6 +188,8 @@ def lm_params_from_numpy(params: Dict[str, np.ndarray], device
 
 def cache_from_numpy(cache: Dict[str, np.ndarray], device
                      ) -> Dict[str, torch.Tensor]:
-    """The reference's KV cache (``init_cache`` / ``forward`` / ``decode_step``
-    flat dict, numpy leaves, bf16 included) as tensors of the same keys."""
+    """The reference's cache (``init_cache`` / ``forward`` / ``decode_step``
+    flat dict, numpy leaves: attention K/V, MLA's latent ``c_kv`` and
+    ``k_rope``, Mamba's ``conv`` and fp32 ``ssm``; bf16 included) as
+    tensors of the same keys, shapes and dtypes."""
     return {k: _tensor(v, device) for k, v in cache.items()}

@@ -536,11 +536,15 @@ def _assert_bf16_gates(out, want):
 
 # (b, t, h, kv, dh, window, softcap) for the tensor-core kernel's tiling:
 # ragged lengths (200, 320: the last 128-query and 64-key tiles cut short),
-# window edges that cross a 64-key tile, GQA groups 1, 2, 4 and 8
+# window edges that cross a 64-key tile, GQA groups 1, 2, 4 and 8; then
+# llama4-scout's global layers (h 40, kv 8: a group of 5) and gemma3-12b's
+# local layers (h 16, kv 8, dh 256, window 1,024)
 WGMMA_CASES = [(2, 200, 8, 4, 256, 0, 50.0), (1, 320, 8, 4, 256, 0, 50.0),
                (2, 320, 8, 4, 256, 100, 50.0), (1, 512, 8, 4, 256, 160, 50.0),
                (1, 320, 4, 2, 128, 37, 30.0)] + [
-    (2, 256, 8, kv, 128, 0, 50.0) for kv in (8, 4, 2, 1)]
+    (2, 256, 8, kv, 128, 0, 50.0) for kv in (8, 4, 2, 1)] + [
+    (2, 512, 40, 8, 128, 0, 0.0), (1, 320, 40, 8, 128, 0, 0.0),
+    (1, 1280, 16, 8, 256, 1024, 0.0)]
 
 
 @pytest.mark.parametrize("b,t,h,kv,dh,window,cap", WGMMA_CASES)
@@ -1071,6 +1075,75 @@ def test_lm_quafl_round_on_cuda_equals_torch_round(dev):
     assert mc["bits_up"] == mp["bits_up"] and mc["bits"] == mp["bits"]
     for a, b in ((sc.server, sp.server), (sc.clients, sp.clients)):
         assert float((a - b).abs().max()) <= step
+
+
+ZOO = ["gemma3-12b", "mamba2-370m", "llama4-scout-17b-a16e",
+       "deepseek-v2-236b", "jamba-1.5-large-398b"]
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_prefill_and_decode_on_the_card_match_the_cpu(dev, arch):
+    """The reduced arch in fp32 on the card (the fp32 flash kernel in the
+    attention layers at t = 128; the Mamba, MoE and MLA blocks in plain
+    PyTorch) against the same weights and tokens on the CPU: logits of a
+    prefill into a cache and of four decode steps within 1e-4 of
+    max|logit|, the caches within 1e-4 of their largest value, and the
+    aux loss within 1e-5."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import decode_step, forward, init_cache
+    from repro_torch.models.model import init_lm
+    cfg = get_reduced(arch)
+    p, _ = init_lm(cfg, seed=0, device="cpu")
+    g = torch.Generator()
+    g.manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 132), generator=g)
+    out = {}
+    for d in ("cpu", dev):
+        pd = {k: v.to(d) for k, v in p.items()}
+        cache = init_cache(cfg, 2, 136, d)
+        lg, cache, aux = forward(cfg, pd, {"tokens": toks[:, :128].to(d)},
+                                 cache=cache)
+        logits = [lg.cpu()]
+        for i in range(4):
+            lg, cache = decode_step(cfg, pd, toks[:, 128 + i:129 + i].to(d),
+                                    128 + i, cache)
+            logits.append(lg.cpu())
+        out[str(d)] = (logits, {k: v.cpu() for k, v in cache.items()},
+                       float(aux))
+    (lc, cc, ac), (lg_, cg, ag) = out["cpu"], out[str(dev)]
+    for a, b in zip(lg_, lc):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for k in cc:
+        scale = max(float(cc[k].float().abs().max()), 1e-30)
+        assert float((cg[k].float() - cc[k].float()).abs().max()) <= \
+            1e-4 * scale, k
+    assert abs(ag - ac) <= 1e-5
+
+
+def test_zoo_lm_loss_gradient_on_the_card_matches_the_cpu(dev):
+    """ce + aux of reduced jamba (Mamba, attention and MoE layers) and its
+    gradient on the card against the CPU: within 1e-4 of the largest
+    gradient."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import init_lm, lm_loss
+    cfg = get_reduced("jamba-1.5-large-398b")
+    p, _ = init_lm(cfg, seed=1, device="cpu")
+    g = torch.Generator()
+    g.manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    grads = {}
+    for d in ("cpu", dev):
+        leaves = {k: v.to(d).requires_grad_(True) for k, v in p.items()}
+        loss, _ = lm_loss(cfg, leaves, {"tokens": toks.to(d)})
+        keys = sorted(leaves)
+        gr = torch.autograd.grad(loss, [leaves[k] for k in keys])
+        grads[str(d)] = (float(loss.detach()),
+                         {k: v.cpu() for k, v in zip(keys, gr)})
+    (lc, gc), (lg_, gg) = grads["cpu"], grads[str(dev)]
+    assert abs(lg_ - lc) <= 1e-5 * abs(lc)
+    scale = max(float(v.abs().max()) for v in gc.values())
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max()) <= 1e-4 * scale, k
 
 
 def test_lm_scan_chunk_run_equals_eager_run(dev):

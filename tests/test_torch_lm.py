@@ -10,6 +10,7 @@ when ``USE_FLASH_KERNEL`` is set (set inside the test and restored, as
 throughout, so the tolerances are fp32 ones: layers 1e-6, logits and
 caches 1e-4 absolute (|logit| up to ~10 after two layers).
 """
+import dataclasses
 from functools import partial
 
 import jax
@@ -63,15 +64,26 @@ def test_config_numbers_match_reference(arch):
 
 
 def test_registry_refuses_unported_archs():
-    assert sorted(configs.list_archs()) == sorted(ARCHS)
-    with pytest.raises(KeyError, match="Queue 1 item 12"):
-        configs.get_config("deepseek-v2-236b")
+    """The registry holds the decoder-only zoo. The encoder-decoder and
+    frontend archs, and a frontend config of a ported arch, still refuse,
+    naming ROADMAP Queue 1 item 12; the shard_map MoE refuses, naming item
+    14."""
+    assert set(ARCHS) < set(configs.list_archs())
+    for arch in ("seamless-m4t-medium", "llava-next-34b"):
+        with pytest.raises(KeyError, match="Queue 1 item 12"):
+            configs.get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("no-such-arch")
-    moe = configs.get_reduced("llama3.2-1b").replace(
-        schedule=(LayerSpec(mlp="moe"),))
+    vlm = configs.get_reduced("llama3.2-1b").replace(frontend="vision")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        model.init_lm(moe, device="cpu")
+        model.init_lm(vlm, device="cpu")
+    cfg = configs.get_reduced("deepseek-v2-236b")
+    shmap = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                impl="ragged_shmap"))
+    p, _ = model.init_lm(shmap, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        model.forward(shmap, p, {"tokens": torch.zeros((1, 8),
+                                                       dtype=torch.int64)})
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -70,7 +70,10 @@ def test_pspec_divisibility_fallback_matches_reference():
                            m11) == ("model",)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-2b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-2b", "olmo-1b",
+                                  "gemma3-12b", "mamba2-370m",
+                                  "llama4-scout-17b-a16e", "deepseek-v2-236b",
+                                  "jamba-1.5-large-398b"])
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_pspec_for_every_leaf_matches_reference(arch, mesh):
     spec, axes = abstract_lm(get_config(arch))
