@@ -94,6 +94,17 @@ then drives the port's paths:
   kernel at a GQA group of 5) and reduced jamba-1.5-large; then two QuAFL
   rounds of reduced jamba. The flash kernel is held against its plain
   version at the zoo's shapes with the other flash checks.
+* the population store split across ranks and the mesh serving steps,
+  in a process of its own (``--population``) over an NCCL group of one:
+  QuAFL at the paper's cell (n=300, s=16, 30 rounds in captured 10-round
+  chunks) on a store split over ``client_mesh()`` against the whole
+  store (bits exact every round, servers and every row bit-equal), one
+  round each of ``quafl_scaffold``, ``compressed_fedavg`` and
+  ``fedbuff_device`` the same way; the split-store QuAFL at n = 10^3 and
+  10^5 (s=8; 10.2 GB of client models) in captured chunks, ms a round at
+  10^5 within 1.5x of 10^3; gemma2-2b at full width on batch A through
+  ``build_prefill_step`` (26 flash launches) and 32 ``build_serve_step``
+  calls, greedy tokens identical to ``ServeEngine``'s.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It prints JSON lines per phase, a ``kernels`` line, the card's name
@@ -2990,6 +3001,361 @@ def run_zoo() -> None:
         raise RuntimeError(f"the zoo phases exited {proc.returncode}")
 
 
+# ---------------------------------------------------------------------------
+# path 12: the population store split across ranks, and the mesh serving
+# steps, in a process of its own over an NCCL group of one
+# ---------------------------------------------------------------------------
+
+POP_TIMEOUT = 900                 # seconds for the population process
+POP_CHUNK = 10                    # rounds a captured chunk
+# (registry name, kwargs) of the one-round whole-vs-split checks at n=300
+POP_ONE_ROUND = (
+    ("quafl_scaffold", {"uplink": "lattice"}),
+    ("compressed_fedavg", {}),
+    ("fedbuff_device", {"quantize": True, "quantizer": "lattice",
+                        "buffer_size": FEDBUFF_Z}))
+POP_SCALE_N = (1_000, 100_000)
+POP_SCALE_S = 8
+POP_SCALE_ROUNDS = 100            # each run: 10 chunks of 10 rounds
+POP_SCALE_FLOOR_MS = 0.2          # the reference's floor (200 us a round)
+POP_SCALE_RATIO = 1.5             # tests/test_population.py:509-525
+MESH_SERVE_STEPS = 32
+
+
+def pop_state_rows(state) -> dict:
+    """Every row of an algorithm state's store, whole (split rows
+    all-gathered), and the names of the split ones."""
+    from repro_torch.fed.population import SplitRow, whole_row
+    pop = (state.base if hasattr(state, "base") else state).pop
+    return ({k: whole_row(v) for k, v in pop.rows.items()
+             if not isinstance(v, tuple)},
+            sorted(k for k, v in pop.rows.items()
+                   if isinstance(v, SplitRow)))
+
+
+def pop_run(dev, name, cm, rounds, chunk, kw):
+    """Two runs at the paper's cell on the whole store (``cm`` None) or
+    split over ``cm``, from the same seed (the second replays the first's
+    captured chunks): (alg, trace, server, rows, split names, launches
+    counted from 0 just before the first and read just after it, wall s
+    of each run). The two runs must agree bit for bit."""
+    from repro_torch.fed.registry import make_algorithm
+    from repro_torch.fed.simulate import simulate
+    from repro_torch.kernels import exchange as kx
+    from repro_torch.models.mlp import mlp_loss_batched
+    from repro_torch.utils.tree import tree_flatten_vector
+    fed, part, _, p0, gen0 = chip_world(dev)
+    extra = dict(kw, client_mesh=cm) if cm is not None else dict(kw)
+    alg = make_algorithm(name, fed, loss_fn=mlp_loss_batched, template=p0,
+                         batch_size=32, device=dev, **extra)
+    walls, servers = [], []
+    for i in range(2):
+        gen = torch.Generator(device=dev)
+        gen.set_state(gen0.get_state())
+        torch.cuda.synchronize()
+        if i == 0:
+            kx.reset_launches()
+        t0 = time.perf_counter()
+        tr = simulate(alg, p0, part, gen, rounds=rounds, eval_every=0,
+                      record_every=1, scan_chunk=chunk)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(kx.LAUNCHES)
+        servers.append(tree_flatten_vector(alg.eval_params(tr.final_state)))
+    assert torch.equal(servers[0], servers[1]), name
+    rows, split = pop_state_rows(tr.final_state)
+    return alg, tr, servers[1], rows, split, launches, walls
+
+
+def population_phase(smi, dev) -> dict:
+    """QuAFL at the paper's cell (784-32-10, n=300, s=16, K=5, b=8, seed
+    0) for 30 rounds in captured 10-round chunks, on a store split over
+    client_mesh() (the NCCL group of one) and on the whole store: bits
+    exact every round, servers and every row bit-equal; then one round of
+    SCAFFOLD, compressed FedAvg and FedBuffDevice the same way."""
+    from repro_torch.fed import client_mesh
+    mesh = client_mesh()
+    assert mesh.distributed and dict(mesh.shape) == {"clients": 1}
+    runs = {}
+    for label, cm in (("whole", None), ("split", mesh)):
+        runs[label] = pop_run(dev, "quafl", cm, ROUNDS, POP_CHUNK,
+                              {"uplink": "lattice"})
+    _, trw, sw, rw, _, lw, ww = runs["whole"]
+    alg, trs, ss, rs, split, ls, ws = runs["split"]
+    assert trs.engine == trw.engine == "scanned"
+    assert trs.column("bits_up") == [4_194_816] * ROUNDS, \
+        trs.column("bits_up")
+    assert trs.column("bits_down") == [BITS_DOWN] * ROUNDS
+    for key in ("bits_up", "bits_down", "sim_time"):
+        assert trs.column(key) == trw.column(key), key
+    assert torch.equal(ss, sw)
+    assert rs.keys() == rw.keys()
+    assert all(torch.equal(rs[k], v) for k, v in rw.items())
+    assert split == ["group", "last_time", "model"], split
+    for k in ("fused_encode", "fused_rotate", "quantize_codes",
+              "snap_codes"):
+        assert ls[k] > 0, f"kernel {k} never launched on the split store"
+    assert ls == lw, (ls, lw)
+    res = {"phase": "population", "algorithm": "quafl", "n_clients": N_CLIENTS,
+           "s": S, "rounds": ROUNDS, "chunk": POP_CHUNK,
+           "mesh": dict(mesh.shape), "backend": "nccl", "split_rows": split,
+           "bits_up": trs.column("bits_up")[0],
+           "bits_down": trs.column("bits_down")[0],
+           "server_equal_whole": True, "rows_equal_whole": sorted(rw),
+           "launches": ls,
+           "ms_per_round_split": [w / ROUNDS * 1e3 for w in ws],
+           "ms_per_round_whole": [w / ROUNDS * 1e3 for w in ww],
+           "graph_times_split": round_graph_times(alg), "one_round": {},
+           "nvidia_smi": smi}
+    del runs
+    for name, kw in POP_ONE_ROUND:
+        one = {}
+        for label, cm in (("whole", None), ("split", mesh)):
+            one[label] = pop_run(dev, name, cm, 1, 0, kw)
+        _, trw, sw, rw, _, lw, _ = one["whole"]
+        _, trs, ss, rs, split, ls, _ = one["split"]
+        for key in ("bits_up", "bits_down", "sim_time"):
+            assert trs.column(key) == trw.column(key), (name, key)
+        assert torch.equal(ss, sw), name
+        assert all(torch.equal(rs[k], v) for k, v in rw.items()), name
+        assert ls == lw and (ls["fused_encode"] or ls["fused_decode"]), \
+            (name, ls, lw)
+        res["one_round"][name] = {"split_rows": split, "launches": ls,
+                                  "bits_up": trs.column("bits_up")[0],
+                                  "bits_down": trs.column("bits_down")[0]}
+        del one
+    emit(res)
+    return res
+
+
+def scale_world(dev, n):
+    """QuAFL at 784-32-10 over n clients, s=8, split over client_mesh():
+    every client reads one client's data pool (an expanded view, no
+    memory that grows with n)."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.paper_mlp import dims
+    from repro_torch.data.synthetic import make_federated_classification
+    from repro_torch.fed import client_mesh
+    from repro_torch.fed.registry import make_algorithm
+    from repro_torch.models.mlp import init_mlp_classifier, mlp_loss_batched
+    d_in, d_hidden, n_cls = dims()
+    fed = FedConfig(n_clients=n, s=POP_SCALE_S, local_steps=K, lr=LR,
+                    bits=8, swt=SWT, kernel_backend="cuda")
+    part, _ = make_federated_classification(SEED, 1, d=d_in,
+                                            n_classes=n_cls, device=dev)
+    data = {k: v.expand((n,) + tuple(v.shape[1:])) for k, v in part.items()}
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    p0 = init_mlp_classifier(g, d_in, d_hidden, n_cls)
+    alg = make_algorithm("quafl", fed, loss_fn=mlp_loss_batched,
+                         template=p0, batch_size=32, device=dev,
+                         client_mesh=client_mesh())
+    return alg, p0, data
+
+
+def recorded_chunk(kx, alg, state, data, dev) -> dict:
+    """One more captured chunk of ``alg`` from ``state`` on an engine of
+    its own, with its pipeline's backend recording every call
+    (``recording_ops``: the calls of the warm-up round and of the capture,
+    their recorded tensors refreshed by the chunk's replay), launches
+    counted from 0 just before and read just after. Every recorded call
+    is held against its plain version on the same inputs
+    (``check_train_prefixes``), and the checked calls must be exactly the
+    launches."""
+    from repro_torch.fed.engine import RoundEngine
+    ops0, log = alg.pipeline.ops, []
+    alg.pipeline.ops = recording_ops(ops0, log)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    try:
+        kx.reset_launches()
+        RoundEngine(alg).run_chunk(state, data, g, POP_CHUNK)
+        torch.cuda.synchronize()
+        launches = dict(kx.LAUNCHES)
+    finally:
+        alg.pipeline.ops = ops0
+    rows = check_train_prefixes(kx, log)
+    got = check_summary(rows)
+    ops_of = {"fused_encode": "encode", "fused_rotate": "rotate",
+              "quantize_codes": "quantize", "snap_codes": "snap",
+              "fused_decode": "decode"}
+    assert {op: got[op]["calls"] for op in got} == {
+        ops_of[k]: v for k, v in launches.items() if v}, (got, launches)
+    return {"launches": launches, "checks": got,
+            "shapes": sorted({(r["op"], tuple(r["shape"])) for r in rows})}
+
+
+def population_scale_phase(smi, dev) -> dict:
+    """The split-store QuAFL at n = 10^3 and 10^5, s = 8, in captured
+    10-round chunks: ms a round of a second run (the first captures) at
+    10^5 within 1.5x of 10^3 (floor 0.2 ms), the store's bytes and the
+    peak memory; then, at 10^5, one more chunk whose every kernel call is
+    held against its plain version (``recorded_chunk``)."""
+    from repro_torch.fed.simulate import simulate
+    from repro_torch.kernels import exchange as kx
+    out = {}
+    for n in POP_SCALE_N:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        alg, p0, data = scale_world(dev, n)
+        kx.reset_launches()
+        ms = []
+        for _ in range(2):
+            g = torch.Generator(device=dev)
+            g.manual_seed(SEED)
+            torch.cuda.synchronize()
+            tr = simulate(alg, p0, data, g, rounds=POP_SCALE_ROUNDS,
+                          eval_every=0, scan_chunk=POP_CHUNK)
+            torch.cuda.synchronize()
+            assert tr.engine == "scanned" and tr.rounds == POP_SCALE_ROUNDS
+            ms.append(tr.us_per_round / 1e3)
+        launches = dict(kx.LAUNCHES)
+        for k in ("fused_encode", "fused_rotate", "quantize_codes",
+                  "snap_codes"):
+            assert launches[k] > 0, (n, k)
+        pop = tr.final_state.pop
+        store = sum(int(v.store.numel()) * v.store.element_size()
+                    if hasattr(v, "store") else
+                    (int(v.numel()) * v.element_size()
+                     if isinstance(v, torch.Tensor) else 0)
+                    for v in pop.rows.values())
+        assert math.isfinite(float(tr.final["quant_err"]))
+        out[n] = {"ms_per_round_runs": ms, "ms_per_round": ms[1],
+                  "store_bytes": store,
+                  "model_row_bytes": n * alg.d * 4,
+                  "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                  "launches_first_run": launches,
+                  "graph_times": round_graph_times(alg)}
+        if n == POP_SCALE_N[-1]:
+            out[n]["kernel_checks"] = recorded_chunk(
+                kx, alg, tr.final_state, data, dev)
+        del alg, tr, pop
+    base = max(out[POP_SCALE_N[0]]["ms_per_round"], POP_SCALE_FLOOR_MS)
+    ratio = out[POP_SCALE_N[1]]["ms_per_round"] / base
+    res = {"phase": "population_scale", "algorithm": "quafl", "s": POP_SCALE_S,
+           "chunk": POP_CHUNK, "rounds": POP_SCALE_ROUNDS,
+           "by_n": {str(n): v for n, v in out.items()},
+           "ratio_vs_floor_1e3": ratio, "limit": POP_SCALE_RATIO,
+           "n_1e6_model_row_bytes": 1_000_000 * D_MLP * 4,
+           "nvidia_smi": smi}
+    emit(res)
+    assert ratio < POP_SCALE_RATIO, res
+    return res
+
+
+def mesh_serve_phase(smi, dev, mesh) -> dict:
+    """gemma2-2b at full width on batch A through build_prefill_step and
+    MESH_SERVE_STEPS build_serve_step calls on ``mesh`` (counts from 0
+    just before the prefill, read just after): one flash launch a layer,
+    the last-position logits against ServeEngine's prefill, greedy tokens
+    identical to ServeEngine's on the same prompts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, rank_blocks)
+    from repro_torch.models.model import init_lm
+    cfg = get_config(GEMMA)
+    params, _ = init_lm(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    batch_a = serve_prompts(rng, 64, 512, cfg.vocab_size)
+    done, rec, _ = serve_run(cfg, params, [batch_a])
+    want_tokens = [r.out_tokens for r in done]
+    want_logits = rec.logits[0]
+    del rec
+    plen = max(len(p) for p in batch_a)
+    toks = torch.zeros((len(batch_a), plen), dtype=torch.int64)
+    for i, p in enumerate(batch_a):   # left-padded with 0, as the engine
+        toks[i, plen - len(p):] = torch.tensor(p, dtype=torch.int64)
+    toks = toks.to(dev)
+    pre_shape = ShapeConfig("serve_A", SERVE_SEQ, SERVE_BATCH, "prefill")
+    dec_shape = ShapeConfig("serve_A", SERVE_SEQ, SERVE_BATCH, "decode")
+    prefill, _, (p_specs, b_specs) = build_prefill_step(cfg, mesh,
+                                                        pre_shape)
+    step, _, _, (_, c_specs, t_spec, _) = build_serve_step(cfg, mesh,
+                                                           dec_shape)
+    blocks = rank_blocks(params, p_specs, mesh)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the path: counts from 0 just before, read just after
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(blocks, rank_blocks({"tokens": toks}, b_specs,
+                                                mesh))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = fa.LAUNCHES["flash_attention"]
+    assert launches == flash_layers(cfg) == cfg.n_layers, launches
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    got = [tok]
+    step_ms = []
+    for i in range(MESH_SERVE_STEPS):
+        t0 = time.perf_counter()
+        tok, cache = step(blocks, cache, tok, plen + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got.append(tok)
+    tokens = torch.cat(got, 1)[:, :SERVE_NEW].tolist()
+    diff = float((logits - want_logits).abs().max())
+    scale = float(want_logits.abs().max())
+    res = {"phase": "mesh_serve", "arch": GEMMA, "mesh": dict(mesh.shape),
+           "backend": "nccl", "prompt_lens": [len(p) for p in batch_a],
+           "cache_seq": SERVE_SEQ, "flash_launches_prefill": launches,
+           "serve_steps": MESH_SERVE_STEPS, "prefill_ms": prefill_ms,
+           "serve_step_ms_mean": sum(step_ms) / len(step_ms),
+           "serve_step_ms_min": min(step_ms),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "logits_max_abs_diff_vs_engine": diff, "max_abs_logit": scale,
+           "same_tokens_as_engine": tokens == want_tokens,
+           "nvidia_smi": smi}
+    emit(res)
+    assert all(bool(torch.isfinite(x).all()) for x in (logits,))
+    assert diff <= CONSIST_TOL * scale, res
+    assert tokens == want_tokens, (tokens, want_tokens)
+    return res
+
+
+def population_phases() -> int:
+    """``chip_smoke.py --population``, in a process of its own: the NCCL
+    group of one, then ``population``, ``population_scale`` and
+    ``mesh_serve`` (each path's counts from 0 just before, read just
+    after)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    smi = smi_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    nccl_group_of_one()
+    try:
+        population_phase(smi, dev)
+        torch.cuda.empty_cache()
+        population_scale_phase(smi, dev)
+        torch.cuda.empty_cache()
+        mesh_serve_phase(smi, dev, make_mesh((1, 1), ("data", "model")))
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "population_process", "seconds":
+          time.perf_counter() - t0})
+    return 0
+
+
+def run_population() -> None:
+    """``chip_smoke.py --population`` in a process of its own, its lines
+    relayed."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--population"], capture_output=True, text=True,
+                          timeout=POP_TIMEOUT)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise RuntimeError(f"the population phases exited "
+                           f"{proc.returncode}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3000,6 +3366,8 @@ def main() -> int:
         return spmd_phases()
     if sys.argv[1:] == ["--zoo"]:
         return zoo_phases()
+    if sys.argv[1:] == ["--population"]:
+        return population_phases()
     from repro_torch import default_device
     from repro_torch.fed.engine import clone_tree
     from repro_torch.kernels import build
@@ -3056,6 +3424,9 @@ def main() -> int:
     run_spmd()
     # path 11, the rest of the decoder zoo: its own process
     run_zoo()
+    # path 12, the split population store and the mesh serving steps: its
+    # own process, an NCCL group of one
+    run_population()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)

@@ -25,6 +25,10 @@ pass it on. ``QuaflScaffold.round(state, data, generator, draws=None)``
 takes QuAFL's draws (``idx``, ``part_noise``, ``h_steps``, ``batch_idx``) and three
 message keys: ``key_up`` (the s model messages), ``key_ctl`` (the s
 control messages) and ``key_dn`` (the one downlink broadcast).
+
+Both take QuAFL's ``client_mesh``: SCAFFOLD's ``control`` row is split with
+the model rows (gathered and scattered with them), and each width of the
+adaptive walk is a QuAFL on the same mesh, all sharing one split store.
 """
 from __future__ import annotations
 
@@ -36,7 +40,9 @@ import torch
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.quafl import QuAFL, QuaflState
-from repro_torch.fed.population import scatter_rows, with_rows
+from repro_torch.fed.population import (client_rows, scatter_rows,
+                                        shard_population, whole_row,
+                                        with_rows)
 
 
 def _norms(x2):
@@ -50,8 +56,9 @@ class ScaffoldState(NamedTuple):
     @property
     def c_clients(self):
         """Per-client control variates (n, d), a row of the base state's
-        store (gathered and scattered with the model rows)."""
-        return self.base.pop.rows["control"]
+        store (gathered and scattered with the model rows; all-gathered
+        when the store is split)."""
+        return whole_row(self.base.pop.rows["control"])
 
     @property
     def bits_sent(self):
@@ -76,12 +83,12 @@ class QuaflScaffold(QuAFL):
 
     def init(self, params0) -> ScaffoldState:
         base = super().init(params0)
-        n = self.fed.n_clients
         z = torch.zeros_like(base.server)
-        # the control variates are one more per-client row of the store
-        base = base._replace(pop=with_rows(
-            base.pop, control=torch.zeros((n, z.shape[0]),
-                                          device=self.device)))
+        # the control variates are one more per-client row of the store,
+        # split with the others under client_mesh
+        base = base._replace(pop=shard_population(with_rows(
+            base.pop, control=client_rows(z, self.fed.n_clients)),
+            self.client_mesh))
         return ScaffoldState(base=base, c_server=z)
 
     def round(self, state: ScaffoldState, data, generator: torch.Generator,

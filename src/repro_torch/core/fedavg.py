@@ -29,6 +29,12 @@ the values the reference takes from its key splits — ``idx`` (s,),
 ``batch_idx`` (s, K, B), ``durations`` (s,) (each sampled client's K-step
 duration), ``key_up`` (a :class:`MessageKey` of s rows) and ``key_dn`` (one
 row) — so a test can feed the reference's own draws to the port.
+
+With ``client_mesh`` (:func:`repro_torch.fed.population.client_mesh`) the
+store is split over the ranks of the process group when the state is made
+(the ``group`` row and compressed FedAvg's ``codec_up`` residuals; ``lam``,
+which the participation specs read, stays whole), as in the reference;
+every rank runs the same round on the same draws.
 """
 from __future__ import annotations
 
@@ -47,7 +53,9 @@ from repro_torch.core.local import (cohort_sgd, gather_batches, local_sgd,
 from repro_torch.fed.api import counters0
 from repro_torch.fed.clock import speeds_for, straggler_round_time
 from repro_torch.fed.population import (Population, build_population,
-                                        resolve_participation, scatter_rows)
+                                        resolve_participation, scatter_rows,
+                                        shard_population, take_rows,
+                                        whole_row)
 from repro_torch.utils.tree import (tree_flatten_vector, tree_size,
                                     tree_unflatten_vector)
 
@@ -91,6 +99,7 @@ class FedAvg:
     uplink: Any = None                   # codec spec (default: identity)
     downlink: Any = None                 # codec spec (default: identity)
     participation: Any = None            # spec (default: fed.participation)
+    client_mesh: Any = None              # split the store over its ranks
     device: Any = None                   # None = the card
     # subclasses override the per-direction codec defaults (None = the
     # legacy fed.quantizer map)
@@ -112,8 +121,11 @@ class FedAvg:
         self._down_identity = isinstance(self.codec_down, IdentityCodec)
 
     def _pop0(self, **extra_rows) -> Population:
-        return build_population(self.fed, self.fed.n_clients, lam=self.lam,
-                                device=self.device, **extra_rows)
+        """The store, split over ``client_mesh`` when given."""
+        return shard_population(
+            build_population(self.fed, self.fed.n_clients, lam=self.lam,
+                             device=self.device, **extra_rows),
+            self.client_mesh)
 
     def init(self, params0) -> FedAvgState:
         return FedAvgState(
@@ -226,8 +238,8 @@ class CompressedFedAvgState(NamedTuple):
     @property
     def codec_up_state(self):
         """Per-client error-feedback residuals, a row of the store (``()``
-        for a stateless uplink)."""
-        return self.pop.rows["codec_up"]
+        for a stateless uplink; all-gathered when split)."""
+        return whole_row(self.pop.rows["codec_up"])
 
     @property
     def bits_sent(self):
@@ -281,7 +293,8 @@ class CompressedFedAvg(FedAvg):
         pop = state.pop
         if self.codec_up.stateful:
             msg, cs_new = self.codec_up.encode_stateful(
-                key_up, deltas, hints, state.codec_up_state[idx])
+                key_up, deltas, hints,
+                take_rows(pop.rows["codec_up"], idx))
             # the sampled clients' residuals back into the store (O(s·d))
             pop = scatter_rows(pop, idx, {"codec_up": cs_new})
         else:

@@ -54,7 +54,10 @@ from repro_torch.fed.api import counters0
 from repro_torch.fed.clock import (ArrivalQueue, completion_time,
                                    completion_time_device, speeds_for)
 from repro_torch.fed.engine import RingBuffer, ring_init, ring_pop, ring_push
-from repro_torch.fed.population import Population, build_population, with_rows
+from repro_torch.fed.population import (Population, build_population,
+                                        client_rows, put_rows,
+                                        shard_population, take_rows,
+                                        whole_row, with_rows)
 from repro_torch.utils.tree import (tree_flatten_vector, tree_size,
                                     tree_unflatten_vector)
 
@@ -310,8 +313,9 @@ class FedBuffDeviceState(NamedTuple):
 
     @property
     def start(self):
-        """(n, d) model each client restarted from, a row of the store."""
-        return self.pop.rows["start"]
+        """(n, d) model each client restarted from, a row of the store
+        (all-gathered when split)."""
+        return whole_row(self.pop.rows["start"])
 
     @property
     def occ(self):
@@ -345,8 +349,15 @@ class FedBuffDevice(FedBuff):
     engine calls :meth:`begin` before each chunk, outside the captured
     region; :meth:`device_round` is the captured body. A stateful uplink
     codec runs its stateless encode, as in the reference.
+
+    With ``client_mesh`` the store is split over the ranks of the process
+    group when the state is made: the ``start`` rows (and ``group``); the
+    ``occ`` counters and ``lam`` stay whole. A completion all-gathers its
+    client's start row from its owner and the owner writes the restart
+    back; every rank runs the same completions on the same draws.
     """
     completion_table: Optional[np.ndarray] = None
+    client_mesh: Any = None             # split the store over its ranks
 
     def __post_init__(self):
         super().__post_init__()
@@ -358,10 +369,11 @@ class FedBuffDevice(FedBuff):
     def init(self, params0) -> FedBuffDeviceState:
         server = tree_flatten_vector(params0).to(self.device)
         n = self.fed.n_clients
-        pop = build_population(
+        pop = shard_population(build_population(
             self.fed, n, lam=self.lam, device=self.device,
-            start=server[None].repeat(n, 1),
-            occ=torch.zeros(n, dtype=torch.int64, device=self.device))
+            start=client_rows(server, n),
+            occ=torch.zeros(n, dtype=torch.int64, device=self.device)),
+            self.client_mesh)
         return FedBuffDeviceState(
             server=server, pop=pop, queue=ring_init(n, self.device),
             **counters0(self.device, torch.float32))
@@ -414,7 +426,7 @@ class FedBuffDevice(FedBuff):
         K, d, Z = self.fed.local_steps, self.d, self.buffer_size
         m = pool_size(data)
         draws = {k: v.to(self.device) for k, v in (draws or {}).items()}
-        start, occ = state.start, state.occ
+        start, occ = state.pop.rows["start"], state.occ
         lam_row = state.pop.rows["lam"]
         queue, server, t_now = state.queue, state.server, state.sim_time
         buffer, errs = [], []
@@ -426,7 +438,7 @@ class FedBuffDevice(FedBuff):
             else:
                 bidx = torch.randint(0, m, (K, self.batch_size),
                                      generator=generator, device=self.device)
-            start_i = start.index_select(0, i1)[0]
+            start_i = take_rows(start, i1)[0]
             end = self._client_end(start_i, data, i1, bidx)
             delta = start_i - end
             if self._up_compressed:
@@ -452,7 +464,7 @@ class FedBuffDevice(FedBuff):
                                                 hint_dn[None])
                 restart = self.codec_down.decode(key, msg_dn,
                                                  start_i[None])[0]
-            start.index_put_((i1,), restart[None])
+            put_rows(start, i1, restart[None])
             occ_i = occ.index_select(0, i1)
             dur = self._duration(generator, i1, occ_i,
                                  lam_row.index_select(0, i1))

@@ -23,6 +23,17 @@ row (models X^i, speeds λ, last-interaction times). A round:
     through the store's ``codec_up`` row); then the (s+1)-averaging;
   * scatters the s new client rows back into the store.
 
+With ``client_mesh`` (:func:`repro_torch.fed.population.client_mesh`) the
+store is split over the ranks of the process group at :meth:`QuAFL.init`
+(:func:`~repro_torch.fed.population.shard_population`: the ``model``,
+``last_time``, ``group`` and ``codec_up`` rows; ``lam`` stays whole): each
+rank holds n/R clients' rows, a round all-gathers the cohort's rows from
+their owners and each rank writes back its own. Every rank runs the same
+round on the same draws (generators seeded alike), so every rank's server
+equals the whole-store run's bit for bit. The legacy whole-store views
+(``clients``, ``last_time``, ``codec_up_state``) all-gather a split row:
+a collective, so every rank must read them together.
+
 ``round(state, data, generator, draws=None)``: ``draws`` may supply any of
 the values the reference takes from its key splits — ``idx``,
 ``part_noise`` (the participation spec's draw, see
@@ -56,8 +67,9 @@ from repro_torch.core.local import (batched_grads, cohort_progress,
 from repro_torch.fed.api import counters0
 from repro_torch.fed.clock import expected_steps, speeds_for
 from repro_torch.fed.population import (Population, build_population,
-                                        gather_rows, resolve_participation,
-                                        scatter_rows)
+                                        client_rows, gather_rows,
+                                        resolve_participation, scatter_rows,
+                                        shard_population, whole_row)
 from repro_torch.utils.tree import (tree_flatten_vector, tree_size,
                                     tree_unflatten_vector)
 
@@ -84,18 +96,20 @@ class QuaflState(NamedTuple):
 
     @property
     def clients(self):
-        """X^i stacked (n, d) — view into the population store."""
-        return self.pop.rows["model"]
+        """X^i stacked (n, d): a view into the store, or a split row
+        all-gathered (every rank must read it)."""
+        return whole_row(self.pop.rows["model"])
 
     @property
     def last_time(self):
-        return self.pop.rows["last_time"]
+        return whole_row(self.pop.rows["last_time"])
 
     @property
     def codec_up_state(self):
         """Per-client error-feedback residuals, a row of the store (``()``
-        unless the uplink's residuals are threaded)."""
-        return self.pop.rows["codec_up"]
+        unless the uplink's residuals are threaded; all-gathered when
+        split)."""
+        return whole_row(self.pop.rows["codec_up"])
 
     @property
     def bits_sent(self):
@@ -119,14 +133,10 @@ class QuAFL:
     uplink: Any = None                   # codec spec (default: fed-derived)
     downlink: Any = None
     participation: Any = None            # spec (default: fed.participation)
-    client_mesh: Any = None              # a sharded store: not ported
+    client_mesh: Any = None              # split the store over its ranks
     device: Any = None                   # None = the card
 
     def __post_init__(self):
-        if self.client_mesh is not None:
-            raise NotImplementedError("QuAFL's client_mesh (a sharded "
-                                      "population store) is not ported yet "
-                                      "(ROADMAP Queue 1 item 11)")
         if self.exchange_impl not in ("pipeline", "reference"):
             raise ValueError(f"unknown exchange_impl {self.exchange_impl!r}")
         self.device = default_device(self.device)
@@ -174,12 +184,12 @@ class QuAFL:
     def init(self, params0) -> QuaflState:
         x0 = tree_flatten_vector(params0).to(self.device)
         n = self.fed.n_clients
-        pop = build_population(
+        pop = shard_population(build_population(
             self.fed, n, lam=self.lam, device=self.device,
-            model=x0[None].repeat(n, 1),
+            model=client_rows(x0, n),
             last_time=torch.zeros(n, dtype=torch.float32,
                                   device=self.device),
-            codec_up=self._codec_state0())
+            codec_up=self._codec_state0()), self.client_mesh)
         # x0 is a fresh vector, so the server takes it without a copy
         return QuaflState(server=x0, pop=pop,
                           **counters0(self.device),

@@ -29,10 +29,11 @@ from repro_torch.fed.engine import (AUTOTUNE_CANDIDATES,  # noqa: F401
                                     supports_scan)
 from repro_torch.fed.population import (  # noqa: F401
     CyclicParticipation, GammaStragglerParticipation, Participation,
-    Population, UniformParticipation, build_population, client_keys,
-    floyd_sample, gather_rows, lazy_h_steps_per_client,
-    register_participation, registered_participations,
-    resolve_participation, scatter_rows, uniform_sample, with_rows)
+    Population, SplitRow, UniformParticipation, build_population,
+    client_keys, client_mesh, floyd_sample, gather_rows,
+    lazy_h_steps_per_client, register_participation,
+    registered_participations, resolve_participation, scatter_rows,
+    shard_population, uniform_sample, whole_row, with_rows)
 from repro_torch.fed.registry import (make_algorithm,  # noqa: F401
                                       register_algorithm,
                                       registered_algorithms)

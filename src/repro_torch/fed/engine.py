@@ -26,8 +26,11 @@
   never runs a CUDA chunk eagerly unless built with ``capture=False``.
   The mesh algorithm (``spmd``) captures its collectives too: its state
   stays on the rank's device, and a chunk replays the process group's
-  collectives inside the graph. Capture runs in thread-local mode, so a
-  process group's watchdog thread may poll its events meanwhile.
+  collectives inside the graph. So does an algorithm whose population
+  store is split across ranks (``client_mesh``): its all-gathers of the
+  cohort's rows replay inside the graph, and the store stays split
+  between chunks. Capture runs in thread-local mode, so a process group's
+  watchdog thread may poll its events meanwhile.
 
 * **:class:`RingBuffer`.** A fixed-capacity event set on the device (times
   and client ids, empty slots at ``+inf``) in place of the host heap
@@ -42,6 +45,7 @@
 from __future__ import annotations
 
 import dataclasses
+import gc
 import sys
 import time
 from typing import (Any, Dict, List, NamedTuple, Protocol, Tuple,
@@ -430,25 +434,35 @@ class RoundEngine:
         graph = torch.cuda.CUDAGraph()
         for g in gens:
             graph.register_generator_state(g)
-        t0 = time.perf_counter()
-        ctx = torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                               capture_error_mode="thread_local")
-        ctx.__enter__()
+        # a dead graph whose cycle the collector frees inside the capture
+        # (an earlier engine's, a failed capture's) is destroyed there and
+        # invalidates it: no cycle is collected until the capture ends
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            st, ms = static, []
-            for _ in range(length):
-                st, m = self.alg.device_round(st, data, gen)
-                ms.append(m)
-            metrics = stack_metrics(ms, self.alg)
-            _commit(static, st, self.alg)
-        except BaseException:
+            t0 = time.perf_counter()
+            ctx = torch.cuda.graph(graph, pool=self._pool,
+                                   stream=self._stream,
+                                   capture_error_mode="thread_local")
+            ctx.__enter__()
             try:
-                ctx.__exit__(*sys.exc_info())
-            except Exception:   # the capture's own error: keep the first
-                pass
-            raise
-        t1 = time.perf_counter()
-        ctx.__exit__(None, None, None)
+                st, ms = static, []
+                for _ in range(length):
+                    st, m = self.alg.device_round(st, data, gen)
+                    ms.append(m)
+                metrics = stack_metrics(ms, self.alg)
+                _commit(static, st, self.alg)
+            except BaseException:
+                try:
+                    ctx.__exit__(*sys.exc_info())
+                except Exception:   # the capture's own error: keep the first
+                    pass
+                raise
+            t1 = time.perf_counter()
+            ctx.__exit__(None, None, None)
+        finally:
+            if collecting:
+                gc.enable()
         times["capture_ms"] = (t1 - t0) * 1e3
         times["instantiate_ms"] = (time.perf_counter() - t1) * 1e3
         return _Graph(graph, static, metrics,

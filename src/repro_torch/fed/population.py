@@ -23,14 +23,36 @@ Here a round draws ONE base integer from its generator, and
 hash on the device, so a client's draw depends on (base, id) only, not on
 the sample order or on which other clients were sampled, and no
 per-client generator or host loop is needed.
+
+**The split store.** :func:`client_mesh` is a 1-D mesh, axis ``"clients"``,
+over every rank of the default process group (one process a card: NCCL on
+cards, gloo on the CPU), and :func:`shard_population` splits the store
+over it: a row whose leading dimension n divides the axis size R becomes
+a :class:`SplitRow`, and rank r holds its rows ``[r·n/R, (r+1)·n/R)``;
+any other row stays whole on every rank. The rows a round reads whole
+rather than through :func:`gather_rows` stay whole even where they
+divide (:data:`WHOLE_ROWS`: ``lam``, which the participation specs read,
+and FedBuffDevice's ``occ``), so the rows split are the client models
+(``model``, FedBuffDevice's ``start``), the interaction times
+``last_time``, the speed classes ``group``, the error-feedback residuals
+``codec_up`` and SCAFFOLD's ``control``: the memory is in the (n, d)
+rows. Values never change, only placement moves. Every rank runs the
+same program on the same draws (generators seeded alike): the cohort,
+its rows, the local steps and the exchange are computed whole on every
+rank; only the store is split. :func:`gather_rows` on a split row is an
+exact all-gather of each cohort row from its owner, and
+:func:`scatter_rows` writes each rank's own rows, with static shapes and
+no host read, so a captured chunk holds the collectives
+(:mod:`repro_torch.fed.engine`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, ClassVar, Dict, NamedTuple, Tuple
+from typing import Any, ClassVar, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import default_device
 from repro_torch.configs.base import FedConfig
@@ -67,8 +89,7 @@ def with_rows(pop: Population, **rows) -> Population:
 def gather_rows(pop: Population, idx) -> Dict[str, Any]:
     """Sparse O(s·row) gather of the participating clients' rows; an empty
     row (``()``, a stateless codec's ``codec_up``) comes back as it is."""
-    return {k: v[idx] if isinstance(v, torch.Tensor) else v
-            for k, v in pop.rows.items()}
+    return {k: take_rows(v, idx) for k, v in pop.rows.items()}
 
 
 def scatter_rows(pop: Population, idx, updates: Dict[str, Any]
@@ -78,11 +99,172 @@ def scatter_rows(pop: Population, idx, updates: Dict[str, Any]
     left untouched. A tensor value is cast to its row's dtype, as a host
     number is."""
     for name, val in updates.items():
-        row = pop.rows[name]
-        if isinstance(val, torch.Tensor) and val.dtype != row.dtype:
-            val = val.to(row.dtype)
-        row[idx] = val
+        put_rows(pop.rows[name], idx, val)
     return pop
+
+
+def take_rows(row, idx):
+    """Rows ``idx`` of one row of the store, whole or split."""
+    if isinstance(row, SplitRow):
+        return row.gather(idx)
+    return row[idx] if isinstance(row, torch.Tensor) else row
+
+
+def put_rows(row, idx, val) -> None:
+    """Write ``val`` into rows ``idx`` of one row of the store, in
+    place."""
+    if isinstance(row, SplitRow):
+        row.scatter_(idx, val)
+        return
+    if isinstance(val, torch.Tensor) and val.dtype != row.dtype:
+        val = val.to(row.dtype)
+    row[idx] = val
+
+
+def client_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` as an (n, ...) row of the store, one copy a client: a
+    broadcast view here, which :func:`shard_population` gives memory of
+    its own (each rank copies only the rows it keeps)."""
+    return x[None].expand((n,) + tuple(x.shape))
+
+
+def whole_row(row):
+    """A row of the store whole, (n, ...): a split row all-gathered from
+    every rank (a collective: every rank must call it), any other as it
+    is."""
+    return row.whole() if isinstance(row, SplitRow) else row
+
+
+# ---------------------------------------------------------------------------
+# the split store: the client axis over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+CLIENTS = "clients"
+# rows a round reads whole, not through gather_rows: never split
+WHOLE_ROWS = ("lam", "occ")
+
+
+@dataclass(eq=False)
+class SplitRow:
+    """One row of the store split over the mesh's ``"clients"`` axis of R
+    ranks: this rank holds rows ``[r·m, (r+1)·m)`` of the n, m = n/R, in
+    ``store[:m]``; ``store[m]`` is a spare row that the writes this rank
+    does not own go to, so a scatter has static shapes."""
+    store: torch.Tensor     # (m + 1, ...)
+    n: int
+    mesh: Any
+
+    @property
+    def rows_per_rank(self) -> int:
+        return self.n // self.mesh.shape[CLIENTS]
+
+    @property
+    def block(self) -> torch.Tensor:
+        """This rank's m rows."""
+        return self.store[:self.rows_per_rank]
+
+    @property
+    def shape(self):
+        """The whole row's shape, (n, ...)."""
+        return torch.Size((self.n,) + tuple(self.store.shape[1:]))
+
+    def _owners(self, idx):
+        m = self.rows_per_rank
+        idx = torch.as_tensor(idx, device=self.store.device).long()
+        owner = torch.div(idx, m, rounding_mode="floor")
+        return idx, owner, idx - owner * m
+
+    def gather(self, idx) -> torch.Tensor:
+        """Rows ``idx`` (s,), exact: each rank takes the rows it owns
+        (zeros elsewhere), one all-gather over ``"clients"`` stacks them
+        (R, s, ...), and each row is read from its owner. No sum, so a
+        -0.0 or a NaN row comes back as it is."""
+        idx, owner, local = self._owners(idx)
+        part = self.store.index_select(0, local)
+        mine = (owner == self.mesh.axis_index(CLIENTS)).reshape(
+            (-1,) + (1,) * (part.dim() - 1))
+        part = torch.where(mine, part, torch.zeros((), dtype=part.dtype,
+                                                   device=part.device))
+        every = self.mesh.all_gather(part, CLIENTS)
+        return every[owner, torch.arange(idx.shape[0],
+                                         device=idx.device)]
+
+    def scatter_(self, idx, val) -> None:
+        """Write ``val`` into rows ``idx`` (s,): each rank writes the rows
+        it owns; the others go to its spare row. Static shapes, no host
+        read."""
+        idx, owner, local = self._owners(idx)
+        mine = owner == self.mesh.axis_index(CLIENTS)
+        at = torch.where(mine, local, torch.full_like(local,
+                                                      self.rows_per_rank))
+        val = torch.as_tensor(val, device=self.store.device).to(
+            self.store.dtype)
+        self.store.index_put_((at,), val.expand(
+            (idx.shape[0],) + tuple(self.store.shape[1:])))
+
+    def whole(self) -> torch.Tensor:
+        """The whole (n, ...) row, all-gathered from every rank."""
+        every = self.mesh.all_gather(self.block.contiguous(), CLIENTS)
+        return every.reshape(self.shape)
+
+
+def client_mesh(devices: Sequence = None):
+    """A 1-D mesh with the axis ``"clients"`` over every rank of the
+    default process group (``devices``, when given, must name one device a
+    rank); without a process group, the local mesh of one."""
+    from repro_torch.launch.mesh import make_mesh
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    if devices is not None and len(devices) != world:
+        raise ValueError(f"client_mesh: {len(devices)} devices for {world} "
+                         f"ranks; the port runs one process a device "
+                         f"(torchrun --nproc-per-node {len(devices)})")
+    return make_mesh((world,), (CLIENTS,))
+
+
+def own_row(a):
+    """``a`` with memory of its own: a view of another tensor (the
+    broadcast of :func:`client_rows`, whose rows share memory) is copied,
+    so a write to one client's row writes no other; anything else as it
+    is."""
+    if isinstance(a, torch.Tensor) and a._base is not None:
+        return a.clone(memory_format=torch.contiguous_format)
+    return a
+
+
+def split_row(a, mesh):
+    """``a`` split over ``mesh``'s ``"clients"`` axis when its leading
+    dimension divides it; else ``a`` with memory of its own
+    (:func:`own_row`)."""
+    if isinstance(a, SplitRow) or not isinstance(a, torch.Tensor):
+        return a
+    R = mesh.shape[CLIENTS]
+    if a.dim() < 1 or a.shape[0] % R:
+        return own_row(a)
+    m = a.shape[0] // R
+    r = mesh.axis_index(CLIENTS)
+    store = a.new_zeros((m + 1,) + tuple(a.shape[1:]))
+    store[:m].copy_(a[r * m:(r + 1) * m])
+    return SplitRow(store=store, n=int(a.shape[0]), mesh=mesh)
+
+
+def shard_population(pop: Population, mesh) -> Population:
+    """The store with every row whose leading dimension divides the
+    ``"clients"`` axis split over it (rank r keeps its n/R rows), but the
+    rows of :data:`WHOLE_ROWS`; other rows stay whole on every rank. The
+    values are unchanged: only placement moves. A row already split stays
+    as it is; a whole row that is a view (:func:`client_rows`) gets memory
+    of its own. ``mesh`` must have a ``"clients"`` axis
+    (:func:`client_mesh`); with ``mesh`` None the store stays whole."""
+    if mesh is None:
+        return Population(rows={k: own_row(v) for k, v in pop.rows.items()})
+    if CLIENTS not in mesh.shape:
+        raise ValueError(f"shard_population needs a mesh with a "
+                         f"{CLIENTS!r} axis (client_mesh()); got axes "
+                         f"{tuple(mesh.shape)}")
+    return Population(rows={k: own_row(v) if k in WHOLE_ROWS
+                            else split_row(v, mesh)
+                            for k, v in pop.rows.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -166,20 +348,16 @@ def lazy_h_steps_per_client(base, ids, lam_i, elapsed,
 def floyd_sample(generator: torch.Generator, n: int, s: int) -> torch.Tensor:
     """Exact uniform s-subset of [0, n) without replacement in O(s²)
     (Floyd's algorithm): no O(n) permutation is materialised. Its s draws
-    are read on the host, so it refuses to run inside a captured chunk."""
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(
-            f"floyd_sample (uniform participation above DENSE_SAMPLE_MAX = "
-            f"{DENSE_SAMPLE_MAX} clients; n={n}) reads its draws on the host "
-            f"and cannot run inside a captured CUDA graph: run this "
-            f"algorithm eagerly (scan_chunk=0)")
-    draws = [int(torch.randint(0, n - s + i + 1, (1,), generator=generator,
-                               device=generator.device))
-             for i in range(s)]
-    chosen = []
-    for i, t in enumerate(draws):
-        chosen.append(n - s + i if t in chosen else t)
-    return torch.tensor(chosen, dtype=torch.int64, device=generator.device)
+    and the duplicate test stay on the device (no host read), so a
+    captured chunk can hold it."""
+    dev = generator.device
+    chosen = torch.full((s,), -1, dtype=torch.int64, device=dev)
+    for i in range(s):
+        j = n - s + i
+        t = torch.randint(0, j + 1, (1,), generator=generator, device=dev)
+        dup = (chosen[:i] == t).any()
+        chosen[i:i + 1] = torch.where(dup, torch.full_like(t, j), t)
+    return chosen
 
 
 def uniform_sample(generator: torch.Generator, n: int, s: int

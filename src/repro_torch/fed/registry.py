@@ -47,7 +47,15 @@ Either way ``batch_size`` is B, and the algorithm draws the row indices
                          ``seq``, ``fed_mode``, ``transport`` (``batch``
                          is the registry's ``batch_size``)
 
-and every algorithm takes ``device``.
+and every algorithm takes ``device``. The algorithms with a sampled
+cohort (``quafl``, ``fedavg``, ``compressed_fedavg``, ``quafl_scaffold``,
+``adaptive_quafl``) and ``fedbuff_device`` also take ``client_mesh=``
+(:func:`repro_torch.fed.population.client_mesh`), which splits their
+per-client population store over the ranks of the process group;
+``fedbuff``, ``sequential`` and ``spmd`` have no such store: their
+classes take no such field, so the builder's ``TypeError`` (prefixed
+with the algorithm's name, as any keyword an algorithm does not take)
+refuses it.
 Third-party variants join through :func:`register_algorithm`.
 """
 from __future__ import annotations
@@ -171,5 +179,8 @@ def make_algorithm(name: str, fed: FedConfig, *, loss_fn, template,
     if name not in _BUILDERS:
         raise ValueError(f"unknown algorithm {name!r}; choose from "
                          f"{sorted(_BUILDERS)}")
-    return _BUILDERS[name](fed, loss_fn, template, batch_fn=batch_fn,
-                           **kwargs)
+    try:
+        return _BUILDERS[name](fed, loss_fn, template, batch_fn=batch_fn,
+                               **kwargs)
+    except TypeError as e:      # a keyword the algorithm does not take
+        raise TypeError(f"{name}: {e}") from e

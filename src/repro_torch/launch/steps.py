@@ -1,6 +1,6 @@
-"""The mesh train step: one QuAFL round over a ``torch.distributed`` mesh
-(port of the train half of ``repro.launch.steps``; the prefill and serve
-steps wait for mesh serving, ROADMAP Queue 1 item 11).
+"""The mesh steps over a ``torch.distributed`` mesh (port of
+``repro.launch.steps``): the train step, one QuAFL round, and the prefill
+and serve steps, inference of the server model.
 
 The QuAFL mapping onto the mesh:
   * client_dp — one client per data slice: client replicas are stacked on a
@@ -39,6 +39,16 @@ Randomness: the H-steps from the generator every rank holds seeded
 alike; each leaf's exchange draws from the rank's :class:`ExchangeStreams`
 (each stream a generator of its own, so a rank draws only what its blocks
 need); or either injected through ``draws``.
+
+The prefill and serve steps (:func:`build_prefill_step`,
+:func:`build_serve_step`): each rank holds its blocks of the parameters by
+``pspec_for`` under the client_dp rules, and its blocks of the batch and
+of the cache by :func:`repro_torch.launch.specs.input_axes` and
+:func:`~repro_torch.launch.specs.cache_axes`. A step all-gathers the
+leaves (``Mesh.gather_leaf``), runs the model's ``forward`` or
+``decode_step`` whole on every rank, and keeps the rank's blocks of what
+it returns: the prefill the last position's fp32 logits (b, V), whole,
+and the cache; the serve step the greedy next token and the cache.
 """
 from __future__ import annotations
 
@@ -56,7 +66,10 @@ from repro_torch.compression.transports import (gather_message,
 from repro_torch.configs.base import FedConfig, ModelConfig, ShapeConfig
 from repro_torch.core.exchange_local import make_shardlocal_exchange
 from repro_torch.fed.clock import client_speeds
-from repro_torch.models.model import abstract_lm, init_lm, lm_loss
+from repro_torch.launch.specs import (abstract_cache, input_axes,
+                                      input_specs)
+from repro_torch.models.model import (abstract_lm, decode_step, forward,
+                                      init_cache, init_lm, lm_loss)
 from repro_torch.sharding.rules import cut_block, pspec_for, rules_for_mode
 
 # architectures too large for per-data-slice client replicas get cohort mode
@@ -91,11 +104,6 @@ def n_slots_for(mesh, fed_mode: str) -> int:
     if fed_mode == "cohort":
         return int(mesh.shape.get("pod", 1))
     return int(mesh.shape["data"])
-
-
-def input_axes() -> Dict[str, tuple]:
-    """Logical axes of the train step's token batch (n_slots, K, b, t)."""
-    return {"tokens": ("clients", None, "batch_local", None)}
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +256,8 @@ class TrainStep:
                                                            self.fed_mode)
         self.batch_spec = {"tokens": pspec_for(
             (n, K, max(shape.global_batch // n, 1), shape.seq_len),
-            input_axes()["tokens"], rules_for_mode(self.fed_mode), mesh)}
+            input_axes(cfg, shape)["tokens"], rules_for_mode(self.fed_mode),
+            mesh)}
         self._gather = self.transport == "code_allgather" and self.in_mesh
         self._slx = None
         if self.transport in SHARD_LOCAL and quantized:
@@ -451,3 +460,106 @@ def build_train_step(cfg: ModelConfig, fed: FedConfig, mesh,
                      seed=seed)
     return step, step.state_spec, (step.specs, step.batch_spec)
 
+
+
+# ---------------------------------------------------------------------------
+# prefill / serve steps (inference of the server model)
+# ---------------------------------------------------------------------------
+
+def _leaf_specs(shapes: Dict[str, torch.Tensor], axes: Dict[str, tuple],
+                mesh) -> Dict[str, tuple]:
+    rules = rules_for_mode("client_dp")
+    return {k: pspec_for(tuple(v.shape), axes[k], rules, mesh)
+            for k, v in shapes.items()}
+
+
+class _InferenceStep:
+    """The blocks a rank holds of the parameters and of the cache at
+    ``shape``, and the gathers and cuts between blocks and whole leaves."""
+
+    def __init__(self, cfg: ModelConfig, mesh, shape: ShapeConfig):
+        self.cfg, self.mesh, self.shape = cfg, mesh, shape
+        spec, axes = abstract_lm(cfg)
+        self.param_spec = spec
+        self.param_specs = _leaf_specs(spec, axes, mesh)
+        self.cache_spec, c_axes = abstract_cache(cfg, shape)
+        self.cache_specs = _leaf_specs(self.cache_spec, c_axes, mesh)
+
+    def _whole(self, blocks, specs):
+        return {k: self.mesh.gather_leaf(v, specs[k])
+                for k, v in blocks.items()}
+
+    def _blocks(self, tree, specs):
+        coords = self.mesh.coords()
+        return {k: cut_block(v, specs[k], self.mesh.shape, coords).clone()
+                for k, v in tree.items()}
+
+
+class PrefillStep(_InferenceStep):
+    """``step(params, batch) -> (logits, cache)``: the prefill of this
+    rank's blocks of the parameters and of ``batch["tokens"]`` (b, t), t
+    at most ``shape.seq_len``; the last position's fp32 logits (b, V),
+    whole, and this rank's blocks of the ``seq_len``-deep cache."""
+
+    def __init__(self, cfg: ModelConfig, mesh, shape: ShapeConfig):
+        super().__init__(cfg, mesh, shape)
+        self.batch_specs = _leaf_specs(input_specs(cfg, shape),
+                                       input_axes(cfg, shape), mesh)
+
+    def __call__(self, params, batch):
+        p = self._whole(params, self.param_specs)
+        toks = self.mesh.gather_leaf(batch["tokens"],
+                                     self.batch_specs["tokens"]).long()
+        cache = init_cache(self.cfg, toks.shape[0], self.shape.seq_len,
+                           toks.device)
+        logits, cache, _ = forward(self.cfg, p, {"tokens": toks},
+                                   cache=cache, write_pos=0)
+        del p
+        last = logits[:, -1].clone()   # the (b, t, V) logits freed here
+        del logits
+        return last, self._blocks(cache, self.cache_specs)
+
+
+class ServeStep(_InferenceStep):
+    """``step(params, cache, token, pos) -> (next_token, cache)``: one
+    greedy decode step from this rank's blocks of the parameters, the
+    cache and ``token`` (b, 1) at absolute position ``pos``; the rank's
+    blocks of the next token (int32) and of the cache."""
+
+    def __init__(self, cfg: ModelConfig, mesh, shape: ShapeConfig):
+        super().__init__(cfg, mesh, shape)
+        self.token_spec = pspec_for((shape.global_batch, 1),
+                                    ("batch", None),
+                                    rules_for_mode("client_dp"), mesh)
+        self.pos_spec = ()
+
+    def __call__(self, params, cache, token, pos):
+        p = self._whole(params, self.param_specs)
+        c = self._whole(cache, self.cache_specs)
+        tok = self.mesh.gather_leaf(token, self.token_spec).long()
+        logits, c = decode_step(self.cfg, p, tok, int(pos), c)
+        del p
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        coords = self.mesh.coords()
+        return (cut_block(nxt, self.token_spec, self.mesh.shape,
+                          coords).clone(),
+                self._blocks(c, self.cache_specs))
+
+
+def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig):
+    """Returns ``(prefill_step, param_spec, (param specs, batch specs))``:
+    the :class:`PrefillStep`, the parameters as meta tensors at full
+    shapes, and the blocks each rank holds (cut them with
+    :func:`rank_blocks`)."""
+    step = PrefillStep(cfg, mesh, shape)
+    return step, step.param_spec, (step.param_specs, step.batch_specs)
+
+
+def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig):
+    """One-token decode against a ``seq_len``-deep cache: ``(serve_step,
+    param_spec, cache_spec, (param specs, cache specs, token spec, pos
+    spec))``, the :class:`ServeStep`, the parameters and the cache as meta
+    tensors at full shapes, and the blocks each rank holds."""
+    step = ServeStep(cfg, mesh, shape)
+    return step, step.param_spec, step.cache_spec, (
+        step.param_specs, step.cache_specs, step.token_spec, step.pos_spec)

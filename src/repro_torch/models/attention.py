@@ -171,6 +171,13 @@ def init_attn_cache(cfg, spec, batch: int, max_seq: int, device):
             "v": torch.zeros(kvd, dtype=dt, device=device)}
 
 
+def attn_cache_axes(spec):
+    """Logical axes of the K/V cache: kv heads over 'model' when they
+    divide it, else the head dim (the sharding rules' priority)."""
+    return {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+            "v": ("batch", "kv_seq", "kv_heads", "head_dim")}
+
+
 def write_attn_cache(cache, k_new, v_new, pos: int):
     """Write t_new tokens starting at absolute position ``pos`` into the
     ring, in place; returns ``cache``."""

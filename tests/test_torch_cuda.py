@@ -1004,18 +1004,78 @@ def test_captured_chunks_equal_eager_rounds(dev, name, kw):
 
 
 def test_a_chunk_that_syncs_raises_under_capture(dev):
-    """Above 4,096 clients the uniform sampler is Floyd's, which reads its
-    draws on the host: a chunk of it on the card raises instead of running
-    eagerly, and an eager run still works."""
+    """A round that reads a value on the host cannot be captured: its
+    chunk on the card raises instead of running eagerly, and an eager run
+    still works. (Floyd's sampler, above 4,096 clients, no longer reads
+    its draws on the host: its chunk captures, next test.)"""
     from repro_torch.fed import RoundEngine
-    alg, p0, part = _engine_world(dev, n=4200, s=2)
+    alg, p0, part = _engine_world(dev, n=8, s=2)
+    inner = alg.device_round
+
+    def syncing_round(state, data, generator):
+        float(state.sim_time)          # a host read inside the round
+        return inner(state, data, generator)
+
+    alg.device_round = syncing_round
     g = torch.Generator(device=dev)
     g.manual_seed(1)
-    eng = RoundEngine(alg)
-    with pytest.raises(RuntimeError, match="floyd_sample"):
-        eng.run_chunk(alg.init(p0), part, g, 2)
+    with pytest.raises(RuntimeError, match="stream is capturing"):
+        RoundEngine(alg).run_chunk(alg.init(p0), part, g, 2)
     state, m = alg.round(alg.init(p0), part, g)
     assert float(m["sim_time"]) == alg.fed.swt + alg.fed.sit
+
+
+def test_no_cycle_is_collected_inside_a_capture(dev):
+    """The cyclic collector is off while a chunk is captured (a dead
+    graph it frees there would be destroyed inside the capture and
+    invalidate it), on for the warm-up round, and on again after, also
+    when the capture fails."""
+    import gc
+    from repro_torch.fed import RoundEngine
+    alg, p0, part = _engine_world(dev, n=8, s=2)
+    inner, seen = alg.device_round, []
+
+    def watched_round(state, data, generator):
+        seen.append(gc.isenabled())
+        return inner(state, data, generator)
+
+    alg.device_round = watched_round
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    RoundEngine(alg).run_chunk(alg.init(p0), part, g, 2)
+    assert seen == [True, False, False] and gc.isenabled()
+
+    def syncing_round(state, data, generator):
+        seen.append(gc.isenabled())
+        float(state.sim_time)
+        return inner(state, data, generator)
+
+    alg.device_round, seen[:] = syncing_round, []
+    with pytest.raises(RuntimeError, match="stream is capturing"):
+        RoundEngine(alg).run_chunk(alg.init(p0), part, g, 2)
+    assert seen == [True, False] and gc.isenabled()
+
+
+def test_floyd_sampler_captures_and_equals_eager(dev):
+    """Above 4,096 clients the uniform sampler is Floyd's, its draws and
+    its duplicate test on the device: a captured chunk of it draws the
+    eager rounds' cohorts, bits and sim_time exactly."""
+    from repro_torch.fed import simulate
+    from repro_torch.utils.tree import tree_flatten_vector
+    out = {}
+    for chunk in (0, 2):
+        alg, p0, part = _engine_world(dev, n=4200, s=2)
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        tr = simulate(alg, p0, part, g, rounds=4, eval_every=0,
+                      record_every=1, scan_chunk=chunk)
+        out[chunk] = (tr, tree_flatten_vector(alg.eval_params(
+            tr.final_state)), g.get_state())
+    assert out[2][0].engine == "scanned"
+    assert [(r["bits_up"], r["sim_time"]) for r in out[0][0].rows] == \
+        [(r["bits_up"], r["sim_time"]) for r in out[2][0].rows]
+    torch.testing.assert_close(out[2][1], out[0][1], rtol=1e-4, atol=5e-7)
+    assert torch.equal(out[0][2], out[2][2])
 
 
 # ---------------------------------------------------------------------------
@@ -1258,3 +1318,90 @@ def test_spmd_captured_chunks_equal_eager(dev, nccl_mesh, transport):
             {k: v for k, v in b.items() if k != "wall_time_s"}
     assert _train_equal(traces[0].final_state.train,
                         traces[2].final_state.train)
+
+
+# ---------------------------------------------------------------------------
+# the split population store and the mesh serving steps on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,kw", [
+    ("quafl", {}), ("quafl_scaffold", {}),
+    ("fedbuff_device", {"buffer_size": 3, "quantize": True,
+                        "quantizer": "lattice"})])
+def test_split_store_nccl_group_of_one_equals_whole_store(dev, nccl_mesh,
+                                                          name, kw):
+    """The store split over client_mesh() on the NCCL group of one, run as
+    one captured chunk of 4 rounds (its all-gathers inside the graph),
+    equals the same chunk on the whole store: bits, sim_time, server and
+    every row bit for bit; the kernels launched on both."""
+    from repro_torch.fed import (SplitRow, client_mesh, simulate,
+                                 whole_row)
+    from repro_torch.utils.tree import tree_flatten_vector
+    out = []
+    for cm in (None, client_mesh()):
+        extra = dict(kw, client_mesh=cm) if cm is not None else kw
+        alg, p0, part = _engine_world(dev, name=name, **extra)
+        g = torch.Generator(device=dev)
+        g.manual_seed(2)
+        kx.reset_launches()
+        tr = simulate(alg, p0, part, g, rounds=4, eval_every=0,
+                      record_every=1, scan_chunk=4)
+        torch.cuda.synchronize()
+        st = tr.final_state
+        pop = (st.base if hasattr(st, "base") else st).pop
+        out.append((tr, tree_flatten_vector(alg.eval_params(st)),
+                    {k: whole_row(v) for k, v in pop.rows.items()
+                     if not isinstance(v, tuple)},
+                    [k for k, v in pop.rows.items()
+                     if isinstance(v, SplitRow)], dict(kx.LAUNCHES)))
+    (tw, sw, rw, _, lw), (ts, ss, rs, split, ls) = out
+    assert tw.engine == ts.engine == "scanned"
+    assert "group" in split and len(split) >= 2
+    assert [(r["bits_up"], r["bits_down"], r["sim_time"])
+            for r in tw.rows] == [(r["bits_up"], r["bits_down"],
+                                   r["sim_time"]) for r in ts.rows]
+    assert torch.equal(ss, sw)
+    assert all(torch.equal(rs[k], v) for k, v in rw.items())
+    assert lw == ls and (ls["fused_encode"] or ls["fused_decode"])
+
+
+def test_mesh_prefill_step_launches_flash(dev, nccl_mesh):
+    """build_prefill_step and build_serve_step at reduced gemma2-2b on the
+    NCCL group of one: one flash launch a layer in the prefill (t = 128),
+    the logits and 4 greedy tokens equal to ServeEngine's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, rank_blocks)
+    from repro_torch.models.model import init_lm
+    from repro_torch.serving import Request, ServeEngine
+    cfg = get_reduced("gemma2-2b")
+    params, _ = init_lm(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    toks = torch.randint(1, cfg.vocab_size, (2, 128), generator=g,
+                         device=dev)
+    prefill, _, (p_specs, b_specs) = build_prefill_step(
+        cfg, nccl_mesh, ShapeConfig("p", 256, 2, "prefill"))
+    step, _, _, _ = build_serve_step(cfg, nccl_mesh,
+                                     ShapeConfig("d", 256, 2, "decode"))
+    pb = rank_blocks(params, p_specs, nccl_mesh)
+    fa.reset_launches()
+    logits, cache = prefill(pb, rank_blocks({"tokens": toks}, b_specs,
+                                            nccl_mesh))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    got = [tok]
+    for i in range(4):
+        tok, cache = step(pb, cache, tok, 128 + i)
+        got.append(tok)
+    eng = ServeEngine(cfg, params, max_batch=2, max_seq=256)
+    seen = []
+    for row in toks.tolist():
+        eng.submit(Request(prompt=row, max_new_tokens=5))
+    done = eng.run(on_step=lambda i, lg: seen.append(lg.clone())
+                   if i == 0 else None)
+    assert torch.equal(logits, seen[0])
+    assert torch.cat(got, 1).tolist() == [r.out_tokens for r in done]

@@ -28,7 +28,7 @@ from repro.models.mlp import init_mlp_classifier as ref_init
 from repro.models.mlp import mlp_loss as ref_mlp_loss
 from repro_torch.configs.base import FedConfig
 from repro_torch.examples import heterogeneous_clients, quickstart
-from repro_torch.fed import (FedAlgorithm, make_algorithm,
+from repro_torch.fed import (FedAlgorithm, client_mesh, make_algorithm,
                              register_algorithm, registered_algorithms,
                              simulate)
 from repro_torch.fed import registry
@@ -233,8 +233,12 @@ def test_fed_algorithm_protocol_and_registry():
         assert simulate(alg, template, data, g, rounds=2).rounds == 2
     finally:
         registry._BUILDERS.pop("test_quafl_server_only")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        make_algorithm("quafl", fed, client_mesh=object(), **kw)
+    # a split store (Queue 1 item 11) runs: without a process group,
+    # client_mesh() is the local mesh of one
+    alg = make_algorithm("quafl", fed, client_mesh=client_mesh(), **kw)
+    g = torch.Generator()
+    g.manual_seed(0)
+    assert simulate(alg, template, data, g, rounds=2).rounds == 2
     assert not isinstance(object(), FedAlgorithm)
 
 
