@@ -105,6 +105,17 @@ then drives the port's paths:
   10^5 within 1.5x of 10^3; gemma2-2b at full width on batch A through
   ``build_prefill_step`` (26 flash launches) and 32 ``build_serve_step``
   calls, greedy tokens identical to ``ServeEngine``'s.
+* the encoder-decoder and frontend archs, in a process of its own
+  (``--encdec``) over an NCCL group of one: seamless-m4t-medium whole
+  (977,758,208 parameters; 12 encoder and 12 decoder layers) and
+  llava-next-34b cut to 4 of its 60 layers, each through
+  ``build_prefill_step`` (text tokens beside stub frame embeddings, or
+  after 2,880 stub patch embeddings) and 16 greedy ``build_serve_step``
+  calls, twice and identical, one flash launch a decoder layer, with the
+  fp32 prefill/decode check; then one QuAFL round of seamless at b=8
+  through ``build_train_step`` with frontend batches (bits exact per
+  leaf, 2 encodes and 2 decodes a leaf) and one ``shard_local`` round,
+  every launch held against its plain version on a 2^24 prefix.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It prints JSON lines per phase, a ``kernels`` line, the card's name
@@ -1600,10 +1611,15 @@ FLASH_CASES = [
     ("llama4_A_global", 4, 512, 40, 8, 128, 0, 0.0, BF16),
     ("llama4_A_global_fp32", 2, 640, 40, 8, 128, 0, 0.0, FP32),
     ("jamba_reduced_B_fp32", 4, 4608, 4, 2, 32, 0, 0.0, FP32),
+    # the encoder-decoder and frontend archs' decoder prefills (path 13):
+    # seamless-m4t-medium's (dh 64, a GQA group of 1) and llava-next-34b's
+    # (2,880 patch positions and 448 text tokens, a GQA group of 7)
+    ("seamless_A", 4, 512, 16, 16, 64, 0, 0.0, BF16),
+    ("llava_A", 4, 3328, 56, 8, 128, 0, 0.0, BF16),
 ]
 FLASH_TIMED = ("gemma2_A_global", "gemma2_A_local", "gemma2_B_global",
                "gemma2_B_local", "gemma3_A_local", "gemma3_A_global",
-               "llama4_A_global")
+               "llama4_A_global", "seamless_A", "llava_A")
 FLASH_MAIN = "gemma2_B_global"    # the kernels line's shape, also timed
                                   # at softcap 0 beside SDPA
 FLASH_SYMBOL = r"flash_(wgmma_)?kernel"   # either flash kernel, profiled
@@ -1801,25 +1817,31 @@ def profile_serve(cfg, params, prompts, max_new):
 
 
 def prefill_decode_consistency(cfg, params, dev, dtype: str, b=2, t=640,
-                               t_pre=512):
+                               t_pre=512, frontend=None):
     """Logits of a kernel prefill of t tokens against a kernel prefill of
     t_pre plus t - t_pre teacher-forced decode steps (plain sdpa over the
-    cache): (max |Δ|, max |logit|, flash launches)."""
+    cache): (max |Δ|, max |logit|, flash launches). An encoder-decoder or
+    frontend model's ``frontend`` (b, F, d) rides in both prefills; a
+    frontend model's decode positions start after its F."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.model import decode_step, forward, init_cache
     c = cfg.replace(dtype=dtype)
     rng = np.random.default_rng(SEED + 7)
     toks = torch.from_numpy(rng.integers(1, c.vocab_size, (b, t))).to(dev)
+    fe = {} if frontend is None else {"frontend": frontend}
+    f = 0 if frontend is None else frontend.shape[1]
+    off = 0 if c.encdec else f
     fa.reset_launches()
-    full, _, _ = forward(c, params, {"tokens": toks})
+    full, _, _ = forward(c, params, {"tokens": toks, **fe})
     want = full[:, t_pre:].clone()
     del full
-    cache = init_cache(c, b, t, dev)
-    _, cache, _ = forward(c, params, {"tokens": toks[:, :t_pre]}, cache=cache)
+    cache = init_cache(c, b, off + t, dev, enc_len=f if c.encdec else 0)
+    _, cache, _ = forward(c, params, {"tokens": toks[:, :t_pre], **fe},
+                          cache=cache)
     err = 0.0
     for i in range(t - t_pre):
         lg, cache = decode_step(c, params, toks[:, t_pre + i:t_pre + i + 1],
-                                t_pre + i, cache)
+                                off + t_pre + i, cache)
         err = max(err, float((lg[:, 0] - want[:, i]).abs().max()))
     torch.cuda.synchronize()
     return err, float(want.abs().max()), fa.LAUNCHES["flash_attention"]
@@ -3356,6 +3378,327 @@ def run_population() -> None:
                            f"{proc.returncode}")
 
 
+# ---------------------------------------------------------------------------
+# path 13: the encoder-decoder and frontend archs through the mesh prefill,
+# serve and train steps, in a process of its own over an NCCL group of one
+# ---------------------------------------------------------------------------
+
+SEAMLESS, LLAVA = "seamless-m4t-medium", "llava-next-34b"
+ENCDEC_TIMEOUT = 600              # seconds for the encdec process
+ENCDEC_BATCH, ENCDEC_STEPS = 4, 16
+# seamless: 512 text tokens a prompt beside enc_len_for(seq_len 1,024) =
+# 128 frame embeddings; llava: 448 text tokens after its 2,880 patch
+# embeddings (t = 3,328, a multiple of the flash kernel's 128 rows) with a
+# cache 4,096 deep, at 4 of its 60 layers (12.6 GB of fp32 weights: the
+# mesh serve step's peak, 3.7x its weights at gemma2-2b, would near the
+# card's 80 GB at 8)
+SEAMLESS_TEXT, SEAMLESS_SEQ = 512, 1024
+LLAVA_TEXT, LLAVA_SEQ, LLAVA_DEPTH = 448, 4096, 4
+# the fp32 prefill/decode check: (text tokens prefilled whole, split); the
+# full and the split prefills both t % 128 == 0 with llava's 2,880
+ENCDEC_CONSIST = {SEAMLESS: (640, 512), LLAVA: (576, 448)}
+# one QuAFL round of seamless at b=8 through build_train_step: 27 leaves,
+# d = 977,758,208; one uplink message and the downlink broadcast, each leaf
+# padded on its own (d_pad·8 + 32 bits a leaf)
+SEAMLESS_D, SEAMLESS_LEAVES, SEAMLESS_BITS = 977_758_208, 27, 7_822_263_136
+ENCDEC_TRAIN = {"batch": 8, "seq": 128, "local_steps": 2, "lr": 0.02}
+
+
+def frontend_serve(smi, dev, mesh, arch) -> dict:
+    """seamless-m4t-medium whole (phase ``encdec_serve``) or llava-next-34b
+    cut to LLAVA_DEPTH layers (``frontend_serve``) through
+    ``build_prefill_step`` and ENCDEC_STEPS greedy ``build_serve_step``
+    calls on ``mesh`` (counts from 0 just before the prefill, read just
+    after): one flash launch a decoder layer in the prefill (the encoder
+    and the cross-attention run plain sdpa, as the reference's), the
+    prefill's cache as the serve step's specs describe it, decoding from
+    the position after the prefill (the frontend's positions included),
+    a greedy rerun identical in tokens and logits, then the fp32
+    prefill/decode check."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.specs import enc_len_for
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, rank_blocks)
+    from repro_torch.models.model import init_lm
+    cfg, reduced = get_config(arch), []
+    text, seq = SEAMLESS_TEXT, SEAMLESS_SEQ
+    if arch == LLAVA:
+        reduced = [f"depth: {LLAVA_DEPTH} of {cfg.n_layers} layers"]
+        cfg = cfg.replace(n_layers=LLAVA_DEPTH)
+        text, seq = LLAVA_TEXT, LLAVA_SEQ
+    pre_shape = ShapeConfig(arch, seq, ENCDEC_BATCH, "prefill")
+    dec_shape = ShapeConfig(arch, seq, ENCDEC_BATCH, "decode")
+    f = enc_len_for(pre_shape) if cfg.encdec else cfg.n_frontend_tokens
+    start = text if cfg.encdec else f + text
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = init_lm(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(v.numel()) for v in params.values())
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    toks = torch.randint(1, cfg.vocab_size, (ENCDEC_BATCH, text),
+                         generator=g, device=dev)
+    fe = torch.randn((ENCDEC_BATCH, f, cfg.d_model), generator=g,
+                     device=dev).to(BF16)
+    prefill, _, (p_specs, b_specs) = build_prefill_step(cfg, mesh,
+                                                        pre_shape)
+    step, _, cache_spec, _ = build_serve_step(cfg, mesh, dec_shape)
+    # on the mesh of one every block is its whole leaf
+    blocks = rank_blocks(params, p_specs, mesh)
+    assert all(blocks[k].shape == v.shape for k, v in params.items())
+    del params
+    batch = rank_blocks({"tokens": toks, "frontend": fe}, b_specs, mesh)
+    n_flash = flash_layers(cfg)
+    torch.cuda.empty_cache()
+
+    def serve():
+        """(prefill logits, tokens (b, 1 + steps), prefill ms, step ms,
+        the prefill's cache)."""
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = prefill(blocks, batch)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t1) * 1e3
+        first = cache
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        out, ms = [tok], []
+        for i in range(ENCDEC_STEPS):
+            t1 = time.perf_counter()
+            tok, cache = step(blocks, cache, tok, start + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            out.append(tok)
+        return logits, torch.cat(out, 1), pre_ms, ms, first
+
+    torch.cuda.reset_peak_memory_stats()
+    # the path: counts from 0 just before, read just after
+    fa.reset_launches()
+    logits, tokens, pre_ms, step_ms, cache = serve()
+    launches = fa.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    assert launches == n_flash == cfg.n_layers, (arch, launches)
+    assert cache.keys() == cache_spec.keys()
+    for k, v in cache.items():   # cross K/V at F = enc_len_for(shape)
+        assert v.shape == cache_spec[k].shape, (k, v.shape)
+    if cfg.encdec:
+        assert cache["body/0/cross/k"].shape[2] == f
+    del cache
+    assert bool(torch.isfinite(logits).all()), arch
+    assert tokens.shape == (ENCDEC_BATCH, ENCDEC_STEPS + 1)
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size
+    logits2, tokens2, pre_ms2, step_ms2, cache = serve()
+    del cache
+    same_tokens = torch.equal(tokens, tokens2)
+    logit_diff = float((logits - logits2).abs().max())
+    assert same_tokens and logit_diff == 0.0, (arch, same_tokens,
+                                               logit_diff)
+    torch.cuda.empty_cache()
+    t_full, t_pre = ENCDEC_CONSIST[arch]
+    err, scale, n = prefill_decode_consistency(
+        cfg, blocks, dev, "float32", t=t_full, t_pre=t_pre,
+        frontend=fe[:2])
+    assert n == 2 * n_flash, (arch, n)
+    assert err <= CONSIST_TOL * scale, (arch, err, scale)
+    res = {"phase": "encdec_serve" if cfg.encdec else "frontend_serve",
+           "arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers, "params": n_params,
+           "init_seconds": init_s, "mesh": dict(mesh.shape),
+           "backend": "nccl", "batch": ENCDEC_BATCH, "text_tokens": text,
+           "frontend_len": f, "cache_seq": seq, "first_decode_pos": start,
+           "flash_layers": n_flash, "flash_launches_prefill": launches,
+           "serve_steps": ENCDEC_STEPS, "prefill_ms": [pre_ms, pre_ms2],
+           "serve_step_ms_mean": [sum(step_ms) / len(step_ms),
+                                  sum(step_ms2) / len(step_ms2)],
+           "serve_step_ms_min": min(step_ms + step_ms2),
+           "peak_memory_bytes": peak,
+           "peak_weight_copies": peak / (4 * n_params),
+           "same_tokens": same_tokens,
+           "max_abs_logit_diff_vs_run_1": logit_diff,
+           "consistency_fp32": {"text": t_full, "split": t_pre,
+                                "max_abs_diff": err, "max_abs_logit": scale,
+                                "rel": err / scale, "flash_launches": n},
+           "tokens": tokens.tolist(), "nvidia_smi": smi}
+    emit(res)
+    del blocks
+    torch.cuda.empty_cache()
+    return res
+
+
+def encdec_train(smi, kx, mesh) -> dict:
+    """One QuAFL round of seamless-m4t-medium at full width through
+    ``build_train_step`` (``dequant_psum``, b=8) with frontend batches
+    (n_slots, K, b, F, d) on ``mesh`` (counts from 0 just before, read just
+    after): every leaf's message bits the codec's, exactly d_pad·8 + 32,
+    2 encodes and 2 decodes a leaf; a profiled round; then a round of each
+    family with every launch recorded on its first TRAIN_PREFIX
+    coordinates and held against its plain version: the whole-leaf round,
+    and one ``shard_local`` round on the same state."""
+    from repro_torch.compression import pipeline
+    from repro_torch.compression.rotation import pad_len
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedConfig, ShapeConfig
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.launch.steps import (build_train_step,
+                                          init_train_state,
+                                          shard_train_state)
+    from repro_torch.models.model import lm_loss
+    cfg, dev = get_config(SEAMLESS), torch.device("cuda", 0)
+    tr = ENCDEC_TRAIN
+    fed = FedConfig(bits=8, local_steps=tr["local_steps"], lr=tr["lr"],
+                    transport="dequant_psum", kernel_backend="cuda")
+    shape = ShapeConfig("encdec_train", tr["seq"], tr["batch"], "train")
+    step, spec, (specs, _) = build_train_step(cfg, fed, mesh, shape,
+                                              device=dev, seed=SEED)
+    assert step.n_slots == 1 and step.fed_mode == "client_dp"
+    numel = {k: int(v.numel()) for k, v in spec.server.items()}
+    assert sum(numel.values()) == SEAMLESS_D
+    assert len(numel) == SEAMLESS_LEAVES
+    leaf_bits = {}
+    for k, n in numel.items():
+        up, dn = (step.quant_up.message_bits(n),
+                  step.quant_down.message_bits(n))
+        assert up == dn == lattice_bits(pad_len(n)), (k, up, dn)
+        leaf_bits[k] = up
+    assert sum(leaf_bits.values()) == SEAMLESS_BITS
+    full = init_train_state(cfg, SEED, step.n_slots, device=dev)
+    state = shard_train_state(full.server, full.clients, full.t, mesh,
+                              specs)
+    del full
+    torch.cuda.empty_cache()
+    ins = input_specs(cfg, shape, n_slots=1, local_steps=tr["local_steps"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     tuple(ins["tokens"].shape), generator=g,
+                                     device=dev),
+             "frontend": torch.randn(tuple(ins["frontend"].shape),
+                                     generator=g, device=dev).to(BF16)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the path: counts from 0 just before, read just after
+    kx.reset_launches()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = dict(kx.LAUNCHES)
+    peak_round = torch.cuda.max_memory_allocated()
+    assert launches == {k: v * SEAMLESS_LEAVES
+                        for k, v in SPMD_LAUNCHES.items()}, launches
+    assert math.isfinite(float(m["quant_err_sq"])), m
+    (state, m2), wall, kernels = profiled(lambda: step(state, batch, gen))
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    per_round = port_launches(kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+
+    cuda_ops, log = pipeline._REGISTRY["cuda"], []
+    pipeline._REGISTRY["cuda"] = recording_ops(cuda_ops, log)
+    try:
+        state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        checks = check_train_prefixes(kx, log)
+        log.clear()
+        sl, _, _ = build_train_step(
+            cfg, dataclasses.replace(fed, transport="shard_local"), mesh,
+            shape, device=dev, seed=SEED)
+        kx.reset_launches()
+        state, m_sl = sl(state, batch, gen)
+        torch.cuda.synchronize()
+        sl_launches = dict(kx.LAUNCHES)
+        sl_checks = check_train_prefixes(kx, log)
+    finally:
+        pipeline._REGISTRY["cuda"] = cuda_ops
+    del log
+    ops_of = {"fused_encode": "encode", "fused_rotate": "rotate",
+              "snap_codes": "snap", "fused_decode": "decode"}
+    for rows, per_leaf in ((checks, SPMD_LAUNCHES),
+                           (sl_checks, SHARD_LOCAL_LAUNCHES)):
+        got = check_summary(rows)
+        assert {op: got[op]["calls"] for op in got} == {
+            ops_of[k]: n * SEAMLESS_LEAVES for k, n in per_leaf.items()
+            if n}, got
+    assert sl_launches == {k: v * SEAMLESS_LEAVES for k, v in
+                           SHARD_LOCAL_LAUNCHES.items()}, sl_launches
+    server = step.server_leaves(state)
+    with torch.no_grad():
+        loss = float(lm_loss(cfg, server, {
+            "tokens": batch["tokens"][0, 0],
+            "frontend": batch["frontend"][0, 0]})[0])
+    del server
+    assert math.isfinite(loss) and math.isfinite(float(m_sl["quant_err_sq"]))
+    res = {"phase": "encdec_train", "arch": SEAMLESS,
+           "mesh": dict(mesh.shape), "backend": "nccl",
+           "transport": fed.transport, "d": SEAMLESS_D,
+           "leaves": SEAMLESS_LEAVES, "batch": tr["batch"],
+           "text_tokens": int(ins["tokens"].shape[-1]),
+           "frontend_len": int(ins["frontend"].shape[-2]),
+           "local_steps": tr["local_steps"],
+           "bits_up_a_round": SEAMLESS_BITS,
+           "bits_down_a_round": SEAMLESS_BITS,
+           "h_steps_mean": float(m["h_steps_mean"]),
+           "quant_err_sq": [float(m["quant_err_sq"]),
+                            float(m2["quant_err_sq"])],
+           "launches": launches, "launches_a_round_profiled": per_round,
+           "first_round_s": round_s, "profiled_round_wall_ms": wall * 1e3,
+           "device_ms_a_round": device_ms,
+           "device_launches_a_round": sum(e.count for e in kernels),
+           "device_busy_share": device_ms / (wall * 1e3),
+           "peak_bytes_round": peak_round,
+           "peak_model_copies": peak_round / (4 * SEAMLESS_D),
+           "top_kernels": [(e.key[:70], e.count,
+                            e.self_device_time_total / 1e3) for e in top],
+           "server_loss_after": loss,
+           "shard_local": {"launches": sl_launches,
+                           "quant_err_sq": float(m_sl["quant_err_sq"])},
+           "prefix_checks": {"dequant_psum": check_summary(checks),
+                             "shard_local": check_summary(sl_checks)},
+           "nvidia_smi": smi}
+    emit(res)
+    return res
+
+
+def encdec_phases() -> int:
+    """``chip_smoke.py --encdec``, in a process of its own: the NCCL group
+    of one, then ``encdec_serve``, ``frontend_serve`` and ``encdec_train``
+    (each path's counts from 0 just before, read just after)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import exchange as kx
+    from repro_torch.launch.mesh import make_mesh
+    smi = smi_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    nccl_group_of_one()
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        frontend_serve(smi, dev, mesh, SEAMLESS)
+        frontend_serve(smi, dev, mesh, LLAVA)
+        encdec_train(smi, kx, mesh)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "encdec_process", "seconds": time.perf_counter() - t0})
+    return 0
+
+
+def run_encdec() -> None:
+    """``chip_smoke.py --encdec`` in a process of its own, its lines
+    relayed."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--encdec"], capture_output=True, text=True,
+                          timeout=ENCDEC_TIMEOUT)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise RuntimeError(f"the encdec phases exited {proc.returncode}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3368,6 +3711,8 @@ def main() -> int:
         return zoo_phases()
     if sys.argv[1:] == ["--population"]:
         return population_phases()
+    if sys.argv[1:] == ["--encdec"]:
+        return encdec_phases()
     from repro_torch import default_device
     from repro_torch.fed.engine import clone_tree
     from repro_torch.kernels import build
@@ -3427,6 +3772,9 @@ def main() -> int:
     # path 12, the split population store and the mesh serving steps: its
     # own process, an NCCL group of one
     run_population()
+    # path 13, the encoder-decoder and frontend archs through the mesh
+    # steps: its own process, an NCCL group of one
+    run_encdec()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)

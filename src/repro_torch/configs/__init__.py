@@ -2,10 +2,9 @@
 
 Each ported architecture lives in its own module exposing ``config()`` (the
 exact published numbers) and ``reduced()`` (a 2-layer, narrow member of the
-same family for the CPU tests). The port runs the decoder-only zoo (dense,
-MoE, MLA, Mamba2 and hybrid); asking for an architecture of the reference's
-zoo that is not ported (an encoder-decoder or a frontend model) raises
-``KeyError`` naming its ROADMAP item.
+same family for the CPU tests): the reference's whole LM zoo, dense, MoE,
+MLA, Mamba2, hybrid, encoder-decoder (seamless-m4t-medium) and a vision
+frontend (llava-next-34b).
 """
 from __future__ import annotations
 
@@ -23,15 +22,13 @@ _ARCHS: Dict[str, str] = {
     "gemma2-2b": "gemma2_2b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "mamba2-370m": "mamba2_370m",
+    "llava-next-34b": "llava_next_34b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "gemma3-12b": "gemma3_12b",
     "olmo-1b": "olmo_1b",
     "llama3.2-1b": "llama3_2_1b",
 }
-
-# the reference's architectures that need an encoder or a modality
-# frontend, which the port does not have yet
-_NOT_PORTED = ("llava-next-34b", "seamless-m4t-medium")
 
 
 def list_archs() -> List[str]:
@@ -39,9 +36,6 @@ def list_archs() -> List[str]:
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP Queue 1 "
-                       f"item 12); ported: {list(_ARCHS)}")
     if arch not in _ARCHS:
         raise KeyError(f"unknown arch {arch!r}; choose from {list(_ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")

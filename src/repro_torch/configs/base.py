@@ -1,10 +1,10 @@
 """Configuration dataclasses (port of ``repro.configs.base``): the layer
 schedule and model architecture of the LM zoo, the MoE, Mamba and MLA
 blocks' configs, and the federation knobs. ``ModelConfig`` holds the
-fields the port's decoders read; the reference's long-context variant and
-frontend sizes come with the encoder-decoder and frontend archs (ROADMAP
-Queue 1 item 12). ``ShapeConfig`` holds the fields the mesh train step
-reads."""
+fields the port's models read, the encoder stack and the frontend's
+length included; the reference's long-context variant comes with the
+tools (ROADMAP Queue 1 item 14). ``ShapeConfig`` holds the fields the mesh
+steps read."""
 from __future__ import annotations
 
 import dataclasses
@@ -86,8 +86,13 @@ class ModelConfig:
     qk_norm: bool = False
     nonparametric_ln: bool = False # OLMo-style LN without learnable affine
     tie_embeddings: bool = False
+    # encoder-decoder
     encdec: bool = False
-    frontend: str = ""             # '' | 'vision' | 'audio'
+    n_enc_layers: int = 0
+    # modality frontend stub ('' | 'vision' | 'audio'): its embeddings come
+    # in the batch ('frontend'), shaped by launch/specs.input_specs
+    frontend: str = ""
+    n_frontend_tokens: int = 0     # image/audio tokens prepended to the text
     dtype: str = "bfloat16"        # activation / compute dtype
     param_dtype: str = "float32"
 
@@ -147,8 +152,8 @@ class FedConfig:
 
 @dataclass(frozen=True)
 class ShapeConfig:
-    """An input shape: the mesh train step reads ``seq_len`` and
-    ``global_batch`` (``kind`` 'train')."""
+    """An input shape of the mesh steps: ``kind`` 'train', 'prefill' or
+    'decode', ``seq_len`` and ``global_batch``."""
     name: str
     seq_len: int
     global_batch: int

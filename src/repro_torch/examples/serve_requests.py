@@ -12,8 +12,8 @@ of 4-31 prompt tokens (numpy seed 0), 16 new tokens each, sampled at
 temperature 0.7 (a generator seeded 1), four requests a batch and a
 96-deep cache, as the reference's script. It runs on the card unless
 ``--device cpu`` asks for the CPU. Encoder-decoder archs are refused, as
-the reference refuses them; so are the archs the port does not have
-(ROADMAP Queue 1 item 12).
+the reference refuses them; so are frontend archs, which the reference's
+engine cannot serve either (its prompts carry no frontend embeddings).
 """
 from __future__ import annotations
 
@@ -24,15 +24,15 @@ import numpy as np
 import torch
 
 from repro_torch import default_device
-from repro_torch.configs import _NOT_PORTED, get_reduced, list_archs
-from repro_torch.models.model import init_lm
+from repro_torch.configs import get_reduced, list_archs
+from repro_torch.models.model import frontend_refusal, init_lm
 from repro_torch.serving import Request, ServeEngine
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2-2b",
-                    choices=list_archs() + list(_NOT_PORTED))
+                    choices=list_archs())
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default=None,
@@ -40,12 +40,10 @@ def main(argv=None):
                          "omitted")
     args = ap.parse_args(argv)
 
-    if args.arch in _NOT_PORTED:
-        raise SystemExit(f"pick a decoder-only arch for this demo ({args.arch}"
-                         f" is not ported yet, ROADMAP Queue 1 item 12)")
     cfg = get_reduced(args.arch)
-    if cfg.encdec or cfg.frontend:
-        raise SystemExit("pick a decoder-only arch for this demo")
+    why = frontend_refusal(cfg, "this demo")
+    if why:
+        raise SystemExit(why)
     dev = default_device(args.device)
     params, _ = init_lm(cfg, seed=0, device=dev)
     eng = ServeEngine(cfg, params, max_batch=4, max_seq=96, temperature=0.7)

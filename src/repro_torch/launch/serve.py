@@ -33,7 +33,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import FedConfig
 from repro_torch.data.synthetic import federated_token_task
 from repro_torch.fed import make_algorithm, simulate
-from repro_torch.models.model import init_lm, lm_loss
+from repro_torch.models.model import frontend_refusal, init_lm, lm_loss
 from repro_torch.serving import Request, ServeEngine
 
 
@@ -56,6 +56,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    why = frontend_refusal(cfg, "launch/serve.py")
+    if why:
+        raise SystemExit(why)
     dev = default_device(args.device)
     params, _ = init_lm(cfg, seed=args.seed, device=dev)
     if args.from_algo:

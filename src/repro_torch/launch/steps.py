@@ -212,7 +212,9 @@ def cat_keys(keys) -> MessageKey:
 class TrainStep:
     """``step(state, batch, generator=None, draws=None) -> (state,
     metrics)``: one QuAFL round on this rank. ``batch["tokens"]`` is the
-    global (n_slots, K, b, t) batch (each rank reads its client's rows);
+    global (n_slots, K, b, t) batch, with ``batch["frontend"]`` (n_slots,
+    K, b, F, d) for an encoder-decoder or frontend model (each rank reads
+    its client's rows);
     ``draws`` may hold ``h_steps`` (n_slots,) and the exchange's draws:
     ``exchange`` (leaf -> this rank's shard-local draws, see
     :func:`~repro_torch.core.exchange_local.make_shardlocal_exchange`), or
@@ -254,10 +256,11 @@ class TrainStep:
                                       device=self.device)
         self.state_spec, self.specs = abstract_train_state(cfg, mesh,
                                                            self.fed_mode)
-        self.batch_spec = {"tokens": pspec_for(
-            (n, K, max(shape.global_batch // n, 1), shape.seq_len),
-            input_axes(cfg, shape)["tokens"], rules_for_mode(self.fed_mode),
-            mesh)}
+        in_ax, rules = input_axes(cfg, shape), rules_for_mode(self.fed_mode)
+        self.batch_spec = {
+            k: pspec_for(tuple(v.shape), in_ax[k], rules, mesh)
+            for k, v in input_specs(cfg, shape, n_slots=n,
+                                    local_steps=K).items()}
         self._gather = self.transport == "code_allgather" and self.in_mesh
         self._slx = None
         if self.transport in SHARD_LOCAL and quantized:
@@ -305,25 +308,32 @@ class TrainStep:
         return {k: self._full(v, self.specs.server[k])
                 for k, v in state.server.items()}
 
-    def rank_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """This rank's client's (K, b, t) tokens of the global batch."""
-        spec = self.batch_spec["tokens"]
-        blk = cut_block(tokens, spec, self.mesh.shape, self.mesh.coords())
-        return self._full(blk, spec)[0]
+    def rank_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """This rank's client's rows of the global batch: ``tokens`` (K,
+        b, t) and, for an encoder-decoder or frontend model,
+        ``frontend`` (K, b, F, d)."""
+        coords = self.mesh.coords()
+        out = {}
+        for k, spec in self.batch_spec.items():
+            blk = cut_block(batch[k], spec, self.mesh.shape, coords)
+            out[k] = self._full(blk, spec)[0]
+        return out
 
     # -- local work -----------------------------------------------------
-    def progress(self, state: TrainState, toks: torch.Tensor,
+    def progress(self, state: TrainState, batch: Dict[str, torch.Tensor],
                  h_i: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Y of this rank's client, every leaf whole: K masked SGD steps
-        from X^i on ``toks`` (K, b, t), step q active iff q < ``h_i``,
-        then Y = (1−η_i)·X^i + η_i·X_K."""
+        from X^i on ``batch`` (:meth:`rank_batch`'s: step q on the q-th
+        rows of each entry), step q active iff q < ``h_i``, then Y =
+        (1−η_i)·X^i + η_i·X_K."""
         fed, cfg = self.fed, self.cfg
         cp = self.client_leaves(state)
         p = {k: v.detach().clone() for k, v in cp.items()}
         keys = sorted(p)
         for q in range(fed.local_steps):
             leaves = {k: p[k].detach().requires_grad_(True) for k in keys}
-            loss, _ = lm_loss(cfg, leaves, {"tokens": toks[q]})
+            loss, _ = lm_loss(cfg, leaves,
+                              {k: v[q] for k, v in batch.items()})
             grads = list(torch.autograd.grad(
                 loss, [leaves[k] for k in keys], allow_unused=True))
             del loss, leaves
@@ -438,8 +448,8 @@ class TrainStep:
         if h_steps is None:
             h_steps = torch.poisson(self._rates, generator=generator)
         h_steps = torch.clamp(h_steps.to(self.device), max=K).to(torch.int32)
-        toks = self.rank_tokens(batch["tokens"])
-        Ys = self.progress(state, toks, h_steps[self.client_index])
+        Ys = self.progress(state, self.rank_batch(batch),
+                           h_steps[self.client_index])
         server, clients, qerr = self.exchange(state, Ys, draws)
         del Ys
         metrics = {"h_steps_mean": torch.mean(h_steps.to(torch.float32)),
@@ -497,9 +507,13 @@ class _InferenceStep:
 
 class PrefillStep(_InferenceStep):
     """``step(params, batch) -> (logits, cache)``: the prefill of this
-    rank's blocks of the parameters and of ``batch["tokens"]`` (b, t), t
-    at most ``shape.seq_len``; the last position's fp32 logits (b, V),
-    whole, and this rank's blocks of the ``seq_len``-deep cache."""
+    rank's blocks of the parameters and of ``batch["tokens"]`` (b, t) (and
+    ``batch["frontend"]`` (b, F, d) for an encoder-decoder or frontend
+    model), t (plus F for a frontend model) at most ``shape.seq_len``; the
+    last position's fp32 logits (b, V), whole, and this rank's blocks of
+    the ``seq_len``-deep cache. An encoder-decoder model's cross K/V are
+    sized at F, the frontend given: the reference's prefill returns the
+    K/V it computed, whatever length its cache had."""
 
     def __init__(self, cfg: ModelConfig, mesh, shape: ShapeConfig):
         super().__init__(cfg, mesh, shape)
@@ -508,12 +522,15 @@ class PrefillStep(_InferenceStep):
 
     def __call__(self, params, batch):
         p = self._whole(params, self.param_specs)
-        toks = self.mesh.gather_leaf(batch["tokens"],
-                                     self.batch_specs["tokens"]).long()
-        cache = init_cache(self.cfg, toks.shape[0], self.shape.seq_len,
-                           toks.device)
-        logits, cache, _ = forward(self.cfg, p, {"tokens": toks},
-                                   cache=cache, write_pos=0)
+        whole = {k: self.mesh.gather_leaf(v, self.batch_specs[k])
+                 for k, v in batch.items() if k in self.batch_specs}
+        whole["tokens"] = whole["tokens"].long()
+        enc = whole["frontend"].shape[1] if self.cfg.encdec else 0
+        cache = init_cache(self.cfg, whole["tokens"].shape[0],
+                           self.shape.seq_len, whole["tokens"].device,
+                           enc_len=enc)
+        logits, cache, _ = forward(self.cfg, p, whole, cache=cache,
+                                   write_pos=0)
         del p
         last = logits[:, -1].clone()   # the (b, t, V) logits freed here
         del logits
@@ -523,8 +540,10 @@ class PrefillStep(_InferenceStep):
 class ServeStep(_InferenceStep):
     """``step(params, cache, token, pos) -> (next_token, cache)``: one
     greedy decode step from this rank's blocks of the parameters, the
-    cache and ``token`` (b, 1) at absolute position ``pos``; the rank's
-    blocks of the next token (int32) and of the cache."""
+    cache and ``token`` (b, 1) at absolute position ``pos`` (a frontend
+    model's frontend positions included); the rank's blocks of the next
+    token (int32) and of the cache. An encoder-decoder model's cross K/V
+    ride in the cache at the length its prefill gave them."""
 
     def __init__(self, cfg: ModelConfig, mesh, shape: ShapeConfig):
         super().__init__(cfg, mesh, shape)

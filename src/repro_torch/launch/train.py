@@ -64,7 +64,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import FedConfig
 from repro_torch.data.synthetic import federated_token_task, lm_token_stream
 from repro_torch.fed import make_algorithm, simulate
-from repro_torch.models.model import init_lm, lm_loss
+from repro_torch.models.model import frontend_refusal, init_lm, lm_loss
 
 EVAL_SEED = 999
 
@@ -108,6 +108,9 @@ def is_rank0() -> bool:
 def run_registry(args, cfg, fed: FedConfig, device=None) -> TrainRun:
     """Train through the registry and ``simulate``; prints a row every
     ``--log-every`` rounds and the engine line, as the reference."""
+    why = frontend_refusal(cfg, "launch/train.py's token task")
+    if why:
+        raise NotImplementedError(why)
     dev = default_device(device)
     if args.scan_chunk and has_moe(cfg):
         raise ValueError(

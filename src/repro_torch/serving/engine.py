@@ -17,7 +17,8 @@ from typing import Callable, List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import decode_step, forward, init_cache
+from repro_torch.models.model import (decode_step, forward,
+                                      frontend_refusal, init_cache)
 
 
 @dataclass
@@ -30,10 +31,14 @@ class Request:
 
 class ServeEngine:
     """Serves requests against ``params`` (a flat dict of tensors; the
-    engine runs on their device)."""
+    engine runs on their device). Requests are token prompts: an
+    encoder-decoder or frontend model is refused."""
 
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
                  max_seq: int = 256, temperature: float = 0.0):
+        why = frontend_refusal(cfg, "ServeEngine")
+        if why:
+            raise NotImplementedError(why)
         self.cfg = cfg
         self.params = params
         self.device = params["embed/tok"].device

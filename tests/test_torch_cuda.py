@@ -560,6 +560,21 @@ def test_flash_bf16_kernel_tiles_and_groups(dev, b, t, h, kv, dh, window,
     _assert_bf16_gates(out, want)
 
 
+# the decoder prefills of the encoder-decoder and frontend archs:
+# seamless-m4t-medium's (dh 64 with a GQA group of 1) and llava-next-34b's
+# (2,880 frontend positions and 448 text tokens, a GQA group of 7)
+@pytest.mark.parametrize("b,t,h,kv,dh", [(4, 512, 16, 16, 64),
+                                         (4, 3328, 56, 8, 128)],
+                         ids=["seamless", "llava"])
+def test_flash_bf16_encdec_and_frontend_shapes(dev, b, t, h, kv, dh):
+    q, k, v = _qkv(dev, b, t, h, kv, dh, torch.bfloat16, seed=t)
+    fa.reset_launches()
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 1}
+    _assert_bf16_gates(out, fa.flash_attention_plain(q, k, v))
+
+
 @pytest.mark.parametrize("dh", fa.HEAD_DIMS)
 def test_flash_bf16_every_head_dim(dev, dh):
     """Each head dim's panels and swizzle (128, 64 and 32 bytes) on a

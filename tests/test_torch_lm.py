@@ -31,6 +31,7 @@ from repro_torch.models.params import has_subtree, subtree
 from repro_torch.utils.interop import cache_from_numpy, lm_params_from_numpy
 
 ARCHS = ["llama3.2-1b", "gemma2-2b", "olmo-1b"]
+FRONTEND_ARCHS = ["seamless-m4t-medium", "llava-next-34b"]
 LAYER_TOL, LOGIT_TOL = 1e-6, 1e-4
 
 
@@ -49,7 +50,7 @@ def tokens(seed, b, t, vocab):
         np.int32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FRONTEND_ARCHS)
 def test_config_numbers_match_reference(arch):
     for get in ("get_config", "get_reduced"):
         ref = getattr(ref_configs, get)(arch)
@@ -57,26 +58,33 @@ def test_config_numbers_match_reference(arch):
         for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
                   "d_ff", "vocab_size", "rope_theta", "logit_softcap",
                   "attn_softcap", "nonparametric_ln", "tie_embeddings",
-                  "dtype", "param_dtype", "n_periods"):
+                  "encdec", "n_enc_layers", "frontend", "n_frontend_tokens",
+                  "dtype", "param_dtype", "n_periods", "name", "arch_type",
+                  "source"):
             assert getattr(port, f) == getattr(ref, f), (arch, get, f)
         assert ([(s.attn, s.window) for s in port.schedule]
                 == [(s.attn, s.window) for s in ref.schedule])
 
 
 def test_registry_refuses_unported_archs():
-    """The registry holds the decoder-only zoo. The encoder-decoder and
-    frontend archs, and a frontend config of a ported arch, still refuse,
-    naming ROADMAP Queue 1 item 12; the shard_map MoE refuses, naming item
-    14."""
-    assert set(ARCHS) < set(configs.list_archs())
-    for arch in ("seamless-m4t-medium", "llava-next-34b"):
-        with pytest.raises(KeyError, match="Queue 1 item 12"):
-            configs.get_config(arch)
+    """The registry holds the reference's whole LM zoo: the
+    encoder-decoder and frontend archs (ROADMAP Queue 1 item 12) now run,
+    as does a frontend config of another arch; an unknown arch refuses,
+    and the shard_map MoE refuses, naming item 14."""
+    assert set(ARCHS + FRONTEND_ARCHS) < set(configs.list_archs())
+    assert sorted(configs.list_archs()) == sorted(
+        a for a in ref_configs.list_archs() if a != "paper-mlp")
+    for arch in FRONTEND_ARCHS:
+        assert configs.get_config(arch).name == arch
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("no-such-arch")
-    vlm = configs.get_reduced("llama3.2-1b").replace(frontend="vision")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        model.init_lm(vlm, device="cpu")
+    vlm = configs.get_reduced("llama3.2-1b").replace(frontend="vision",
+                                                     n_frontend_tokens=4)
+    p, _ = model.init_lm(vlm, device="cpu")
+    fe = torch.zeros((1, 4, vlm.d_model))
+    logits, _, _ = model.forward(vlm, p, {"tokens": torch.zeros(
+        (1, 8), dtype=torch.int64), "frontend": fe})
+    assert logits.shape == (1, 8, vlm.vocab_size)
     cfg = configs.get_reduced("deepseek-v2-236b")
     shmap = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                 impl="ragged_shmap"))

@@ -88,18 +88,39 @@ def test_specs_match_reference(arch):
 
 
 def test_specs_refuse_encoder_decoder_and_frontends():
-    cfg = configs.get_reduced("gemma2-2b")
-    shape = ShapeConfig("p", 64, 2, "prefill")
-    for bad in (cfg.replace(encdec=True), cfg.replace(frontend="vision")):
-        for fn in (lambda c: specs.input_specs(c, shape),
-                   lambda c: specs.input_axes(c, shape),
-                   lambda c: specs.abstract_cache(c, shape),
-                   specs.cache_axes,
-                   lambda c: build_prefill_step(c, make_mesh(
-                       (1, 1), ("data", "model")), shape)):
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 12"):
-                fn(bad)
+    """The encoder-decoder and frontend archs (ROADMAP Queue 1 item 12)
+    now have specs, equal to the reference's at each kind of shape: the
+    ``frontend`` entries (seq_len//2 frames beside seq_len//2 tokens, or
+    the vision tokens before the text), their axes, and the decode cache's
+    ``cross/{k,v}`` at ``enc_len_for``; the mesh prefill step takes the
+    ``frontend`` batch."""
+    for arch in ("seamless-m4t-medium", "llava-next-34b"):
+        cfg, rcfg = configs.get_reduced(arch), ref_configs.get_reduced(arch)
+        for kind, t, b in SHAPES:
+            shape, rshape = (ShapeConfig(kind, t, b, kind),
+                             RefShapeConfig(kind, t, b, kind))
+            got = specs.input_specs(cfg, shape, n_slots=2, local_steps=3)
+            want = ref_specs.input_specs(rcfg, rshape, n_slots=2,
+                                         local_steps=3)
+            assert got.keys() == want.keys()
+            assert ("frontend" in got) == (kind != "decode")
+            for k, v in want.items():
+                assert tuple(got[k].shape) == tuple(v.shape), (arch, kind, k)
+                assert _dtype(got[k]) == str(v.dtype), (arch, kind, k)
+            assert specs.input_axes(cfg, shape) == ref_specs.input_axes(
+                rcfg, rshape)
+            cache, axes = specs.abstract_cache(cfg, shape)
+            rcache, raxes = ref_specs.abstract_cache(rcfg, rshape)
+            assert axes == raxes == specs.cache_axes(cfg)
+            assert {k: tuple(v.shape) for k, v in cache.items()} == {
+                k: tuple(v.shape) for k, v in rcache.items()}
+            if cfg.encdec:
+                assert cache["body/0/cross/k"].shape[2] == \
+                    specs.enc_len_for(shape)
+        _, _, (_, b_specs) = build_prefill_step(
+            cfg, make_mesh((1, 1), ("data", "model")),
+            ShapeConfig("p", 64, 2, "prefill"))
+        assert sorted(b_specs) == ["frontend", "tokens"]
 
 
 def _reference(rcfg, rp, toks):
