@@ -116,6 +116,18 @@ then drives the port's paths:
   through ``build_train_step`` with frontend batches (bits exact per
   leaf, 2 encodes and 2 decodes a leaf) and one ``shard_local`` round,
   every launch held against its plain version on a 2^24 prefix.
+* the dry-run tools, in a process of its own (``--tools``) over an NCCL
+  group of one: ``launch/dryrun.py`` for all 40 arch × shape pairs and one
+  ``--mesh multi`` pair as subprocesses on the host (every record [OK] or
+  the reference's [SKIP] note); four steps that fit the card (gemma2-2b's
+  prefill at 4 × 4,096 and serve step at 4,096, llama3.2-1b's
+  ``dequant_psum`` round, llama4-scout's prefill at 4 of 48 layers with
+  ``ragged_shmap``) counted abstractly and under the same walker on their
+  real runs (flops equal, bytes within 1%), their bound over their device
+  ms at most 1.05; llama4-scout through the mesh prefill and 16 serve
+  steps with ``ragged_shmap`` and ``ragged`` (tokens identical, fp32
+  logits within atol 2e-4, rtol 2e-3); the rotation budget of QuAFL at
+  n=300, s=16 and each transport's collective bytes against its caps.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It prints JSON lines per phase, a ``kernels`` line, the card's name
@@ -3699,6 +3711,487 @@ def run_encdec() -> None:
         raise RuntimeError(f"the encdec phases exited {proc.returncode}")
 
 
+# ---------------------------------------------------------------------------
+# path 14: the dry-run tools (launch/{roofline,hlocost,dryrun,profile_pair},
+# the abstract mesh), the shard_map MoE and analysis/opbudget, in a process
+# of its own over an NCCL group of one
+# ---------------------------------------------------------------------------
+
+TOOLS_BUDGET = 120                # seconds the tools process may take
+# the hard limit, past the budget, so that a slow process still reports
+# its phases and its seconds before the budget's gate fails it
+TOOLS_TIMEOUT = 2 * TOOLS_BUDGET
+DRYRUN_RECORDS = 40               # ten archs × four shapes
+SHARE_MAX = 1.05                  # bound / device ms above this: a miscount
+WALK_BYTES_TOL = 0.01             # abstract vs card bytes, relative
+PEAK_FLOPS, HBM_BW = 989e12, 3.35e12   # launch/roofline.py's H100 SXM
+SCOUT, SCOUT_LAYERS = "llama4-scout-17b-a16e", 4
+SCOUT_B, SCOUT_T, SCOUT_NEW = 4, 512, 16
+MOE_TOL = (2e-4, 2e-3)            # tests/test_perf_variants.py:35-36
+TOOLS_TRANSPORTS = ("dequant_psum", "code_allgather", "shard_local",
+                    "shard_local_codes", "shard_local_rs")
+
+
+def client_sum_strategy(transport: str):
+    """The client-sum strategy whose ``wire_budget`` caps ``transport``'s
+    collectives over the client axis: the shard-local exchange's
+    (``transport_for_mode``), and for ``code_allgather``, which is no
+    shard-local transport, the strategy of that name."""
+    from repro_torch.compression.transports import (make_transport,
+                                                    transport_for_mode)
+    return transport_for_mode(transport) or make_transport(transport)
+
+
+def dryrun_argv(out: str, mesh: str, arch: str, shape: str) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", shape, "--mesh", mesh, "--out", out]
+
+
+def start_dryruns(outs) -> tuple:
+    """(a)'s two dry runs started, each in a process group of its own, on
+    every core but one (this process keeps that one for the card): the
+    dry run walks its pairs over as many processes as it may use cores.
+    Returns ``(processes, cores)``."""
+    import os
+    cores = os.sched_getaffinity(0)
+    host = set(sorted(cores)[1:]) or cores
+    os.sched_setaffinity(0, host)      # inherited by the dry runs
+    try:
+        procs = [subprocess.Popen(argv, cwd=ROOT, env=dryrun_env(),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True,
+                                  start_new_session=True)
+                 for argv in (dryrun_argv(outs[0], "single", "all", "all"),
+                              dryrun_argv(outs[1], "multi", "llama3.2-1b",
+                                          "train_4k"))]
+    finally:
+        os.sched_setaffinity(0, cores)
+    return procs, len(host)
+
+
+def dryrun_env() -> dict:
+    """The dry run's environment: the port on the path, no card."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        ":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def stop_tree(proc) -> None:
+    """Stop the dry run and the processes it started (its own process
+    group)."""
+    import os
+    import signal
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    proc.wait()
+
+
+def dryrun_phase(procs, cores: int, t0: float, outs) -> dict:
+    """(a): the dry run of every pair as a user runs it, and one
+    ``--mesh multi`` pair (both started by the caller, on the host while
+    the card works); every record [OK] or the reference's [SKIP] note,
+    none [FAIL]."""
+    import os
+    from repro_torch.configs import get_config
+    got = []
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=TOOLS_TIMEOUT)
+        assert proc.returncode == 0, stderr[-4000:]
+        got.append([ln for ln in stdout.splitlines() if ln.startswith("[")])
+    seconds = time.perf_counter() - t0
+    lines, lines_multi = got
+    assert len(lines) == DRYRUN_RECORDS, lines
+    assert len(lines_multi) == 1 and lines_multi[0].startswith("[OK]")
+    assert not any(ln.startswith("[FAIL]") for ln in lines), lines
+    records = {}
+    for out in outs:
+        for name in sorted(os.listdir(out)):
+            res = json.loads((Path(out) / name).read_text())
+            tag = name[:-len(".json")]
+            if "skipped" in res:
+                cfg = get_config(res["arch"])
+                assert res["shape"] == "long_500k" and not cfg.long_500k_ok
+                assert res["skipped"] == cfg.long_500k_note, res
+                records[tag] = "skipped"
+                continue
+            r = res["roofline"]
+            records[tag] = [res["flops_per_device"],
+                            res["bytes_per_device"], r["compute_s"],
+                            r["memory_s"], r["collective_s"],
+                            r["bottleneck"], res["useful_flops_ratio"],
+                            res["memory"]["temp_bytes"], res["lower_s"]]
+    n_ok = sum(ln.startswith("[OK]") for ln in lines)
+    row = {"phase": "tools_dryrun", "seconds_until_read": seconds,
+           "ok": n_ok, "skipped": len(lines) - n_ok, "cores": cores,
+           "multi": lines_multi[0],
+           "fields": ["flops_per_device", "bytes_per_device", "compute_s",
+                      "memory_s", "collective_s", "bottleneck",
+                      "useful_flops_ratio", "temp_bytes", "lower_s"],
+           "records": records}
+    emit(row)
+    return row
+
+
+def grounded_steps():
+    """(b)'s four steps that fit one card: (name, cfg, shape)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    return (("gemma2_prefill_4k", get_config(GEMMA),
+             ShapeConfig("prefill_4k", 4096, 4, "prefill")),
+            ("gemma2_serve_4k", get_config(GEMMA),
+             ShapeConfig("decode_4k", 4096, 4, "decode")),
+            ("llama_spmd_full", get_config("llama3.2-1b"),
+             ShapeConfig("spmd_full", 128, 8, "train")),
+            ("scout_prefill_shmap", scout_config("ragged_shmap", "bfloat16"),
+             ShapeConfig("scout_prefill", SCOUT_T, SCOUT_B, "prefill")))
+
+
+def grounded_args(cfg, shape, fed, mesh, dev, transport):
+    """The step of (cfg × shape) on ``mesh`` and the card, random weights
+    from seed 0: ``(step, call, argument tensors)``."""
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step,
+                                          build_train_step,
+                                          init_train_state,
+                                          shard_train_state)
+    from repro_torch.models.model import init_cache, init_lm
+    from repro_torch.sharding.rules import cut_block
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    coords = mesh.coords()
+
+    def tokens(like):
+        return torch.randint(0, cfg.vocab_size, tuple(like.shape),
+                             generator=gen, device=dev, dtype=like.dtype)
+
+    if shape.kind == "train":
+        step, _, (specs, _) = build_train_step(
+            cfg, fed, mesh, shape, transport=transport, device=dev)
+        full = init_train_state(cfg, SEED, step.n_slots, device=dev)
+        state = shard_train_state(full.server, full.clients, 0, mesh, specs)
+        del full
+        batch = {k: tokens(v) for k, v in input_specs(
+            cfg, shape, n_slots=step.n_slots,
+            local_steps=fed.local_steps).items()}
+        return step, (lambda: step(state, batch)), (state, batch)
+    params, _ = init_lm(cfg, seed=SEED, device=dev)
+    if shape.kind == "prefill":
+        step, _, (p_specs, b_specs) = build_prefill_step(cfg, mesh, shape)
+        blocks = {k: cut_block(v, p_specs[k], mesh.shape, coords)
+                  for k, v in params.items()}
+        batch = {k: tokens(v) for k, v in input_specs(cfg, shape).items()}
+        return step, (lambda: step(blocks, batch)), (blocks, batch)
+    step, _, _, (p_specs, c_specs, t_spec, _) = build_serve_step(cfg, mesh,
+                                                                 shape)
+    blocks = {k: cut_block(v, p_specs[k], mesh.shape, coords)
+              for k, v in params.items()}
+    cache = init_cache(cfg, shape.global_batch, shape.seq_len, dev)
+    token = tokens(input_specs(cfg, shape)["token"])
+    return step, (lambda: step(blocks, cache, token, shape.seq_len - 1)), (
+        blocks, cache, token)
+
+
+def grounded_step(smi, dev, mesh, name, cfg, shape, fed, transport,
+                  fa, kx) -> dict:
+    """(b): one step counted abstractly (``dryrun.walk_step`` on an
+    abstract (1, 1) mesh) and on its real run on the card under the same
+    walker: flops equal, bytes within 1%; then profiled after a warm-up,
+    its bound over its device ms, the measured peak beside the count's,
+    and ``profile_pair``'s top records beside the profiler's top kernels."""
+    from repro_torch.launch.dryrun import walk_step
+    from repro_torch.launch.hlocost import CostWalker, top_contributors
+    from repro_torch.launch.mesh import make_abstract_mesh
+    abstract = make_abstract_mesh((1, 1), ("data", "model"))
+    w_abs, arg_b, _, lower_s, _, _ = walk_step(
+        cfg, shape, abstract, fed, transport=transport, records=True)
+    s_abs = w_abs.summary()
+    temp_b = s_abs["peak_live_bytes"] - arg_b
+    _, call, args = grounded_args(cfg, shape, fed, mesh, dev, transport)
+    call()                                       # warm-up (caches, builds)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    kx.reset_launches()
+    w = CostWalker(mesh)
+    w.track(args)
+    with mesh.recording(), w:
+        out = call()
+    torch.cuda.synchronize()
+    del out
+    launched = {k: v for k, v in {**fa.LAUNCHES, **kx.LAUNCHES}.items()
+                if v}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    _, wall, kernels = profiled(call)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    bound_ms = max(s_abs["flops"] / PEAK_FLOPS,
+                   s_abs["bytes"] / HBM_BW) * 1e3
+    share = bound_ms / device_ms
+    top_k = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    res = {"phase": "tools_grounded", "step": name, "arch": cfg.name,
+           "n_layers": cfg.n_layers, "shape": [shape.name, shape.seq_len,
+                                               shape.global_batch,
+                                               shape.kind],
+           "transport": transport if shape.kind == "train" else "-",
+           "abstract": {"flops": s_abs["flops"], "bytes": s_abs["bytes"],
+                        "kernel_flops": s_abs["kernel_flops"],
+                        "kernels": s_abs["kernels"], "lower_s": lower_s},
+           "card": {"flops": w.flops, "bytes": w.bytes,
+                    "kernel_flops": w.kernel_flops,
+                    "kernels": dict(w.kernels), "launches": launched},
+           "bytes_rel_diff": abs(w.bytes - s_abs["bytes"]) / s_abs["bytes"],
+           "bound_ms": bound_ms,
+           "bound_by": ("operations" if s_abs["flops"] / PEAK_FLOPS
+                        >= s_abs["bytes"] / HBM_BW else "bytes"),
+           "device_ms": device_ms, "wall_ms": wall * 1e3, "share": share,
+           "peak_measured_bytes": peak, "allocated_before_bytes": before,
+           "argument_bytes": arg_b, "temp_bytes": temp_b,
+           "peak_counted_bytes": arg_b + temp_b,
+           "top_records": [[r["op"], r["bytes"], r["flops"], r["count"],
+                            r["where"]] for r in top_contributors(w_abs, 10)],
+           "top_kernels": [[e.key[:80], e.count,
+                            e.self_device_time_total / 1e3] for e in top_k],
+           "nvidia_smi": smi}
+    emit(res)
+    assert w.flops == s_abs["flops"], (w.flops, s_abs["flops"])
+    assert res["bytes_rel_diff"] <= WALK_BYTES_TOL, res["bytes_rel_diff"]
+    assert dict(w.kernels) == s_abs["kernels"], res
+    if dev.type == "cuda":      # the plain versions launch nothing
+        assert launched == s_abs["kernels"], res
+    assert share <= SHARE_MAX, share
+    del args, call
+    torch.cuda.empty_cache()
+    return res
+
+
+def scout_config(impl: str, dtype: str):
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    cfg = get_config(SCOUT).replace(n_layers=SCOUT_LAYERS, dtype=dtype)
+    return cfg.replace(moe=dc.replace(cfg.moe, impl=impl))
+
+
+def scout_serve(params, prompts, mesh, impl: str, dtype: str, fa) -> dict:
+    """The mesh prefill and SCOUT_NEW greedy serve steps of llama4-scout at
+    SCOUT_LAYERS layers: the prefill's last logits, the tokens and the
+    prefill's flash launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    cfg = scout_config(impl, dtype)
+    seq = SCOUT_T + SCOUT_NEW
+    prefill = build_prefill_step(cfg, mesh, ShapeConfig(
+        "scout_prefill", seq, SCOUT_B, "prefill"))[0]
+    serve = build_serve_step(cfg, mesh, ShapeConfig(
+        "scout_decode", seq, SCOUT_B, "decode"))[0]
+    fa.reset_launches()
+    with torch.no_grad():
+        last, cache = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        flash = fa.LAUNCHES["flash_attention"]
+        tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+        toks = [tok]
+        for i in range(SCOUT_NEW):
+            tok, cache = serve(params, cache, tok, SCOUT_T + i)
+            toks.append(tok)
+    torch.cuda.synchronize()
+    return {"last": last.float().cpu(), "tokens": torch.cat(toks, 1).cpu(),
+            "flash": flash}
+
+
+def scout_phase(smi, dev, mesh, fa) -> dict:
+    """(c): llama4-scout at 4 of 48 layers through the mesh prefill and 16
+    greedy serve steps with 'ragged_shmap' over the NCCL group of one and
+    with 'ragged' (on the local (1, 1) mesh, where the steps gather
+    nothing, so the 35 GB of expert weights are not copied a second time):
+    tokens identical, fp32 logits within the reference's tolerance, the
+    bf16 agreement printed, one flash launch a prefill."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import init_lm
+    t0 = time.perf_counter()
+    params, _ = init_lm(scout_config("ragged", "float32"), seed=SEED,
+                        device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    prompts = torch.randint(0, params["embed/tok"].shape[0],
+                            (SCOUT_B, SCOUT_T), generator=gen, device=dev,
+                            dtype=torch.int32)
+    local = Mesh((1, 1), ("data", "model"))
+    runs = {(impl, dt): scout_serve(params, prompts, m, impl, dt, fa)
+            for dt in ("float32", "bfloat16")
+            for impl, m in (("ragged_shmap", mesh), ("ragged", local))}
+    res = {"phase": "tools_scout_serve", "arch": SCOUT,
+           "layers": SCOUT_LAYERS, "reduced": f"n_layers {SCOUT_LAYERS} of 48",
+           "batch": SCOUT_B, "prompt": SCOUT_T, "new_tokens": SCOUT_NEW,
+           "seconds": 0.0, "nvidia_smi": smi}
+    for dt in ("float32", "bfloat16"):
+        a, b = runs[("ragged_shmap", dt)], runs[("ragged", dt)]
+        err = (a["last"] - b["last"]).abs()
+        res[dt] = {"tokens_equal": bool(torch.equal(a["tokens"],
+                                                    b["tokens"])),
+                   "max_abs_logit_diff": float(err.max()),
+                   "max_abs_logit": float(b["last"].abs().max()),
+                   "flash_per_prefill": [a["flash"], b["flash"]]}
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    flash = flash_layers(scout_config("ragged", "float32")) \
+        if dev.type == "cuda" else 0
+    for dt in ("float32", "bfloat16"):
+        assert res[dt]["tokens_equal"], res
+        assert res[dt]["flash_per_prefill"] == [flash, flash], res
+    a, b = runs[("ragged_shmap", "float32")], runs[("ragged", "float32")]
+    atol, rtol = MOE_TOL
+    assert torch.allclose(a["last"], b["last"], atol=atol, rtol=rtol), res
+    del params, runs
+    torch.cuda.empty_cache()
+    return res
+
+
+def opbudget_phase(smi, dev, mesh, kx) -> dict:
+    """(d): the rotation budget of QuAFL at the paper's cell on the card
+    (rows 1-4 launched), and the collective bytes over the client axis of
+    one reduced mesh round of each transport against its client-sum
+    strategy's ``wire_budget`` caps (summed over the leaves); a cap one
+    byte under what was measured gives exactly one violation."""
+    from repro_torch.analysis.opbudget import (check_collective_bytes,
+                                               check_rotation_budget,
+                                               collective_bytes,
+                                               measure_round_counters,
+                                               rotation_budget)
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import FedConfig, ShapeConfig
+    from repro_torch.fed.registry import make_algorithm
+    from repro_torch.models.mlp import mlp_loss_batched
+    t0 = time.perf_counter()
+    fed, part, _, p0, gen = chip_world(dev)
+    alg = make_algorithm("quafl", fed, loss_fn=mlp_loss_batched,
+                         template=p0, batch_size=32, device=dev)
+    state = alg.init(p0)
+    kx.reset_launches()
+    counters = measure_round_counters(alg, state, part, gen).counters
+    rot = check_rotation_budget(alg, state, part, gen, "quafl@n300s16")
+    torch.cuda.synchronize()
+    rot_launches = dict(kx.LAUNCHES)
+    res = {"phase": "tools_opbudget", "rotation_counters": counters,
+           "rotation_budget": rotation_budget(S),
+           "rotation_violations": [v.as_dict() for v in rot],
+           "rotation_launches": rot_launches, "transports": {},
+           "nvidia_smi": smi}
+    cfg = get_reduced("llama3.2-1b")
+    shape = ShapeConfig("tools_reduced", 64, 4, "train")
+    rfed = FedConfig(n_clients=1, s=1, local_steps=2, lr=0.05, bits=8,
+                     kernel_backend="cuda")
+    for tr in TOOLS_TRANSPORTS:
+        step, call, (state_r, _) = grounded_args(cfg, shape, rfed, mesh,
+                                                 dev, tr)
+        with mesh.recording() as records:
+            call()
+        torch.cuda.synchronize()
+        client = [r for r in records if r["axis"] == step.client_axis]
+        budget = client_sum_strategy(tr)
+        caps = {}
+        for v in state_r.server.values():
+            for key, cap in budget.wire_budget(step.quant_up,
+                                               step.quant_down, v.numel(),
+                                               step.n_slots).caps.items():
+                caps[key] = caps.get(key, 0) + cap
+        got = collective_bytes(client)
+        viol = check_collective_bytes(client, tr, caps)
+        key = max(got, key=got.get)
+        short = check_collective_bytes(client, tr,
+                                       dict(caps, **{key: got[key] - 1}))
+        res["transports"][tr] = {
+            "strategy": budget.name, "bytes": got,
+            "caps": {k: caps[k] for k in got},
+            "violations": [v.as_dict() for v in viol],
+            "one_byte_short": {"key": key,
+                               "violations": [v.as_dict() for v in short]},
+            "records": len(records)}
+        assert viol == [], res["transports"][tr]
+        assert len(short) == 1 and key in short[0].detail, short
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    assert rot == [] and counters == rotation_budget(S), res
+    for k in ("fused_encode", "fused_rotate", "snap_codes",
+              "quantize_codes"):
+        assert rot_launches[k] > 0 or dev.type != "cuda", (k, rot_launches)
+    return res
+
+
+def tools_phases() -> int:
+    """``chip_smoke.py --tools``, in a process of its own: the dry run
+    started on the host, then over the NCCL group of one the grounded
+    steps, the scout serving and the op budgets (each path's counts from 0
+    just before, read just after), then the dry run's records."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.kernels import exchange as kx
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    smi = smi_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    outs = [tempfile.mkdtemp(prefix="dryrun_") for _ in range(2)]
+    procs, cores = start_dryruns(outs)
+    nccl_group_of_one()
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        # spmd_full's round (SPMD_ARGV): b=8, t=128, K=2, lr 0.02, 8 bits
+        fed = FedConfig(n_clients=1, s=1, local_steps=2, lr=0.02, bits=8,
+                        kernel_backend="cuda")
+        for name, cfg, shape in grounded_steps():
+            grounded_step(smi, dev, mesh, name, cfg, shape, fed,
+                          "dequant_psum", fa, kx)
+        scout_phase(smi, dev, mesh, fa)
+        opbudget_phase(smi, dev, mesh, kx)
+    except BaseException:
+        for proc in procs:
+            stop_tree(proc)
+        raise
+    finally:
+        dist.destroy_process_group()
+    try:
+        dryrun_phase(procs, cores, t0, outs)
+    except BaseException:
+        for proc in procs:
+            stop_tree(proc)
+        raise
+    finally:
+        for out in outs:
+            shutil.rmtree(out, ignore_errors=True)
+    emit({"phase": "tools_process", "seconds": time.perf_counter() - t0})
+    return 0
+
+
+def run_tools() -> None:
+    """``chip_smoke.py --tools`` in a process of its own, its lines
+    relayed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--tools"], capture_output=True, text=True,
+                          timeout=TOOLS_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise RuntimeError(f"the tools phases exited {proc.returncode}")
+    emit({"phase": "tools_wall", "seconds": seconds,
+          "budget": TOOLS_BUDGET})
+    assert seconds <= TOOLS_BUDGET, (seconds, TOOLS_BUDGET)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3713,6 +4206,8 @@ def main() -> int:
         return population_phases()
     if sys.argv[1:] == ["--encdec"]:
         return encdec_phases()
+    if sys.argv[1:] == ["--tools"]:
+        return tools_phases()
     from repro_torch import default_device
     from repro_torch.fed.engine import clone_tree
     from repro_torch.kernels import build
@@ -3775,6 +4270,9 @@ def main() -> int:
     # path 13, the encoder-decoder and frontend archs through the mesh
     # steps: its own process, an NCCL group of one
     run_encdec()
+    # path 14, the dry-run tools, the shard_map MoE and the op budgets:
+    # its own process, an NCCL group of one
+    run_tools()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)

@@ -14,6 +14,7 @@ from typing import Dict, List
 from repro_torch.configs.base import (  # noqa: F401 (re-export)
     ATTN_CHUNKED, ATTN_FULL, ATTN_MLA, ATTN_SLIDING, KIND_ATTN, KIND_MAMBA,
     FedConfig, LayerSpec, MambaConfig, MLAConfig, ModelConfig, MoEConfig,
+    ShapeConfig, SHAPES,
 )
 
 # arch id -> module name

@@ -2,9 +2,10 @@
 schedule and model architecture of the LM zoo, the MoE, Mamba and MLA
 blocks' configs, and the federation knobs. ``ModelConfig`` holds the
 fields the port's models read, the encoder stack and the frontend's
-length included; the reference's long-context variant comes with the
-tools (ROADMAP Queue 1 item 14). ``ShapeConfig`` holds the fields the mesh
-steps read."""
+length included, and the long-context variant (``long_500k_ok``,
+``long_ctx_window``, ``long_500k_note``, :meth:`ModelConfig.with_long_variant`).
+``ShapeConfig`` holds the fields the mesh steps read, and :data:`SHAPES` the
+four input shapes the dry-run tools take."""
 from __future__ import annotations
 
 import dataclasses
@@ -93,6 +94,10 @@ class ModelConfig:
     # in the batch ('frontend'), shaped by launch/specs.input_specs
     frontend: str = ""
     n_frontend_tokens: int = 0     # image/audio tokens prepended to the text
+    # long-context support
+    long_500k_ok: bool = False
+    long_ctx_window: int = 0       # >0: sliding-window variant used for long_500k
+    long_500k_note: str = ""
     dtype: str = "bfloat16"        # activation / compute dtype
     param_dtype: str = "float32"
 
@@ -108,6 +113,22 @@ class ModelConfig:
 
     def replace(self, **kw) -> ModelConfig:
         return dataclasses.replace(self, **kw)
+
+    def with_long_variant(self) -> ModelConfig:
+        """Sliding-window variant used only for the long_500k shape: every
+        full-attention layer of the schedule and the prefix becomes a
+        sliding one of ``long_ctx_window``."""
+        if self.long_ctx_window <= 0:
+            return self
+
+        def slide(specs):
+            return tuple(
+                dataclasses.replace(s, attn=ATTN_SLIDING,
+                                    window=self.long_ctx_window)
+                if s.kind == KIND_ATTN and s.attn == ATTN_FULL else s
+                for s in specs)
+        return self.replace(schedule=slide(self.schedule),
+                            prefix=slide(self.prefix))
 
 
 @dataclass(frozen=True)
@@ -158,3 +179,11 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                       # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}

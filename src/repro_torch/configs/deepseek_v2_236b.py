@@ -23,6 +23,9 @@ def config() -> ModelConfig:
                       qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128),
         moe=MoEConfig(n_experts=160, top_k=6, d_ff_expert=1536,
                       n_shared=2, d_ff_shared=3072),
+        long_500k_ok=False,
+        long_500k_note="skipped: pure full MLA attention, no sliding-window "
+                       "variant in the source model (see DESIGN.md).",
     )
 
 

@@ -19,6 +19,9 @@ def config() -> ModelConfig:
         schedule=(_LOCAL, _GLOBAL),
         logit_softcap=30.0, attn_softcap=50.0,
         tie_embeddings=True,
+        long_500k_ok=True,
+        long_500k_note="half the layers are 4096-window local; global layers "
+                       "keep the full cache (decode linear per token).",
     )
 
 

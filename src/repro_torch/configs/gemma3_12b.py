@@ -22,6 +22,9 @@ def config() -> ModelConfig:
         qk_norm=True,
         tie_embeddings=True,
         rope_theta=1_000_000.0,
+        long_500k_ok=True,
+        long_500k_note="5/6 of layers are 1024-window local; global layers "
+                       "keep the full cache (decode linear per token).",
     )
 
 

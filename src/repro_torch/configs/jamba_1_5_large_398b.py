@@ -24,6 +24,10 @@ def config() -> ModelConfig:
         mamba=MambaConfig(d_state=128, expand=2, head_dim=64,
                           conv_width=4, chunk=256),
         moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=24_576),
+        long_500k_ok=True,
+        long_500k_note="7/8 of layers are Mamba (constant state); the 9 "
+                       "attention layers decode against the cache "
+                       "(linear per decoded token).",
     )
 
 

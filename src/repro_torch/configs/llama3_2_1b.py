@@ -16,6 +16,10 @@ def config() -> ModelConfig:
         schedule=(LayerSpec(attn=ATTN_FULL),),
         tie_embeddings=True,
         rope_theta=500_000.0,
+        long_500k_ok=True,
+        long_ctx_window=8192,
+        long_500k_note="run with the explicit sliding-window variant "
+                       "(window 8192); the source model is full-attention.",
     )
 
 

@@ -22,6 +22,10 @@ def config() -> ModelConfig:
         moe=MoEConfig(n_experts=16, top_k=1, d_ff_expert=8192,
                       n_shared=1, d_ff_shared=8192),
         rope_theta=500_000.0,
+        long_500k_ok=True,
+        long_500k_note="3/4 of layers are 8192-chunked local attention "
+                       "(iRoPE); global NoPE layers decode against the full "
+                       "cache (linear per decoded token).",
     )
 
 

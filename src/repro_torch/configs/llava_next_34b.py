@@ -19,6 +19,9 @@ def config() -> ModelConfig:
         frontend="vision",
         n_frontend_tokens=2880,  # anyres: 4 tiles + base, 576 patches each
         rope_theta=5_000_000.0,
+        long_500k_ok=False,
+        long_500k_note="skipped: pure full-attention VLM backbone "
+                       "(see DESIGN.md).",
     )
 
 

@@ -19,6 +19,9 @@ def config() -> ModelConfig:
         mamba=MambaConfig(d_state=128, expand=2, head_dim=64,
                           conv_width=4, chunk=256),
         tie_embeddings=True,
+        long_500k_ok=True,
+        long_500k_note="attention-free; decode carries a constant-size SSM "
+                       "state, no KV cache.",
     )
 
 

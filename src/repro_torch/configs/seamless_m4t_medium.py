@@ -17,6 +17,9 @@ def config() -> ModelConfig:
         schedule=(LayerSpec(attn=ATTN_FULL),),
         encdec=True, n_enc_layers=12,
         frontend="audio",
+        long_500k_ok=False,
+        long_500k_note="skipped: enc-dec speech model; a 500k-token decode is "
+                       "outside the model's operating regime (see DESIGN.md).",
     )
 
 

@@ -5,10 +5,17 @@ plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build
 takes seconds). The library lands in ``build/repro_torch/`` at the root of
 the checkout, named by a hash of its source, the shared headers and the
 flags, at first use; a later process reuses it.
+
+Every wrapper also takes ``meta`` tensors (:func:`on_meta`): an abstract run
+of a step (``launch/dryrun.py``) gets empty outputs of the right shapes and
+dtypes and runs nothing. Wrapped in :func:`costed`, a wrapper reports its
+kernel's flops and bytes to the cost walker of ``launch/hlocost.py`` on
+every device, and hides the ops inside it from the walker.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -112,6 +119,76 @@ def on_cpu(*tensors) -> bool:
         return False
     raise ValueError(f"the kernels take tensors all on the CPU or all on "
                      f"one CUDA device; got {sorted(map(str, devices))}")
+
+
+def on_meta(*tensors) -> bool:
+    """True when every tensor lies on ``meta`` (an abstract run: the
+    wrapper returns empty outputs of the right shapes and dtypes and runs
+    nothing); False when none does; raises on a mix, so a real tensor never
+    takes the meta branch."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if "meta" not in kinds:
+        return False
+    if kinds != {"meta"}:
+        raise ValueError(f"the kernels take meta tensors only together; got "
+                         f"{sorted(kinds)}")
+    return True
+
+
+# the cost walkers listening (launch/hlocost.CostWalker adds itself while it
+# walks a step), and how deep inside a costed wrapper the caller is
+LISTENERS: list = []
+_DEPTH = [0]
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in _tensors(o)]
+    return []
+
+
+def costed(flops):
+    """Decorator of a kernel wrapper: with a cost walker listening, report
+    the call to it as one kernel, ``flops(*args, **kw)`` matmul-class flops
+    and the bytes of every tensor argument (read once) and every tensor
+    returned (written once), and mute the walker for the ops inside (the
+    plain version on the CPU, the outputs' allocation on the card or on
+    ``meta``), whose storages it still tracks. A wrapper called inside
+    another is part of the outer one's kernel."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            if not LISTENERS or _DEPTH[0]:
+                return fn(*args, **kw)
+            listeners = tuple(LISTENERS)
+            _DEPTH[0] += 1
+            try:
+                out = fn(*args, **kw)
+            finally:
+                _DEPTH[0] -= 1
+            moved = sum(t.numel() * t.element_size() for t in
+                        _tensors(args) + _tensors(list(kw.values()))
+                        + _tensors(out))
+            work = float(flops(*args, **kw))
+            for walker in listeners:
+                walker.kernel(fn.__name__, work, float(moved))
+            return out
+        return wrapper
+    return deco
+
+
+def no_flops(*args, **kw) -> float:
+    """The matmul-class flops of a kernel that does none (the exchange's
+    butterflies and roundings run on the CUDA cores; the walker counts
+    their bytes)."""
+    return 0.0
+
+
+def muted() -> bool:
+    """True inside a :func:`costed` wrapper."""
+    return _DEPTH[0] > 0
 
 
 def check(rc: int, fn: str):

@@ -324,6 +324,7 @@ def quantize_geometry(m: int, d_pad: int, *, pack: int = 1):
             "threads": _VEC_THREADS, "per_thread": v}
 
 
+@build.costed(build.no_flops)
 def fused_rotate(x2, signs, *, block=DEFAULT_BLOCK, inverse=False):
     """Batched randomized-Hadamard rotation (m, d_pad) -> (m, d_pad).
 
@@ -335,6 +336,8 @@ def fused_rotate(x2, signs, *, block=DEFAULT_BLOCK, inverse=False):
     8 a thread; 16 CTAs for one message of two 16,384-blocks), so each
     coordinate crosses device memory once each way.
     """
+    if build.on_meta(x2, signs):
+        return torch.empty_like(x2)
     if build.on_cpu(x2, signs):
         return rotate_plain(x2, signs, block=block, inverse=inverse)
     m, d_pad = x2.shape
@@ -364,6 +367,7 @@ def _levels_args(levels2, bits, m):
     return levels2, _row(levels2, "levels2", m), 0.0
 
 
+@build.costed(build.no_flops)
 def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
                  want_rotated=False, pack=1, levels2=None):
     """Rotate + stochastic round + wrap in one pass; returns codes, or
@@ -380,6 +384,10 @@ def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
     the packing, so y is written once (for the decode reference) and never
     read back.
     """
+    if build.on_meta(x2, signs, u2, gammas, levels2):
+        codes32, codes8 = _code_outputs(*x2.shape, pack, x2.device)
+        codes = codes32 if pack == 1 else codes8
+        return (torch.empty_like(x2), codes) if want_rotated else codes
     if build.on_cpu(x2, signs, u2, gammas, levels2):
         return encode_plain(x2, signs, u2, gammas, bits=bits, block=block,
                             want_rotated=want_rotated, pack=pack,
@@ -407,6 +415,7 @@ def fused_encode(x2, signs, u2, gammas, *, bits=8, block=DEFAULT_BLOCK,
     return (y, codes) if want_rotated else codes
 
 
+@build.costed(build.no_flops)
 def quantize_codes(y2, u2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
                    levels2=None):
     """Stochastic round + wrap of already-rotated coordinates.
@@ -423,6 +432,9 @@ def quantize_codes(y2, u2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     fill the card takes fewer outputs a thread (:func:`quantize_geometry`:
     two at the downlink's 1 × 32,768).
     """
+    if build.on_meta(y2, u2, gammas, levels2):
+        codes32, codes8 = _code_outputs(*y2.shape, pack, y2.device)
+        return codes32 if pack == 1 else codes8
     if build.on_cpu(y2, u2, gammas, levels2):
         return quantize_plain(y2, u2, gammas, bits=bits, block=block,
                               pack=pack, levels2=levels2)
@@ -453,6 +465,7 @@ def _launch_quantize(y2, u2, gammas, bits, block, pack, levels2,
     return codes32 if pack == 1 else codes8
 
 
+@build.costed(build.no_flops)
 def snap_codes(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
                levels2=None):
     """Positional snap in rotated space, γ·(c + L·round((w/γ − c)/L)).
@@ -468,6 +481,9 @@ def snap_codes(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     thread's packed codes (8 columns of one row of an (r, c) block when c
     is a multiple of 8) in one 8-byte load; byte by byte for c < 8.
     """
+    if build.on_meta(codes2, wrot2, gammas, levels2):
+        return wrot2.new_empty((max(codes2.shape[0], wrot2.shape[0]),
+                                wrot2.shape[1]))
     if build.on_cpu(codes2, wrot2, gammas, levels2):
         return snap_plain(codes2, wrot2, gammas, bits=bits, block=block,
                           pack=pack, levels2=levels2)
@@ -495,6 +511,7 @@ def snap_codes(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     return out
 
 
+@build.costed(build.no_flops)
 def fused_decode(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
                  pack=1, levels2=None):
     """Full Dec(ref, msg) in one pass: rotate the reference, snap each code
@@ -516,6 +533,9 @@ def fused_decode(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
     the cluster), so neither the rotated reference nor the snapped point
     touches device memory.
     """
+    if build.on_meta(codes2, ref2, signs, gammas, levels2):
+        return ref2.new_empty((max(codes2.shape[0], ref2.shape[0]),
+                               ref2.shape[1]))
     if build.on_cpu(codes2, ref2, signs, gammas, levels2):
         return decode_plain(codes2, ref2, signs, gammas, bits=bits,
                             block=block, pack=pack, levels2=levels2)

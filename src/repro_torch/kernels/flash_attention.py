@@ -77,7 +77,25 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(b, tq, h, dh).to(q.dtype)
 
 
-def _check_inputs(q, k, v, window):
+def visible_pairs(tq: int, tk: int, causal: bool = True,
+                  window: int = 0) -> int:
+    """(query, key) pairs the mask lets through: query i sees key j when
+    j <= i (causal) and j > i - window (a window)."""
+    i = np.arange(tq, dtype=np.int64)
+    hi = np.minimum(i, tk - 1) if causal else np.full(tq, tk - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(tq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_flops(q, k, v, *, causal: bool = True, window: int = 0,
+                softcap: float = 0.0) -> float:
+    """The kernel's matmul work: 4·dh flops per visible (query, key) pair
+    and head (q kᵀ and p v, two each)."""
+    b, tq, h, dh = q.shape
+    return 4.0 * dh * b * h * visible_pairs(tq, k.shape[1], causal, window)
+
+
+def _check_inputs(q, k, v, window, aligned=True):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -103,7 +121,7 @@ def _check_inputs(q, k, v, window):
                              f"backward")
     if window < 0:
         raise ValueError(f"window {window} < 0")
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and aligned:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % TMA_ALIGN:
                 raise ValueError(
@@ -112,6 +130,7 @@ def _check_inputs(q, k, v, window):
                     f"need it")
 
 
+@build.costed(flash_flops)
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """Causal GQA attention with an online softmax, optional sliding
@@ -133,6 +152,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     CTA per (b·h, 64-query tile) walks the kv tiles of its causal/window
     band with fp32 FMAs on the CUDA cores, exact to the reference's 2e-5.
     """
+    if build.on_meta(q, k, v):
+        _check_inputs(q, k, v, window, aligned=False)
+        return torch.empty_like(q)
     if build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap)

@@ -73,6 +73,7 @@ def hadamard_plain(x_blocks):
     return y.reshape(n, r, c)
 
 
+@build.costed(build.no_flops)
 def hadamard_blocks(x_blocks):
     """x_blocks: (n, r, c) fp32 or bf16, r and c powers of two, rc <=
     32,768 -> (H_r X H_c)/sqrt(rc) per block, fp32. H is symmetric, so this
@@ -88,6 +89,8 @@ def hadamard_blocks(x_blocks):
     a thread reads its 8 bf16 inputs in one 16-byte load and widens them.
     """
     _check(x_blocks)
+    if build.on_meta(x_blocks):
+        return x_blocks.new_empty(x_blocks.shape, dtype=torch.float32)
     if build.on_cpu(x_blocks):
         return hadamard_plain(x_blocks)
     if not x_blocks.is_contiguous():

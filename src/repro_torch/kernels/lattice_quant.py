@@ -103,6 +103,7 @@ def _launch(fn, inputs: dict, gamma, out, bits):
     return out
 
 
+@build.costed(build.no_flops)
 def lattice_encode(y, u, gamma, *, bits=8):
     """y: rotated coordinates (d,) fp32, d % 1024 == 0; u: U(0,1) noise
     (d,) fp32; γ a number or a one-value float32 tensor -> codes (d,) int32
@@ -116,6 +117,8 @@ def lattice_encode(y, u, gamma, *, bits=8):
     d = _check(bits, gamma, ("y", y, torch.float32),
                ("u", u, torch.float32))
     g = gamma if isinstance(gamma, torch.Tensor) else None
+    if build.on_meta(y, u, g):
+        return y.new_empty(d, dtype=torch.int32)
     if build.on_cpu(y, u, g):
         return lattice_encode_plain(y, u, gamma, bits=bits)
     out = torch.empty(d, dtype=torch.int32, device=y.device)
@@ -124,6 +127,7 @@ def lattice_encode(y, u, gamma, *, bits=8):
     return out
 
 
+@build.costed(build.no_flops)
 def lattice_decode(codes, w, gamma, *, bits=8):
     """codes: (d,) int32; w: rotated reference (d,) fp32 -> the
     representative of each code nearest w, (d,) fp32.
@@ -135,6 +139,8 @@ def lattice_decode(codes, w, gamma, *, bits=8):
     d = _check(bits, gamma, ("codes", codes, torch.int32),
                ("w", w, torch.float32))
     g = gamma if isinstance(gamma, torch.Tensor) else None
+    if build.on_meta(codes, w, g):
+        return w.new_empty(d)
     if build.on_cpu(codes, w, g):
         return lattice_decode_plain(codes, w, gamma, bits=bits)
     out = torch.empty(d, dtype=torch.float32, device=w.device)

@@ -16,9 +16,33 @@ reference's single-device (1, 1) mesh. A mesh made over a process group
 (``init_process_group`` first; ``torchrun`` sets its address, world size
 and rank) runs every collective through it, a group of one rank included,
 so an NCCL group of one on one card runs the NCCL code path.
+
+An ABSTRACT mesh (:func:`make_abstract_mesh`, ``make_production_mesh(...,
+abstract=True)``) is a shape, axes and the coordinates of one rank, with no
+process group: the dry-run tools walk one rank's step on ``meta`` tensors
+over the (16, 16) or (2, 16, 16) production layout without 256 processes.
+Its collectives run every local op a mesh with groups runs (the copies, the
+allocations, the concatenations) and skip only the transfer, so their
+outputs have the right shapes; it refuses any tensor that is not on
+``meta``.
+
+Every collective of a mesh with groups, real or abstract, is recorded in
+:attr:`Mesh.records` while recording is on (:meth:`Mesh.recording`; always
+on an abstract mesh), one record a collective along one axis, a group of
+one included (the reference's jaxpr counts a collective over an axis of
+size 1 too; ``roofline`` skips them, as they move nothing): ``op`` (``psum``, ``pmax``,
+``reduce_scatter``, ``all_gather``, the reference's jaxpr names), ``kind``
+(``all-reduce``, ``reduce-scatter``, ``all-gather``, its HLO names),
+``axis``, ``ranks``, ``dtype``, ``float``, ``in_bytes`` and ``out_bytes``
+(one rank's operand and result) and ``call`` (the collective call it
+belongs to: a psum over two axes is one call of two records).
+``launch/roofline.collective_seconds`` and
+``analysis/opbudget.check_collective_bytes`` read them.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
 from collections import OrderedDict
 from typing import Sequence, Union
@@ -45,6 +69,8 @@ class Mesh:
         self.device_mesh = None
         self._coords = {a: 0 for a in axes}
         self._groups = {}
+        self.records = None
+        self._calls = itertools.count()
         if device_type is not None:
             from torch.distributed.device_mesh import init_device_mesh
             self.device_mesh = init_device_mesh(
@@ -78,6 +104,39 @@ class Mesh:
         """The process group along ``name`` (None on the local mesh)."""
         return self._groups.get(name)
 
+    # -- collective records ---------------------------------------------
+    @contextlib.contextmanager
+    def recording(self):
+        """Record every collective made inside; yields the record list."""
+        saved, self.records = self.records, []
+        try:
+            yield self.records
+        finally:
+            self.records = saved
+
+    def _record(self, op: str, kind: str, axis: str, x, out, call: int):
+        if self.records is None:
+            return
+        self.records.append({
+            "op": op, "kind": kind, "axis": axis, "ranks": self.shape[axis],
+            "dtype": str(x.dtype).replace("torch.", ""),
+            "float": bool(x.is_floating_point()),
+            "in_bytes": x.numel() * x.element_size(),
+            "out_bytes": out.numel() * out.element_size(), "call": call})
+
+    # -- the transfers (an abstract mesh skips them) ----------------------
+    def _has_group(self, name: str) -> bool:
+        return self.group(name) is not None
+
+    def _all_reduce_op(self, x, op, name):
+        dist.all_reduce(x, op=op, group=self.group(name))
+
+    def _reduce_scatter_op(self, out, flat, name):
+        _reduce_scatter(out, flat, group=self.group(name))
+
+    def _all_gather_op(self, out, flat, name):
+        _all_gather(out, flat, group=self.group(name))
+
     # -- collectives over named axes ------------------------------------
     def _names(self, axes: Axes):
         return (axes,) if isinstance(axes, str) else tuple(axes)
@@ -91,11 +150,13 @@ class Mesh:
         return self._all_reduce(x, axes, dist.ReduceOp.MAX)
 
     def _all_reduce(self, x, axes, op):
+        call = next(self._calls)
+        name = "psum" if op == dist.ReduceOp.SUM else "pmax"
         for a in self._names(axes):
-            g = self.group(a)
-            if g is not None:
+            if self._has_group(a):
                 x = x.clone(memory_format=torch.contiguous_format)
-                dist.all_reduce(x, op=op, group=g)
+                self._all_reduce_op(x, op, a)
+                self._record(name, "all-reduce", a, x, x, call)
         return x
 
     def psum_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -103,31 +164,33 @@ class Mesh:
         dimension: the sum over ``axis``, this rank's ``d / n`` slice of
         it, ``(1, d / n)``."""
         n = self.shape[axis]
-        g = self.group(axis)
-        if g is None:
+        if not self._has_group(axis):
             return x
         flat = x.reshape(-1).contiguous()
         out = flat.new_empty(flat.numel() // n)
-        _reduce_scatter(out, flat, group=g)
+        self._reduce_scatter_op(out, flat, axis)
+        self._record("reduce_scatter", "reduce-scatter", axis, flat, out,
+                     next(self._calls))
         return out.reshape(*x.shape[:-1], x.shape[-1] // n)
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``x`` of every rank along ``axis``, stacked in coordinate order:
         ``(n, *x.shape)``."""
         n = self.shape[axis]
-        g = self.group(axis)
-        if g is None:
+        if not self._has_group(axis):
             return x[None]
         flat = x.reshape(-1).contiguous()
         out = flat.new_empty(n * flat.numel())
-        _all_gather(out, flat, group=g)
+        self._all_gather_op(out, flat, axis)
+        self._record("all_gather", "all-gather", axis, flat, out,
+                     next(self._calls))
         return out.reshape(n, *x.shape)
 
     def all_gather_tiled(self, x: torch.Tensor, axis: str,
                          dim: int) -> torch.Tensor:
         """Tiled ``all_gather``: the blocks of every rank along ``axis``
         concatenated along ``dim``."""
-        if self.group(axis) is None:
+        if not self._has_group(axis):
             return x
         parts = self.all_gather(x, axis)
         return torch.cat(parts.unbind(0), dim=dim)
@@ -170,11 +233,68 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     return Mesh(shape, axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+class AbstractMesh(Mesh):
+    """A mesh of ``shape`` and ``axes`` seen from the rank at ``coords``,
+    with no process group: every axis acts as if it had one, each
+    collective runs its local ops on ``meta`` tensors and records itself,
+    and the transfer is skipped (its output keeps its shape)."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 coords=None):
+        super().__init__(shape, axes)
+        for a, i in dict(coords or {}).items():
+            if a not in self.shape or not 0 <= int(i) < self.shape[a]:
+                raise ValueError(f"coordinate {a}={i} outside the mesh "
+                                 f"{dict(self.shape)}")
+            self._coords[a] = int(i)
+        self.records = []
+
+    def __repr__(self):
+        return f"AbstractMesh({dict(self.shape)}, at {self._coords})"
+
+    @contextlib.contextmanager
+    def recording(self):
+        saved, self.records = self.records, []
+        try:
+            yield self.records
+        finally:
+            self.records = saved + self.records
+
+    def _has_group(self, name: str) -> bool:
+        return True
+
+    @staticmethod
+    def _meta(x):
+        if x.device.type != "meta":
+            raise ValueError(f"an abstract mesh takes meta tensors only; got "
+                             f"one on {x.device}")
+
+    def _all_reduce_op(self, x, op, name):
+        self._meta(x)
+
+    def _reduce_scatter_op(self, out, flat, name):
+        self._meta(flat)
+
+    def _all_gather_op(self, out, flat, name):
+        self._meta(flat)
+
+
+def make_abstract_mesh(shape: Sequence[int], axes: Sequence[str],
+                       coords=None) -> AbstractMesh:
+    """An abstract mesh of ``shape`` named ``axes`` at ``coords`` (axis ->
+    index, 0 where not given): no process group, meta tensors only."""
+    return AbstractMesh(shape, axes, coords)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         abstract: bool = False) -> Mesh:
     """The reference's production layout: (16, 16) data×model, or (2, 16,
-    16) pod×data×model; needs that many ranks."""
+    16) pod×data×model; needs that many ranks, or ``abstract=True`` for
+    the abstract mesh of that layout seen from rank 0."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if abstract:
+        return make_abstract_mesh(shape, axes)
     return make_mesh(shape, axes)
 
 

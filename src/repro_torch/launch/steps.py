@@ -48,7 +48,18 @@ of the cache by :func:`repro_torch.launch.specs.input_axes` and
 leaves (``Mesh.gather_leaf``), runs the model's ``forward`` or
 ``decode_step`` whole on every rank, and keeps the rank's blocks of what
 it returns: the prefill the last position's fp32 logits (b, V), whole,
-and the cache; the serve step the greedy next token and the cache.
+and the cache; the serve step the greedy next token and the cache. With
+the shard_map MoE (``moe.impl == "ragged_shmap"``) they gather no expert
+leaf over 'model': each rank runs its block of the expert-FFN dimension
+and the partial sums meet in a psum (:mod:`repro_torch.models.moe`); the
+train step gathers them whole, since the exchange takes whole leaves of Y.
+Each call of a step with the shard_map MoE sets its mesh as the MoE's
+(``models.moe.set_moe_mesh``).
+
+Every step also runs abstractly, on ``meta`` tensors over an abstract mesh
+(:func:`repro_torch.launch.mesh.make_abstract_mesh`, ``device="meta"``):
+the exchange's streams are then :class:`MetaGenerator` s, whose draws have
+the shapes of the real ones and no values (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -70,6 +81,7 @@ from repro_torch.launch.specs import (abstract_cache, input_axes,
                                       input_specs)
 from repro_torch.models.model import (abstract_lm, decode_step, forward,
                                       init_cache, init_lm, lm_loss)
+from repro_torch.models.moe import set_moe_mesh
 from repro_torch.sharding.rules import cut_block, pspec_for, rules_for_mode
 
 # architectures too large for per-data-slice client replicas get cohort mode
@@ -167,6 +179,28 @@ def stream_seed(seed: int, name: str) -> int:
     return int.from_bytes(h, "little") >> 1
 
 
+class MetaGenerator(torch.Generator):
+    """A CPU generator that reports the ``meta`` device, so the draws made
+    from it (``device=generator.device``) are meta tensors of the real
+    draws' shapes: an abstract step's randomness."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def make_generator(device) -> torch.Generator:
+    """A generator on ``device``; a :class:`MetaGenerator` on ``meta``."""
+    if torch.device(device).type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device)
+
+
+def shmap_moe(cfg: ModelConfig) -> bool:
+    """True for the shard_map MoE ('ragged_shmap')."""
+    return cfg.moe is not None and cfg.moe.impl == "ragged_shmap"
+
+
 class ExchangeStreams:
     """The exchange's randomness on one rank: a generator per role, seeded
     from (``seed``, the stream's name), so every rank that shares a stream
@@ -184,7 +218,7 @@ class ExchangeStreams:
 
     def __init__(self, seed: int, names: Dict[str, str], device):
         self.seed, self.names = seed, dict(names)
-        self._gens = {r: torch.Generator(device=device) for r in self.names}
+        self._gens = {r: make_generator(device) for r in self.names}
         self.reset()
 
     def reset(self) -> None:
@@ -442,6 +476,8 @@ class TrainStep:
     # -- one round ------------------------------------------------------
     def __call__(self, state: TrainState, batch, generator=None,
                  draws=None):
+        if shmap_moe(self.cfg):
+            set_moe_mesh(self.mesh)
         draws = draws or {}
         K = self.fed.local_steps
         h_steps = draws.get("h_steps")
@@ -492,11 +528,17 @@ class _InferenceStep:
         spec, axes = abstract_lm(cfg)
         self.param_spec = spec
         self.param_specs = _leaf_specs(spec, axes, mesh)
+        # the shard_map MoE takes the rank's expert-FFN blocks as they are
+        self._skip = {}
+        if shmap_moe(cfg):
+            self._skip = {k: "model" for k, ax in axes.items()
+                          if "expert_mlp" in ax}
         self.cache_spec, c_axes = abstract_cache(cfg, shape)
         self.cache_specs = _leaf_specs(self.cache_spec, c_axes, mesh)
 
     def _whole(self, blocks, specs):
-        return {k: self.mesh.gather_leaf(v, specs[k])
+        return {k: self.mesh.gather_leaf(v, specs[k],
+                                         skip=self._skip.get(k, ()))
                 for k, v in blocks.items()}
 
     def _blocks(self, tree, specs):
@@ -521,6 +563,8 @@ class PrefillStep(_InferenceStep):
                                        input_axes(cfg, shape), mesh)
 
     def __call__(self, params, batch):
+        if shmap_moe(self.cfg):
+            set_moe_mesh(self.mesh)
         p = self._whole(params, self.param_specs)
         whole = {k: self.mesh.gather_leaf(v, self.batch_specs[k])
                  for k, v in batch.items() if k in self.batch_specs}
@@ -553,6 +597,8 @@ class ServeStep(_InferenceStep):
         self.pos_spec = ()
 
     def __call__(self, params, cache, token, pos):
+        if shmap_moe(self.cfg):
+            set_moe_mesh(self.mesh)
         p = self._whole(params, self.param_specs)
         c = self._whole(cache, self.cache_specs)
         tok = self.mesh.gather_leaf(token, self.token_spec).long()

@@ -116,8 +116,8 @@ def run_registry(args, cfg, fed: FedConfig, device=None) -> TrainRun:
         raise ValueError(
             f"--scan-chunk {args.scan_chunk}: {cfg.name}'s MoE layers read "
             f"their expert group sizes on the host, which a captured chunk "
-            f"cannot; run eager (a grouped GEMM on device offsets is ROADMAP "
-            f"Queue 2 work)")
+            f"cannot; run eager (the group sizes on the device are ROADMAP "
+            f"Queue 1 item 16)")
     loss_fn = partial(lm_loss, cfg)
     # per-client token pool: every algorithm samples its minibatches with
     # replacement from these rows (the reference's sizing)

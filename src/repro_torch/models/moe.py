@@ -1,24 +1,34 @@
 """Mixture-of-Experts layer: top-k router + grouped-product experts (port
 of ``repro.models.moe``).
 
-Two implementations:
+Three implementations:
   * 'ragged' — tokens sorted by expert (a stable sort), then a grouped
     product: each expert's rows times that expert's weights, in the
     compute dtype. Only the experts that receive a token are cast and
     multiplied (the reference casts every expert tensor whole; the values
     are the same). The group sizes are read on the host, so a round that
     routes tokens cannot be captured in a CUDA graph (``launch/train.py``
-    refuses ``--scan-chunk`` for MoE archs; a grouped GEMM that takes
-    device offsets is ROADMAP Queue 2 work).
+    refuses ``--scan-chunk`` for MoE archs; ROADMAP Queue 1 item 16). On
+    ``meta`` tensors (an abstract run reads nothing) the T·k routed rows
+    split evenly over the experts, the remainder to the first ones: a
+    grouped product's flops depend on the total row count alone; where
+    every expert gets a row, the equal groups run batched, with the loop's
+    flops and bytes.
+  * 'ragged_shmap' — 'ragged' on this rank's block of the expert-FFN
+    dimension of the mesh set by :func:`set_moe_mesh` (``w_gate``/``w_up``
+    cut on their last axis, ``w_down`` on its middle one, over 'model'),
+    then ``mesh.psum`` of the down-projection's partial sums over 'model':
+    the reference's shard_map variant. The mesh steps hand it the rank's
+    blocks (the prefill and serve steps gather no expert leaf over
+    'model'); given whole leaves it cuts the block itself, and under
+    autograd the block's gradient is gathered back over 'model' and the
+    input's summed over it, so every model rank holds the whole gradient.
   * 'dense'  — capacity-based one-hot dispatch/combine einsums (GShard);
     tokens over an expert's capacity are dropped, as in the reference.
 
 Shared experts (DeepSeek/Llama4) are plain dense MLPs added to the output.
 The router's aux load-balance loss is returned to the caller and added to
 each client's local objective by ``models.model.lm_loss``.
-
-The reference's shard_map variant ('ragged_shmap', ``set_moe_mesh``) has
-only a dry-run caller and raises here (ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -27,13 +37,13 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import apply_mlp, init_mlp
 
-SHMAP_NOT_PORTED = ("the shard_map MoE ('ragged_shmap', set_moe_mesh) is "
-                    "not ported yet (ROADMAP Queue 1 item 14)")
+_MOE_MESH = None  # set by the launcher or the mesh steps for 'ragged_shmap'
 
 
 def set_moe_mesh(mesh):
-    """The reference's launcher hook for 'ragged_shmap': not ported."""
-    raise NotImplementedError(SHMAP_NOT_PORTED)
+    """Launcher hook: the mesh the shard_map MoE implementation runs on."""
+    global _MOE_MESH
+    _MOE_MESH = mesh
 
 
 def init_moe(ctx, cfg):
@@ -74,6 +84,15 @@ def _router(cfg, p, x, pre):
     return weights.to(x.dtype), idx, aux
 
 
+def group_sizes(flat_idx, n_experts: int):
+    """Rows routed to each expert, read on the host; on ``meta`` the rows
+    split evenly ('balanced', the remainder to the first experts)."""
+    if flat_idx.device.type == "meta":
+        q, r = divmod(flat_idx.numel(), n_experts)
+        return [q + (e < r) for e in range(n_experts)]
+    return torch.bincount(flat_idx, minlength=n_experts).tolist()
+
+
 def _moe_ragged(cfg, p, x, weights, idx, pre):
     m = cfg.moe
     T, d = x.shape
@@ -82,21 +101,53 @@ def _moe_ragged(cfg, p, x, weights, idx, pre):
     order = torch.argsort(flat_idx, stable=True)
     inv = torch.argsort(order, stable=True)
     xs = torch.repeat_interleave(x, k, dim=0)[order]            # sorted
-    sizes = torch.bincount(flat_idx, minlength=m.n_experts).tolist()
-    # each stacked weight unbound once, so that under autograd its
-    # gradient is assembled once, not zero-filled for every expert
-    wg, wu, wd = (p[f"{pre}{n}"].unbind(0)
-                  for n in ("w_gate", "w_up", "w_down"))
-    parts, off = [], 0
-    for e, n in enumerate(sizes):
-        if not n:
-            continue
-        xe = xs[off:off + n]
-        h = (F.silu(xe @ wg[e].to(x.dtype)) * (xe @ wu[e].to(x.dtype)))
-        parts.append(h @ wd[e].to(x.dtype))
-        off += n
-    y = torch.cat(parts)[inv].reshape(T, k, d)
+    sizes = group_sizes(flat_idx, m.n_experts)
+    w = [p[f"{pre}{n}"] for n in ("w_gate", "w_up", "w_down")]
+    # on meta every expert with rows, the equal groups batched
+    parts = (_balanced_parts if xs.device.type == "meta" and min(sizes)
+             else _expert_parts)
+    y = torch.cat(parts(xs, sizes, w, x.dtype))[inv].reshape(T, k, d)
     return torch.sum(y * weights[..., None], dim=1)
+
+
+def _expert_parts(xs, sizes, w, dtype):
+    """Each expert's rows of ``xs`` through its FFN, one expert at a time
+    (experts with no row skipped)."""
+    # the rows split and each stacked weight unbound once, so that under
+    # autograd each gradient is assembled once, not zero-filled whole for
+    # every expert
+    wg, wu, wd = (v.unbind(0) for v in w)
+    parts = []
+    for e, xe in enumerate(xs.split(sizes)):
+        if not len(xe):
+            continue
+        h = (F.silu(xe @ wg[e].to(dtype)) * (xe @ wu[e].to(dtype)))
+        parts.append(h @ wd[e].to(dtype))
+    return parts
+
+
+def _balanced_parts(xs, sizes, w, dtype):
+    """:func:`_expert_parts` over 'balanced' group sizes of at least one
+    row (an abstract run, on ``meta``): the first r experts' q + 1 rows,
+    then the others' q, each set of equal groups one batched product. The
+    same products, casts and elementwise ops on the same bytes as the
+    loop, each gradient assembled by one concatenation as the loop's; a
+    160-expert layer walks in a dozen ops, not a thousand (with the loop,
+    deepseek-v2 × train_4k's walk took ~62 s and was the dry run's
+    critical path: ``PERF.md`` §6)."""
+    d, q = xs.shape[1], min(sizes)
+    r = sum(1 for n in sizes if n > q)
+    counts, rows = (r, len(sizes) - r), (q + 1, q)
+    halves = [v.split(counts) for v in w]
+    parts = []
+    for i, xe in enumerate(xs.split([c * n for c, n in zip(counts, rows)])):
+        if not len(xe):
+            continue
+        xe = xe.reshape(counts[i], rows[i], d)
+        wg, wu, wd = (h[i].to(dtype) for h in halves)
+        hid = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+        parts.append(torch.bmm(hid, wd).reshape(-1, d))
+    return parts
 
 
 def _moe_dense(cfg, p, x, weights, idx, pre):
@@ -125,6 +176,74 @@ def _moe_dense(cfg, p, x, weights, idx, pre):
     return out.to(x.dtype)
 
 
+class _ToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over 'model' (each model rank
+    contributes its block's share)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.psum(g, "model"), None
+
+
+class _FromModel(torch.autograd.Function):
+    """``psum`` over 'model' forward; identity gradient (every model rank
+    holds the whole output's gradient)."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        return mesh.psum(y, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelBlock(torch.autograd.Function):
+    """This rank's block of a whole leaf along ``dim``; its gradient
+    gathered back over 'model' into the whole leaf's."""
+
+    @staticmethod
+    def forward(ctx, w, mesh, dim):
+        n = mesh.shape["model"]
+        blk = w.shape[dim] // n
+        ctx.mesh, ctx.dim = mesh, dim
+        return w.narrow(dim, mesh.axis_index("model") * blk, blk)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_gather_tiled(g.contiguous(), "model", ctx.dim),
+                None, None)
+
+
+def _moe_ragged_shmap(cfg, p, x, weights, idx, pre):
+    """'ragged' on this rank's block of the expert-FFN dimension, then the
+    psum of the partial sums over 'model' (see the module docstring). A
+    leaf whose expert-FFN width does not split over 'model' runs whole,
+    without the psum."""
+    mesh = _MOE_MESH
+    if mesh is None:
+        raise ValueError("set_moe_mesh(mesh) before using ragged_shmap")
+    n = int(mesh.shape.get("model", 1))
+    w = {k: p[f"{pre}{k}"] for k in ("w_gate", "w_up", "w_down")}
+    f, full = w["w_gate"].shape[-1], cfg.moe.d_ff_expert
+    if f == full and full % n:
+        return _moe_ragged(cfg, p, x, weights, idx, pre)
+    if f == full and n > 1:
+        w = {"w_gate": _ModelBlock.apply(w["w_gate"], mesh, 2),
+             "w_up": _ModelBlock.apply(w["w_up"], mesh, 2),
+             "w_down": _ModelBlock.apply(w["w_down"], mesh, 1)}
+    if torch.is_grad_enabled():
+        x, weights = _ToModel.apply(x, mesh), _ToModel.apply(weights, mesh)
+    y = _moe_ragged(cfg, {f"{pre}{k}": v for k, v in w.items()}, x,
+                    weights, idx, pre)
+    return _FromModel.apply(y, mesh)
+
+
 def apply_moe(cfg, p, x, prefix: str = ""):
     """x: (b, t, d) -> (out, aux_loss)."""
     pre = prefix + "/" if prefix else ""
@@ -137,7 +256,7 @@ def apply_moe(cfg, p, x, prefix: str = ""):
     elif m.impl == "dense":
         out = _moe_dense(cfg, p, xf, weights, idx, pre)
     elif m.impl == "ragged_shmap":
-        raise NotImplementedError(SHMAP_NOT_PORTED)
+        out = _moe_ragged_shmap(cfg, p, xf, weights, idx, pre)
     else:
         raise ValueError(f"unknown MoE impl {m.impl!r}")
     if m.n_shared:

@@ -1420,3 +1420,34 @@ def test_mesh_prefill_step_launches_flash(dev, nccl_mesh):
                    if i == 0 else None)
     assert torch.equal(logits, seen[0])
     assert torch.cat(got, 1).tolist() == [r.out_tokens for r in done]
+
+
+def test_meta_branch_takes_meta_only_and_the_walker_counts_launches(dev):
+    """A mix of CUDA and ``meta`` tensors raises; CUDA tensors launch the
+    kernel, which the cost walker counts once, as the meta branch does
+    (``launch/hlocost.py``)."""
+    from repro_torch.launch.hlocost import CostWalker
+    x, sg, u, gam = _inputs(dev, 4, 4096, 8)
+    with pytest.raises(ValueError, match="meta tensors only together"):
+        kx.fused_rotate(x, torch.empty(4096, device="meta"))
+    q = torch.randn((2, 256, 4, 64), device=dev, dtype=torch.bfloat16)
+    k = torch.randn((2, 256, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="meta tensors only together"):
+        fa.flash_attention(q, k.to("meta"), k)
+    kx.reset_launches()
+    fa.reset_launches()
+    walks = {}
+    for name, args in (("cuda", (x, sg, q, k)),
+                       ("meta", tuple(t.to("meta") for t in (x, sg, q, k)))):
+        w = CostWalker()
+        with w:
+            kx.fused_rotate(*args[:2])
+            fa.flash_attention(args[2], args[3], args[3], window=64)
+        walks[name] = w
+    torch.cuda.synchronize()
+    assert kx.LAUNCHES["fused_rotate"] == 1
+    assert fa.LAUNCHES["flash_attention"] == 1
+    for w in walks.values():
+        assert w.kernels == {"fused_rotate": 1, "flash_attention": 1}
+    assert walks["cuda"].flops == walks["meta"].flops > 0
+    assert walks["cuda"].bytes == walks["meta"].bytes > 0

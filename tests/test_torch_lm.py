@@ -26,7 +26,8 @@ from repro.models import model as ref_model
 from repro_torch import configs
 from repro_torch.configs.base import (ATTN_CHUNKED, ATTN_FULL, ATTN_SLIDING,
                                       LayerSpec)
-from repro_torch.models import attention, layers, model
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import attention, layers, model, moe
 from repro_torch.models.params import has_subtree, subtree
 from repro_torch.utils.interop import cache_from_numpy, lm_params_from_numpy
 
@@ -69,8 +70,9 @@ def test_config_numbers_match_reference(arch):
 def test_registry_refuses_unported_archs():
     """The registry holds the reference's whole LM zoo: the
     encoder-decoder and frontend archs (ROADMAP Queue 1 item 12) now run,
-    as does a frontend config of another arch; an unknown arch refuses,
-    and the shard_map MoE refuses, naming item 14."""
+    as does a frontend config of another arch; an unknown arch refuses;
+    and the shard_map MoE (item 14) runs: on the local mesh it equals
+    'ragged' bit for bit, and without a mesh it asks for one."""
     assert set(ARCHS + FRONTEND_ARCHS) < set(configs.list_archs())
     assert sorted(configs.list_archs()) == sorted(
         a for a in ref_configs.list_archs() if a != "paper-mlp")
@@ -89,9 +91,17 @@ def test_registry_refuses_unported_archs():
     shmap = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                 impl="ragged_shmap"))
     p, _ = model.init_lm(shmap, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        model.forward(shmap, p, {"tokens": torch.zeros((1, 8),
-                                                       dtype=torch.int64)})
+    toks = {"tokens": torch.arange(8, dtype=torch.int64)[None] * 37
+            % cfg.vocab_size}
+    moe.set_moe_mesh(None)
+    with pytest.raises(ValueError, match="set_moe_mesh"):
+        model.forward(shmap, p, toks)
+    moe.set_moe_mesh(Mesh((1, 1), ("data", "model")))
+    try:
+        got = model.forward(shmap, p, toks)[0]
+    finally:
+        moe.set_moe_mesh(None)
+    assert torch.equal(got, model.forward(cfg, p, toks)[0])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
