@@ -2,7 +2,9 @@
 """Device time a launch of the exchange kernels (``fused_rotate``,
 ``fused_encode``, ``quantize_codes``, ``snap_codes``, ``fused_decode``) at
 each shape the federated paths launch them with and at the bench shape, and
-of ``hadamard_blocks`` at the ``ops`` path's sizes, from torch.profiler:
+of ``hadamard_blocks`` at the ``ops`` path's sizes, from torch.profiler,
+and the ms of a wrapper call (CUDA events, host overhead included, as
+``chip_smoke.py``'s ``ms``):
 
     python3 chip_shapes.py [SRC]
 
@@ -143,6 +145,7 @@ def equal(got, want):
 def timed_row(run, want, bytes_moved, peak_bw, symbol, **fields):
     row = {**fields, "equal": equal(run(), want),
            "device_ms": cs.kernel_device_ms(run, symbol),
+           "ms": cs.time_ms(run),
            "bound_ms": bytes_moved / peak_bw * 1e3}
     assert row["equal"] and row["device_ms"] is not None, row
     return row

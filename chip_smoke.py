@@ -128,6 +128,14 @@ then drives the port's paths:
   steps with ``ragged_shmap`` and ``ragged`` (tokens identical, fp32
   logits within atol 2e-4, rtol 2e-3); the rotation budget of QuAFL at
   n=300, s=16 and each transport's collective bytes against its caps.
+* the invariant gate, in a process of its own (``--analysis``) over an
+  NCCL group of one: ``python -m repro_torch.analysis.lint``'s whole
+  matrix on the card (25 algorithm × codec cells, 9 codec × transport
+  exchanges, rs_transport, 8 sentinel runs) with every captured round
+  under ``torch.cuda.set_sync_debug_mode("error")``, 0 violations; the
+  exchanges also on real tensors over the group, replicated outputs equal
+  across ranks; then a 10-round QuAFL chunk's captured graph read back
+  (``lowered_chunk``), its kernel nodes equal to a replay's launches.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It prints JSON lines per phase, a ``kernels`` line, the card's name
@@ -4192,6 +4200,150 @@ def run_tools() -> None:
     assert seconds <= TOOLS_BUDGET, (seconds, TOOLS_BUDGET)
 
 
+# ---------------------------------------------------------------------------
+# path 15: the invariant gate (analysis/) on the card, its own process
+# ---------------------------------------------------------------------------
+
+ANALYSIS_BUDGET = 120             # seconds the analysis process may take
+ANALYSIS_TIMEOUT = 2 * ANALYSIS_BUDGET
+ANALYSIS_CHUNK = ENGINE_CHUNK     # rounds of the chunk whose graph is read
+# the rows the gate's cells launch (the lattice exchange, and the
+# per-message decodes of the baselines)
+ANALYSIS_KERNELS = ("fused_encode", "fused_rotate", "quantize_codes",
+                    "snap_codes", "fused_decode")
+
+
+def lint_phase(smi, mesh, kx) -> dict:
+    """(a) ``run_lint`` over the whole matrix on the card: every cell's
+    round and chunk op logs, wire truth and intervals, the in-place audit
+    of captured chunks, the sentinels' ``simulate(scan_chunk=2)`` runs,
+    every captured round under ``torch.cuda.set_sync_debug_mode("error")``
+    (``fed/engine.sync_debug``), and each exchange cell also on real
+    tensors over the NCCL group of one with its replicated outputs held
+    equal across ranks. 0 violations; rows 1-5 launched."""
+    from repro_torch.analysis.lint import run_lint
+    from repro_torch.fed.engine import sync_debug
+    t0 = time.perf_counter()
+    timings = {}
+    kx.reset_launches()
+    with sync_debug("error"):
+        rep = run_lint(device="cuda", mesh=mesh, verbose=False,
+                       timings=timings)
+    torch.cuda.synchronize()
+    launches = {k: kx.LAUNCHES[k] for k in ANALYSIS_KERNELS}
+    cells = [c for sec in ("matrix", "exchange", "sentinel")
+             for c in rep[sec].values()] + [rep["rs_transport"]]
+    viols = rep["ast"]["violations"] + [v for c in cells
+                                        for v in c["violations"]]
+    res = {"phase": "analysis_lint", "device": rep["device"],
+           "sync_debug": "error",
+           "violations_total": rep["violations_total"],
+           "violations": viols[:20],
+           "cells": {sec: len(rep[sec]) for sec in ("matrix", "exchange",
+                                                   "sentinel")},
+           "programs": {a: r.get("programs")
+                        for a, r in rep["sentinel"].items()},
+           "donation": {c: r.get("donation")
+                        for c, r in rep["matrix"].items()},
+           "divergence_ranks": {c: r.get("ranks")
+                                for c, r in rep["exchange"].items()},
+           "launches": launches,
+           "slowest": sorted(timings.items(), key=lambda kv: -kv[1])[:6],
+           "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(res)
+    assert rep["violations_total"] == 0, viols
+    assert res["cells"] == {"matrix": 25, "exchange": 9, "sentinel": 8}, res
+    assert all(res["divergence_ranks"].values()), res
+    for a, prog in res["programs"].items():
+        assert prog and set(prog.values()) == {1}, (a, prog)
+    for c, don in res["donation"].items():
+        assert don["steady_chunks"] > 0 and don["leaves_copied"] == 0 \
+            and don.get("leaves_not_static") == 0, (c, don)
+    for k in ANALYSIS_KERNELS:
+        assert launches[k] > 0, (k, launches)
+    return res
+
+
+def lowered_phase(smi, dev, kx) -> dict:
+    """(b) the kernel nodes of a 10-round QuAFL chunk at the paper's cell
+    (``RoundEngine.lowered_chunk``: the captured graph's debug dump) equal,
+    kernel by kernel, the port launches the profiler's device events count
+    in a replay of the same chunk, and a round's are the main path's
+    (``TRAIN_LAUNCHES``: 1 encode, 3 rotations, 1 quantize, 2 snaps);
+    neither the caller's generator nor the engine's cache moves."""
+    from repro_torch.fed.engine import RoundEngine, clone_tree
+    from repro_torch.fed.registry import make_algorithm
+    from repro_torch.models.mlp import mlp_loss_batched
+    t0 = time.perf_counter()
+    fed, part, _, p0, gen = chip_world(dev)
+    alg = make_algorithm("quafl", fed, loss_fn=mlp_loss_batched, template=p0,
+                         batch_size=32, device=dev)
+    state = alg.init(p0)
+    eng = RoundEngine(alg)
+    g0 = gen.get_state()
+    nodes = eng.lowered_chunk(state, part, gen, ANALYSIS_CHUNK)
+    untouched = (bool(torch.equal(gen.get_state(), g0))
+                 and eng.chunk_programs() == {})
+    in_graph = {k: sum(sym in label for label in nodes)
+                for k, sym in KERNEL_SYMBOLS.items()}
+    st, _ = eng.run_chunk(clone_tree(state), part, gen, ANALYSIS_CHUNK)
+    for _ in range(3):   # the trace now and then drops events: again
+        (st, _), _, ev = profiled(lambda: eng.run_chunk(st, part, gen,
+                                                        ANALYSIS_CHUNK))
+        replayed = port_launches(ev)
+        if replayed == in_graph:
+            break
+    res = {"phase": "analysis_lowered_chunk", "rounds": ANALYSIS_CHUNK,
+           "graph_kernel_nodes": len(nodes), "in_graph": in_graph,
+           "replayed": replayed, "caller_untouched": untouched,
+           "first_kernel_node": nodes[0][:240] if nodes else None,
+           "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    emit(res)
+    assert untouched and nodes, res
+    assert in_graph == replayed == {k: ANALYSIS_CHUNK * v
+                                    for k, v in TRAIN_LAUNCHES.items()}, res
+    return res
+
+
+def analysis_phases() -> int:
+    """``chip_smoke.py --analysis``, in a process of its own over the NCCL
+    group of one: the gate's whole matrix, then the captured chunk's kernel
+    list against its replay (each path's counts from 0 just before, read
+    just after)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import exchange as kx
+    from repro_torch.launch.mesh import make_mesh
+    smi = smi_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    nccl_group_of_one()
+    try:
+        lint_phase(smi, make_mesh((1, 1), ("data", "model")), kx)
+        lowered_phase(smi, dev, kx)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "analysis_process", "seconds": time.perf_counter() - t0})
+    return 0
+
+
+def run_analysis() -> None:
+    """``chip_smoke.py --analysis`` in a process of its own, its lines
+    relayed; its wall gated at ``ANALYSIS_BUDGET``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--analysis"], capture_output=True, text=True,
+                          timeout=ANALYSIS_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise RuntimeError(f"the analysis phases exited {proc.returncode}")
+    emit({"phase": "analysis_wall", "seconds": seconds,
+          "budget": ANALYSIS_BUDGET})
+    assert seconds <= ANALYSIS_BUDGET, (seconds, ANALYSIS_BUDGET)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4208,6 +4360,8 @@ def main() -> int:
         return encdec_phases()
     if sys.argv[1:] == ["--tools"]:
         return tools_phases()
+    if sys.argv[1:] == ["--analysis"]:
+        return analysis_phases()
     from repro_torch import default_device
     from repro_torch.fed.engine import clone_tree
     from repro_torch.kernels import build
@@ -4273,6 +4427,9 @@ def main() -> int:
     # path 14, the dry-run tools, the shard_map MoE and the op budgets:
     # its own process, an NCCL group of one
     run_tools()
+    # path 15, the invariant gate over the whole matrix, captured chunks
+    # under the sync-debug mode: its own process, an NCCL group of one
+    run_analysis()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)

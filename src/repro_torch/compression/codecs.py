@@ -38,10 +38,12 @@ from typing import Any, Dict, NamedTuple, Protocol, Tuple, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.analysis.provenance import wire_mark
 from repro_torch.compression.lattice import (IdentityQuantizer, LatticeMsg,
                                              LatticeQuantizer, MessageKey,
                                              QSGDQuantizer)
-from repro_torch.compression.pipeline import LatticeWire
+from repro_torch.compression.pipeline import (LatticeWire,
+                                              wire_container_dtype)
 from repro_torch.compression.rotation import DEFAULT_BLOCK, pad_len
 from repro_torch.utils.specs import parse_spec
 
@@ -71,11 +73,26 @@ class WireDecl(NamedTuple):
     moduli: Tuple[int, ...] = ()
     safety: float = 0.0
 
+    @property
+    def message_bits(self) -> int:
+        return sum(p.charged_bits for p in self.parts)
+
     def part(self, name: str) -> WirePart:
         for p in self.parts:
             if p.part == name:
                 return p
         raise KeyError(name)
+
+
+def _mark_msg(msg: LatticeMsg, codec: str, d: int,
+              container=None) -> LatticeMsg:
+    """A codec's encoded batch, its codes and γ row marked as wire parts
+    (``analysis/provenance.py``; no op runs)."""
+    wire_mark(msg.codes, channel="msg", part="codes", codec=codec,
+              batched=True, d=d, container=container)
+    wire_mark(msg.gamma, channel="msg", part="gamma", codec=codec,
+              batched=True, d=d)
+    return msg
 
 
 @runtime_checkable
@@ -137,7 +154,10 @@ class IdentityCodec(CodecBase):
         return MessageKey()
 
     def encode(self, key, x2, hint=None) -> LatticeMsg:
-        return IdentityQuantizer().encode(key, x2, hint)
+        msg = IdentityQuantizer().encode(key, x2, hint)
+        wire_mark(msg.codes, channel="msg", part="codes", codec=self.name,
+                  batched=True, d=int(x2.shape[-1]))
+        return msg
 
     def decode(self, key, msg, ref2=None):
         return msg.codes
@@ -171,8 +191,9 @@ class ScalarCodec(CodecBase):
 
     def encode(self, key, x2, hint=None) -> LatticeMsg:
         msg = self.quant.encode(key, x2, hint)
-        return LatticeMsg(codes=msg.codes.to(self._container()),
-                          gamma=msg.gamma)
+        return _mark_msg(LatticeMsg(codes=msg.codes.to(self._container()),
+                                    gamma=msg.gamma),
+                         self.name, int(x2.shape[-1]))
 
     def decode(self, key, msg, ref2=None):
         return self.quant.decode(key, msg, ref2)
@@ -222,7 +243,9 @@ class LatticeCodec(CodecBase):
         return self.quant.keys(generator, m, d)
 
     def encode(self, key, x2, hint) -> LatticeMsg:
-        return self.quant.encode(key, x2, hint, pack=self.pack)
+        return _mark_msg(self.quant.encode(key, x2, hint, pack=self.pack),
+                         self.name, int(x2.shape[-1]),
+                         wire_container_dtype(self.wire()))
 
     def decode(self, key, msg, ref2):
         return self.quant.decode(key, msg, ref2, pack=self.pack)
@@ -389,11 +412,17 @@ class TopKEFCodec(CodecBase):
         return torch.zeros(d, dtype=torch.float32, device=device)
 
     def _encode(self, target) -> TopKMsg:
-        k = self.k_for(target.shape[-1])
+        d = int(target.shape[-1])
+        k = self.k_for(d)
         idx = torch.sort(target.abs(), dim=1, descending=True,
                          stable=True).indices[:, :k]
-        return TopKMsg(idx=idx.to(torch.int32),
-                       vals=torch.gather(target, 1, idx))
+        msg = TopKMsg(idx=idx.to(torch.int32),
+                      vals=torch.gather(target, 1, idx))
+        wire_mark(msg.idx, channel="msg", part="idx", codec=self.name,
+                  batched=True, d=d)
+        wire_mark(msg.vals, channel="msg", part="vals", codec=self.name,
+                  batched=True, d=d)
+        return msg
 
     def encode(self, key, x2, hint=None) -> TopKMsg:
         return self._encode(x2.to(torch.float32))

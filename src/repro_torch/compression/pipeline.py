@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.opbudget import OpBudget
+from repro_torch.analysis.provenance import wire_mark
 from repro_torch.compression.rotation import DEFAULT_BLOCK, pad_len, signs
 from repro_torch.kernels import exchange as kx
 
@@ -45,6 +46,28 @@ class LatticeWire(NamedTuple):
     bits: int
     pack: int = 1
     levels: Any = None
+
+
+def wire_container_dtype(wire: LatticeWire) -> torch.dtype:
+    """The unsigned dtype one wire code ships in (packed wires hold
+    ``pack`` codes a uint8 byte)."""
+    if wire.pack > 1 or wire.bits <= 8:
+        return torch.uint8
+    return torch.uint16 if wire.bits <= 16 else torch.uint32
+
+
+def observe_lattice_wire(codes, gammas, wire: LatticeWire, channel: str):
+    """Record the wire form of a lattice message batch (the leading axis)
+    for the wire-truth audit: the codes in their container, the γ row and
+    the levels row of a heterogeneous wire. Metadata only: no op runs."""
+    d = int(codes.shape[-1]) * max(int(wire.pack), 1)
+    wire_mark(codes, channel=channel, part="codes", codec="wire",
+              batched=True, d=d, container=wire_container_dtype(wire))
+    wire_mark(gammas, channel=channel, part="gamma", codec="wire",
+              batched=True, d=d)
+    if wire.levels is not None:
+        wire_mark(wire.levels, channel=channel, part="levels", codec="wire",
+                  batched=True, d=d)
 
 
 # fp32 precision floor: y/γ must keep sub-integer precision, so γ stays
@@ -228,6 +251,7 @@ class ExchangePipeline:
         # coords come back too and serve as downlink decode references
         gam_up = self.gammas(hints_up, _norms(Y), d, up)
         Y_rot, codes_up = self.rotate_encode(Y, sg, u_cl, gam_up, wire=up)
+        observe_lattice_wire(codes_up, gam_up, up, channel="up")
         del u_cl
         srv_rot = self.rotate(server[None], sg)
         QY_rot = self.snap(codes_up, srv_rot, gam_up, up)       # (s, d_pad)
@@ -239,6 +263,7 @@ class ExchangePipeline:
         hint_srv = torch.max(_norms(QY_rot - srv_rot)) + 1e-8
         gam_dn = self.gammas(hint_srv[None], _norms(server[None]), d, down)
         codes_dn = self.quantize(srv_rot, u_srv, gam_dn, down)
+        observe_lattice_wire(codes_dn, gam_dn, down, channel="down")
         del u_srv
 
         # (s+1)-averaging in rotated coordinates; inverse-rotate only the

@@ -45,6 +45,7 @@ from typing import Dict, NamedTuple, Protocol, Tuple, runtime_checkable
 
 import torch
 
+from repro_torch.analysis.provenance import wire_mark
 from repro_torch.compression.rotation import pad_len
 from repro_torch.kernels.exchange import block_geometry
 
@@ -216,10 +217,15 @@ class CodeAllgather:
                     client_axis, in_mesh):
         if not in_mesh:
             return qy_own
-        # the gathered operands ARE the wire, in their container form
-        codes_all = mesh.all_gather(codes[0].to(wire_container(wire)),
-                                    client_axis)
-        gam_all = mesh.all_gather(gammas[0], client_axis)
+        # the gathered operands ARE the wire, in their container form,
+        # marked for the wire-truth audit
+        d_leaf = int(codes.shape[-1]) * max(int(wire.pack), 1)
+        codes_all = mesh.all_gather(
+            wire_mark(codes[0].to(wire_container(wire)), channel="up",
+                      part="codes", codec="wire", d=d_leaf), client_axis)
+        gam_all = mesh.all_gather(
+            wire_mark(gammas[0], channel="up", part="gamma", codec="wire",
+                      d=d_leaf), client_axis)
         return torch.sum(pipe.snap(_from_container(codes_all, wire), srv_rot,
                                    gam_all, wire), 0, keepdim=True)
 
@@ -308,9 +314,13 @@ class ReduceScatterSum:
         shard = mesh.psum_scatter(qy_own, client_axis)      # (1, d_sh)
         codes_sh = pipe.quantize(shard, u_rs, gam_rs, wire)
         # the wire: the codes in their container + the γ-shards row
-        codes_all = mesh.all_gather(codes_sh[0].to(wire_container(wire)),
-                                    client_axis)            # (n, d_sh/pack)
-        gam_all = mesh.all_gather(gam_rs[0], client_axis)   # (n,) f32
+        codes_all = mesh.all_gather(
+            wire_mark(codes_sh[0].to(wire_container(wire)), channel="down",
+                      part="codes", codec="wire", d=d_sh),
+            client_axis)                                    # (n, d_sh/pack)
+        gam_all = mesh.all_gather(
+            wire_mark(gam_rs[0], channel="down", part="gamma", codec="wire",
+                      d=d_sh), client_axis)                 # (n,) f32
         ref_sh = (float(n) * srv_rot).reshape(n, d_sh)
         qy_hat = pipe.snap(_from_container(codes_all, wire), ref_sh,
                            gam_all, wire)

@@ -32,6 +32,17 @@
   between chunks. Capture runs in thread-local mode, so a process group's
   watchdog thread may poll its events meanwhile.
 
+* **The analyzer hooks** (``repro_torch.analysis``). ``traced_round`` /
+  ``traced_chunk`` give the op log of one round or a chunk
+  (``analysis/jaxpr.RoundTrace``), ``wire_provenance`` its wire marks and
+  collectives, ``lowered_chunk`` the kernel nodes of a chunk captured on
+  the card. They run on a copy of the state with every generator put
+  back: every round draws, and a generator makes no ``meta`` tensors, so
+  no round can run abstractly. ``chunk_programs`` and ``copies`` are what
+  the recapture sentinel and the in-place audit read after a run;
+  :func:`sync_debug` runs every captured round under
+  ``torch.cuda.set_sync_debug_mode``.
+
 * **:class:`RingBuffer`.** A fixed-capacity event set on the device (times
   and client ids, empty slots at ``+inf``) in place of the host heap
   :class:`repro_torch.fed.clock.ArrivalQueue`. ``ring_pop`` is a masked min
@@ -44,10 +55,13 @@
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import re
 import sys
 import time
+from collections import Counter
 from typing import (Any, Dict, List, NamedTuple, Protocol, Tuple,
                     runtime_checkable)
 
@@ -327,6 +341,13 @@ class RoundEngine:
         self.capture = capture
         self.tuned_chunk = None
         self._graphs: Dict[Tuple, _Graph] = {}
+        # the plain loop's chunk programs, as the graphs' keys: (length,
+        # data) -> (the data's tensors, kept alive as a graph keeps them;
+        # the state the last chunk returned)
+        self._loops: Dict[Tuple, Tuple[List[torch.Tensor], Any]] = {}
+        # (leaves, bytes) copied into each chunk that ran a program made
+        # before it: 0 when it is fed the state the previous one returned
+        self.copies: List[Tuple[int, int]] = []
         self._gen = None      # the generator every capture draws from
         self._pool = None
         self._stream = None
@@ -374,31 +395,51 @@ class RoundEngine:
         begin = getattr(self.alg, "begin", None)
         if begin is not None:
             state = begin(state, generator)
+        key = (length, _data_key(data))
         if generator.device.type != "cuda" or not self.capture:
-            return self._loop(state, data, generator, length)
-        return self._replay(state, data, generator, length)
+            return self._loop(state, data, generator, length, key)
+        return self._replay(state, data, generator, key)
 
-    def _loop(self, state, data, generator, length):
-        """The plain version: ``length`` calls of ``device_round``."""
+    def _loop(self, state, data, generator, length, key):
+        """The plain version: ``length`` calls of ``device_round``. The
+        chunk's program and the state it returns are kept by ``key``, as
+        a capture keeps them, for :meth:`chunk_programs` and
+        :attr:`copies`."""
+        prev = self._loops.get(key)
+        if prev is not None:
+            self.copies.append(_fresh_leaves(prev[1], state))
         st, ms = state, []
         for _ in range(length):
             st, m = self.alg.device_round(st, data, generator)
             ms.append(m)
         _check_host_leaves(state, st, self.alg)
+        self._loops[key] = (_tensor_leaves(data), st)
         return st, stack_metrics(ms, self.alg)
+
+    def chunk_programs(self) -> Dict[int, int]:
+        """The chunk programs made so far, by length: captured graphs on
+        the card, distinct (length, data) keys of the plain loop on the
+        CPU. A run that keeps its data makes one a length."""
+        return dict(Counter(key[0] for key in
+                            list(self._graphs) + list(self._loops)))
+
+    def static_storages(self) -> set:
+        """The storages of every captured graph's static state (empty on
+        the CPU, where nothing is captured)."""
+        return {x.untyped_storage().data_ptr() for g in self._graphs.values()
+                for x in _tensor_leaves(g.state)}
 
     def graph_times(self) -> Dict[int, Dict[str, float]]:
         """Host ms of the warm-up, the capture and the instantiation of
         each captured chunk, by length."""
         return {key[0]: g.times for key, g in self._graphs.items()}
 
-    def _replay(self, state, data, generator, length):
-        key = (length, _data_key(data))
+    def _replay(self, state, data, generator, key):
         g = self._graphs.get(key)
         if g is None:
-            g = self._graphs[key] = self._capture(state, data, length)
+            g = self._graphs[key] = self._capture(state, data, key[0])
         else:
-            _load(g.state, state)
+            self.copies.append(_load(g.state, state))
         self._gen.set_state(generator.get_state())
         g.graph.replay()
         generator.set_state(self._gen.get_state())
@@ -406,32 +447,34 @@ class RoundEngine:
                    for k, v in g.metrics.items()}
         return g.state, metrics
 
-    def _capture(self, state, data, length) -> _Graph:
+    def _capture(self, state, data, length, debug: bool = False) -> _Graph:
         dev = _leaves_device(state)
         if self._gen is None:
             self._gen = torch.Generator(device=dev)
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(device=dev)
         gen = self._gen
-        gens = (gen,) + tuple(getattr(self.alg, "generators", tuple)())
+        gens = self.generators_of(gen)
         times = {}
         static = clone_tree(state)
         # warm-up on a copy, on the capture stream, from saved generator
         # states that are then restored: kernels build, per-device
         # constants are made and nothing the run draws is consumed
-        saved = [g.get_state() for g in gens]
         t0 = time.perf_counter()
-        warm = clone_tree(state)
-        self._stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self._stream):
-            warm, _ = self.alg.device_round(warm, data, gen)
-        torch.cuda.current_stream(dev).wait_stream(self._stream)
-        torch.cuda.synchronize(dev)
-        del warm
-        for g, st in zip(gens, saved):
-            g.set_state(st)
+        with kept(gens):
+            warm = clone_tree(state)
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._stream):
+                warm, _ = self.alg.device_round(warm, data, gen)
+            torch.cuda.current_stream(dev).wait_stream(self._stream)
+            torch.cuda.synchronize(dev)
+            del warm
         times["warmup_ms"] = (time.perf_counter() - t0) * 1e3
-        graph = torch.cuda.CUDAGraph()
+        # a debug capture keeps its cudaGraph_t past instantiation, so
+        # that debug_dump can print it
+        graph = torch.cuda.CUDAGraph(keep_graph=debug)
+        if debug:
+            graph.enable_debug_mode()
         for g in gens:
             graph.register_generator_state(g)
         # a dead graph whose cycle the collector frees inside the capture
@@ -446,10 +489,11 @@ class RoundEngine:
                                    capture_error_mode="thread_local")
             ctx.__enter__()
             try:
-                st, ms = static, []
-                for _ in range(length):
-                    st, m = self.alg.device_round(st, data, gen)
-                    ms.append(m)
+                with _sync_debug():
+                    st, ms = static, []
+                    for _ in range(length):
+                        st, m = self.alg.device_round(st, data, gen)
+                        ms.append(m)
                 metrics = stack_metrics(ms, self.alg)
                 _commit(static, st, self.alg)
             except BaseException:
@@ -465,9 +509,87 @@ class RoundEngine:
                 gc.enable()
         times["capture_ms"] = (t1 - t0) * 1e3
         times["instantiate_ms"] = (time.perf_counter() - t1) * 1e3
-        return _Graph(graph, static, metrics,
-                      [x for x in _leaves(data)
-                       if isinstance(x, torch.Tensor)], times)
+        return _Graph(graph, static, metrics, _tensor_leaves(data), times)
+
+    # -- analyzer hooks (repro_torch.analysis) --------------------------------
+    def generators_of(self, generator) -> Tuple[torch.Generator, ...]:
+        """The caller's generator and the algorithm's own."""
+        return (generator,) + tuple(getattr(self.alg, "generators",
+                                            tuple)())
+
+    def _begun_copy(self, state, generator):
+        """A copy of ``state`` as a chunk starts from it (``begin``
+        applied)."""
+        st = clone_tree(state)
+        begin = getattr(self.alg, "begin", None)
+        return st if begin is None else begin(st, generator)
+
+    def traced_chunk(self, state, data, generator, length: int):
+        """The op log (``analysis/jaxpr.RoundTrace``) of ``length`` rounds
+        as a chunk runs them, ``begin`` outside it as in
+        :meth:`run_chunk`. It runs on a copy of the state, every generator
+        put back after it: nothing is consumed and no cached chunk is
+        touched."""
+        from repro_torch.analysis.jaxpr import RoundTrace
+        with kept(self.generators_of(generator)):
+            st = self._begun_copy(state, generator)
+            with RoundTrace() as trace:
+                for _ in range(length):
+                    st, _ = self.alg.device_round(st, data, generator)
+        return trace
+
+    def traced_round(self, state, data, generator):
+        """The op log of ONE round, ``device_round`` as a chunk calls it
+        (see :meth:`traced_chunk`)."""
+        return self.traced_chunk(state, data, generator, 1)
+
+    def wire_provenance(self, state, data, generator):
+        """``(trace, marks, collectives)`` of one round for the wire-truth
+        audit: its op log, the wire marks it made
+        (``analysis/provenance.WireMark``) and the mesh's collectives with
+        whether each operand derives from a marked value."""
+        trace = self.traced_round(state, data, generator)
+        return trace, trace.marks, trace.collectives
+
+    def lowered_chunk(self, state, data, generator, length: int
+                      ) -> List[str]:
+        """The kernel nodes of a ``length``-round chunk captured as a CUDA
+        graph (``CUDAGraph.enable_debug_mode`` + ``debug_dump``), one label
+        a node, in the dump's order. The capture is a graph of its own,
+        from a copy of the state, on a fresh engine: neither the caller's
+        generator nor this engine's cache moves. On the CPU a chunk is the
+        plain loop and nothing is captured, so there is nothing to read:
+        it raises."""
+        if generator.device.type != "cuda":
+            raise RuntimeError(
+                "lowered_chunk reads the kernels of a captured CUDA graph; "
+                "on the CPU a chunk runs as the plain loop of device_round "
+                "and no graph is captured (use traced_chunk's op log)")
+        import os
+        import tempfile
+        with kept(self.generators_of(generator)):
+            st = self._begun_copy(state, generator)
+        g = RoundEngine(self.alg)._capture(st, data, length, debug=True)
+        fd, path = tempfile.mkstemp(suffix=".dot")
+        os.close(fd)
+        try:
+            g.graph.debug_dump(path)
+            with open(path) as f:
+                return kernel_nodes(f.read())
+        finally:
+            os.remove(path)
+
+
+@contextlib.contextmanager
+def kept(generators):
+    """Every generator in ``generators`` back at its state after the
+    block."""
+    saved = [g.get_state() for g in generators]
+    try:
+        yield
+    finally:
+        for g, st in zip(generators, saved):
+            g.set_state(st)
 
 
 def _leaves_device(state) -> torch.device:
@@ -477,17 +599,73 @@ def _leaves_device(state) -> torch.device:
     raise ValueError("the state holds no tensor")
 
 
-def _load(static, state) -> None:
-    """Copy ``state`` into the static buffers, unless it is them."""
+def _tensor_leaves(tree) -> List[torch.Tensor]:
+    return [x for x in _leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _fresh_leaves(prev, state) -> Tuple[int, int]:
+    """(leaves, bytes) of ``state`` that are not ``prev``'s own tensors:
+    what a capture would copy into its static buffers."""
+    pairs = [(p, x) for p, x in zip(_leaves(prev), _leaves(state))
+             if isinstance(x, torch.Tensor) and p is not x]
+    return len(pairs), sum(x.numel() * x.element_size() for _, x in pairs)
+
+
+def _load(static, state) -> Tuple[int, int]:
+    """Copy ``state`` into the static buffers, unless it is them; returns
+    the (leaves, bytes) copied."""
     s_leaves, x_leaves = _leaves(static), _leaves(state)
     if (len(s_leaves) != len(x_leaves)
             or _host_leaves(static) != _host_leaves(state)):
         raise ValueError("the state does not match the captured chunk's")
-    pairs = [(s, x) for s, x in zip(s_leaves, x_leaves)
-             if isinstance(s, torch.Tensor)]
-    for s, x in pairs:
-        if s is not x:
+    copied = _fresh_leaves(static, state)
+    for s, x in zip(s_leaves, x_leaves):
+        if isinstance(s, torch.Tensor) and s is not x:
             s.copy_(x)
+    return copied
+
+
+# torch.cuda.set_sync_debug_mode's mode around every round the engine
+# captures (0: off); :func:`sync_debug` sets it
+_SYNC_DEBUG = [0]
+
+
+@contextlib.contextmanager
+def sync_debug(mode="error"):
+    """Inside the block, every ``device_round`` the engine captures runs
+    under ``torch.cuda.set_sync_debug_mode(mode)``: an op that makes the
+    host wait for the card warns ("warn") or raises ("error")."""
+    prev, _SYNC_DEBUG[0] = _SYNC_DEBUG[0], mode
+    try:
+        yield
+    finally:
+        _SYNC_DEBUG[0] = prev
+
+
+@contextlib.contextmanager
+def _sync_debug():
+    if not _SYNC_DEBUG[0]:
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(_SYNC_DEBUG[0])
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def kernel_nodes(dot: str) -> List[str]:
+    """The labels of the kernel nodes of a CUDA graph's debug dump (the
+    DOT text ``cudaGraphDebugDotPrint`` writes), whitespace collapsed."""
+    starts = [m.start() for m in re.finditer(r'^\s*"\w+"\s*\[', dot,
+                                             re.M)]
+    out = []
+    for a, b in zip(starts, starts[1:] + [len(dot)]):
+        block = dot[a:b]
+        if "KERNEL" in block:
+            out.append(" ".join(block.split()))
+    return out
 
 
 def _commit(static, out, alg) -> None:

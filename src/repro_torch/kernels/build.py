@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis import provenance
+
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -155,12 +157,15 @@ def costed(flops):
     and the bytes of every tensor argument (read once) and every tensor
     returned (written once), and mute the walker for the ops inside (the
     plain version on the CPU, the outputs' allocation on the card or on
-    ``meta``), whose storages it still tracks. A wrapper called inside
-    another is part of the outer one's kernel."""
+    ``meta``), whose storages it still tracks. With a wire recorder
+    listening (``analysis/provenance.py``), hand it the call's tensors in
+    and out: a launch is no aten op, so a round's op log sees it only
+    here. A wrapper called inside another is part of the outer one's
+    kernel."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kw):
-            if not LISTENERS or _DEPTH[0]:
+            if _DEPTH[0] or not (LISTENERS or provenance.RECORDERS):
                 return fn(*args, **kw)
             listeners = tuple(LISTENERS)
             _DEPTH[0] += 1
@@ -168,12 +173,15 @@ def costed(flops):
                 out = fn(*args, **kw)
             finally:
                 _DEPTH[0] -= 1
-            moved = sum(t.numel() * t.element_size() for t in
-                        _tensors(args) + _tensors(list(kw.values()))
-                        + _tensors(out))
-            work = float(flops(*args, **kw))
-            for walker in listeners:
-                walker.kernel(fn.__name__, work, float(moved))
+            ins = _tensors(args) + _tensors(list(kw.values()))
+            outs = _tensors(out)
+            if listeners:
+                moved = sum(t.numel() * t.element_size() for t in ins + outs)
+                work = float(flops(*args, **kw))
+                for walker in listeners:
+                    walker.kernel(fn.__name__, work, float(moved))
+            for rec in tuple(provenance.RECORDERS):
+                rec.kernel(fn.__name__, ins, outs)
             return out
         return wrapper
     return deco

@@ -37,7 +37,9 @@ size 1 too; ``roofline`` skips them, as they move nothing): ``op`` (``psum``, ``
 (one rank's operand and result) and ``call`` (the collective call it
 belongs to: a psum over two axes is one call of two records).
 ``launch/roofline.collective_seconds`` and
-``analysis/opbudget.check_collective_bytes`` read them.
+``analysis/opbudget.check_collective_bytes`` read them. A wire recorder
+(``analysis/provenance.py``) gets each record with its operand while it
+listens, recording on or off.
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ from typing import Sequence, Union
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.analysis import provenance
 
 Axes = Union[str, Sequence[str]]
 
@@ -115,14 +119,17 @@ class Mesh:
             self.records = saved
 
     def _record(self, op: str, kind: str, axis: str, x, out, call: int):
-        if self.records is None:
+        if self.records is None and not provenance.RECORDERS:
             return
-        self.records.append({
+        record = {
             "op": op, "kind": kind, "axis": axis, "ranks": self.shape[axis],
             "dtype": str(x.dtype).replace("torch.", ""),
             "float": bool(x.is_floating_point()),
             "in_bytes": x.numel() * x.element_size(),
-            "out_bytes": out.numel() * out.element_size(), "call": call})
+            "out_bytes": out.numel() * out.element_size(), "call": call}
+        if self.records is not None:
+            self.records.append(record)
+        provenance.observe_collective(record, x)
 
     # -- the transfers (an abstract mesh skips them) ----------------------
     def _has_group(self, name: str) -> bool:
