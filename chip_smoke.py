@@ -136,6 +136,20 @@ then drives the port's paths:
   exchanges also on real tensors over the group, replicated outputs equal
   across ranks; then a 10-round QuAFL chunk's captured graph read back
   (``lowered_chunk``), its kernel nodes equal to a replay's launches.
+* the MoE's grouped product (``kernels/grouped_mm.py``), in a process of
+  its own (``--moe``): its three kernels (``grouped_fwd_kernel``,
+  ``grouped_dgrad_kernel``, ``grouped_wgrad_kernel``) against their plain
+  versions in fp32 and bf16 at deepseek-v2's and llama4-scout's published
+  expert shapes (the gate's and up's, d_model to d_ff_expert, and the down
+  projection's, back), routed by each arch's router for batch A's prefill
+  and a decode step, and at edge cases, each timed beside its bound, the plain
+  loop and ``torch._grouped_mm`` (``grouped_check``); one deepseek-v2 MoE
+  layer at published widths forward and backward, eager and captured in a
+  CUDA graph, ``torch.equal`` (``moe_layer_full``); reduced deepseek-v2,
+  llama4-scout and jamba-1.5 through ``--scan-chunk 2`` and deepseek-v2's
+  ``--algo spmd`` chunks, every captured round under the sync-debug mode,
+  equal to eager (``moe_chunks``). The zoo's MoE serving runs the same
+  forward kernel.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It prints JSON lines per phase, a ``kernels`` line, the card's name
@@ -2912,11 +2926,14 @@ def flash_layers(cfg) -> int:
 def zoo_serve(smi, dev, arch, depth, names) -> dict:
     """One arch of the zoo through ``ServeEngine`` (counts from 0 just
     before, read just after): greedy batches, run twice and identical,
-    every prefill's flash launches, the peak memory, ms and the profiled
-    device ms of batch A's prefill and 8 decode steps, then the fp32
+    every prefill's flash launches, an MoE arch's grouped products (every
+    MoE layer of every prefill and decode step), the peak memory, ms and
+    the profiled device ms of batch A's prefill and 8 decode steps (an MoE
+    arch's beside those of the host-read routing), then the fp32
     prefill/decode consistency."""
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_mm as gm
     from repro_torch.models.model import init_lm
     cfg = get_reduced(arch) if depth == "reduced" else get_config(arch)
     reduced = {"reduced": ["width and depth: the reduced config"]}.get(
@@ -2939,12 +2956,17 @@ def zoo_serve(smi, dev, arch, depth, names) -> dict:
 
     # the path: counts from 0 just before, read just after
     fa.reset_launches()
+    gm.reset_launches()
     done, rec, wall = serve_run(cfg, params, batches)
     torch.cuda.synchronize()
     launches = fa.LAUNCHES["flash_attention"]
+    grouped = dict(gm.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check_requests(done, batches, cfg.vocab_size)
     assert launches == len(batches) * n_flash, (arch, launches)
+    assert (grouped["grouped_mm_fwd"] > 0) == (cfg.moe is not None) \
+        and grouped["grouped_mm_dgrad"] == grouped["grouped_mm_wgrad"] == 0, \
+        (arch, grouped)
     assert all(bool(torch.isfinite(x).all()) for x in rec.logits), arch
     done2, rec2, wall2 = serve_run(cfg, params, batches)
     same_tokens = ([r.out_tokens for r in done2]
@@ -2963,7 +2985,8 @@ def zoo_serve(smi, dev, arch, depth, names) -> dict:
     res = {"phase": "zoo_serve", "arch": arch, "reduced": reduced,
            "n_layers": cfg.n_layers, "params": n_params,
            "init_seconds": init_s, "flash_layers": n_flash,
-           "flash_launches": launches, "requests": len(done),
+           "flash_launches": launches, "grouped_launches": grouped,
+           "requests": len(done),
            "wall_s": [wall, wall2], "peak_memory_bytes": peak,
            "batches": stats, "batches_run_2": stats_2,
            "same_tokens": same_tokens,
@@ -3912,6 +3935,7 @@ def grounded_step(smi, dev, mesh, name, cfg, shape, fed, transport,
     walker: flops equal, bytes within 1%; then profiled after a warm-up,
     its bound over its device ms, the measured peak beside the count's,
     and ``profile_pair``'s top records beside the profiler's top kernels."""
+    from repro_torch.kernels import grouped_mm as gm
     from repro_torch.launch.dryrun import walk_step
     from repro_torch.launch.hlocost import CostWalker, top_contributors
     from repro_torch.launch.mesh import make_abstract_mesh
@@ -3925,14 +3949,15 @@ def grounded_step(smi, dev, mesh, name, cfg, shape, fed, transport,
     torch.cuda.synchronize()
     fa.reset_launches()
     kx.reset_launches()
+    gm.reset_launches()
     w = CostWalker(mesh)
     w.track(args)
     with mesh.recording(), w:
         out = call()
     torch.cuda.synchronize()
     del out
-    launched = {k: v for k, v in {**fa.LAUNCHES, **kx.LAUNCHES}.items()
-                if v}
+    launched = {k: v for k, v in {**fa.LAUNCHES, **kx.LAUNCHES,
+                                  **gm.LAUNCHES}.items() if v}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -4344,6 +4369,411 @@ def run_analysis() -> None:
     assert seconds <= ANALYSIS_BUDGET, (seconds, ANALYSIS_BUDGET)
 
 
+# ---------------------------------------------------------------------------
+# path 16: the MoE's grouped product on device offsets, its own process
+# ---------------------------------------------------------------------------
+
+MOE_BUDGET = 120                  # seconds the moe process may take
+MOE_TIMEOUT = 2 * MOE_BUDGET
+DEEPSEEK = "deepseek-v2-236b"
+GROUPED_KERNELS = ("grouped_mm_fwd", "grouped_mm_dgrad", "grouped_mm_wgrad")
+GROUPED_SYMBOLS = {"grouped_mm_fwd": "grouped_fwd_kernel",
+                   "grouped_mm_dgrad": "grouped_dgrad_kernel",
+                   "grouped_mm_wgrad": "grouped_wgrad_kernel"}
+# jax.lax.ragged_dot in the reference's _moe_ragged (no Pallas kernel)
+GROUPED_REPLACES = "src/repro/models/moe.py:72"
+# routed tokens: batch A's 4 x 512 prefill and a decode step of 4
+GROUPED_TOKENS = ((DEEPSEEK, 2048), (DEEPSEEK, 4), (SCOUT, 2048), (SCOUT, 4))
+# every expert product's shape: gate and up (K d_model, N d_ff_expert; up
+# is gate's shape) and down (K d_ff_expert, N d_model)
+GROUPED_WEIGHTS = ("w_gate", "w_down")
+GROUPED_MAIN = (DEEPSEEK, 2048, "bfloat16", "w_gate")  # the kernels line's
+GROUPED_ITERS = 5
+# fp32: max|Δ| / max|want|; bf16 (the compute dtype or the output's, as
+# dW of a bf16 product stored in fp32): ‖Δ‖ / ‖want‖. w rounded to bf16 by
+# truncation rather than to nearest-even is ~4.7e-3 off at these widths.
+GROUPED_TOL = {FP32: 1e-5, BF16: 1e-3}
+MOE_CHUNK_ARGV = ["--reduced", "--batch", "4", "--seq", "64", "--log-every",
+                  "1", "--lr", "0.05", "--steps", "4", "--seed", "0"]
+MOE_CHUNK_ARCHS = (DEEPSEEK, SCOUT, "jamba-1.5-large-398b")
+MOE_LAYER_TOKENS = (4, 512)
+
+
+def grouped_err(got, want, dtype):
+    """(the gate's measure, its tolerance): fp32 where the compute dtype
+    and the output's are fp32, else bf16 (GROUPED_TOL)."""
+    d = (got.float() - want.float())
+    if BF16 not in (dtype, got.dtype):
+        return (float(d.abs().max()) / max(float(want.abs().max()), 1e-30),
+                GROUPED_TOL[FP32])
+    return (float(d.norm()) / max(float(want.float().norm()), 1e-30),
+            GROUPED_TOL[BF16])
+
+
+def grouped_case(gm, x, w, dy, offs) -> dict:
+    """fwd, dgrad and wgrad against their plain versions: the gate's
+    measure, its tolerance and the max abs error of each."""
+    out = {}
+    for k, got, want in (
+            ("grouped_mm_fwd", gm.grouped_mm_fwd(x, w, offs),
+             gm.grouped_mm_plain(x, w, offs)),
+            ("grouped_mm_dgrad", gm.grouped_mm_dgrad(dy, w, offs),
+             gm.grouped_mm_dgrad_plain(dy, w, offs)),
+            ("grouped_mm_wgrad",
+             gm.grouped_mm_wgrad(x, dy, offs, w_dtype=w.dtype),
+             gm.grouped_mm_wgrad_plain(x, dy, offs, w_dtype=w.dtype))):
+        err, tol = grouped_err(got, want, x.dtype)
+        out[k] = {"err": err, "tol": tol, "max_abs_err":
+                  float((got.float() - want.float()).abs().max())}
+        assert err <= tol, (k, err, tol)
+    torch.cuda.synchronize()
+    return out
+
+
+def grouped_library(x, w_lib, dy, offs):
+    """One ``torch._grouped_mm`` call a kernel on the same inputs in bf16
+    (the yardstick; the port never calls it), or None where it refuses
+    the shape; then its refusal, if any."""
+    calls = {"grouped_mm_fwd": lambda: torch._grouped_mm(x, w_lib, offs),
+             "grouped_mm_dgrad": lambda: torch._grouped_mm(
+                 dy, w_lib.transpose(-2, -1), offs),
+             "grouped_mm_wgrad": lambda: torch._grouped_mm(x.t(), dy, offs)}
+    out, why = {}, {}
+    for k, fn in calls.items():
+        try:
+            out[k] = time_ms(fn, GROUPED_ITERS)
+        except (RuntimeError, TypeError, ValueError) as e:
+            out[k], why[k] = None, str(e).splitlines()[0][:160]
+    return out, why
+
+
+def grouped_times(gm, x, w, dy, offs, peak_bw, lib) -> dict:
+    """ms (CUDA events over wrapper calls), device ms a launch (profiler),
+    the plain loop's ms, the library's, and the bound over this routing:
+    bytes of x, the output and offs, the weights of the experts that have
+    rows (fwd, dgrad) or all of dW written (wgrad), against 2·R·K·N flops
+    at the peak of the compute dtype."""
+    r, (e, k, n) = x.shape[0], w.shape
+    active = int((torch.diff(offs, prepend=offs.new_zeros(1)) > 0).sum())
+    xs, ws = x.element_size(), w.element_size()
+    rate = PEAK_BF16_OPS_PER_S if x.dtype == BF16 else PEAK_FP32_OPS_PER_S
+    calls = {"grouped_mm_fwd": (lambda: gm.grouped_mm_fwd(x, w, offs),
+                                lambda: gm.grouped_mm_plain(x, w, offs)),
+             "grouped_mm_dgrad": (lambda: gm.grouped_mm_dgrad(dy, w, offs),
+                                  lambda: gm.grouped_mm_dgrad_plain(
+                                      dy, w, offs)),
+             "grouped_mm_wgrad": (
+                 lambda: gm.grouped_mm_wgrad(x, dy, offs, w_dtype=w.dtype),
+                 lambda: gm.grouped_mm_wgrad_plain(x, dy, offs,
+                                                   w_dtype=w.dtype))}
+
+    def all_three():
+        for kernel, _ in calls.values():
+            kernel()
+
+    device = None
+    for _ in range(3):      # the trace now and then holds no kernel events
+        _, _, ev = profiled(lambda: [all_three()
+                                     for _ in range(GROUPED_ITERS)])
+        device = ms_per_launch(ev, GROUPED_SYMBOLS)
+        if all(v is not None for v in device.values()):
+            break
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        weights = e * k * n * ws if name == "grouped_mm_wgrad" \
+            else active * k * n * ws
+        b_ms, b_by = bound(r * (k + n) * xs + 4 * e + weights,
+                           2.0 * r * k * n, peak_bw, rate)
+        out[name] = {"ms": time_ms(kernel, GROUPED_ITERS),
+                     "plain_ms": time_ms(plain, GROUPED_ITERS),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib.get(name),
+                     "device_ms": device[name]}
+    out["active_experts"] = active
+    return out
+
+
+def routed_rows(cfg, p, tokens, gen, dev):
+    """x (tokens·k, d) in fp32 sorted by expert, and its offsets, routed
+    by the arch's router (seed-0 weights) from random hidden states."""
+    from repro_torch.models import moe
+    m = cfg.moe
+    h = torch.randn((tokens, cfg.d_model), generator=gen, device=dev)
+    _, idx, _ = moe._router(cfg, p, h, "moe/")
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    return h[order // m.top_k], moe.group_offsets(flat, m.n_experts)
+
+
+def edge_offsets(e: int, dev) -> dict:
+    """Offsets of the edge cases at E experts: every row in one expert,
+    empty first and last experts (rows spread over the others), fewer
+    rows than one 64-row tile."""
+    rng = np.random.default_rng(SEED)
+    spread = np.zeros(e, np.int64)
+    spread[1:-1] = rng.multinomial(1000, np.ones(e - 2) / (e - 2))
+    one = np.zeros(e, np.int64)
+    one[e // 2] = 256
+    below = np.bincount([1, 1, e // 2, e - 2, e - 2], minlength=e)
+    return {name: torch.tensor(np.cumsum(c), dtype=torch.int32, device=dev)
+            for name, c in (("one_expert", one), ("empty_ends", spread),
+                            ("below_a_tile", below))}
+
+
+def moe_params(cfg, dev):
+    """The arch's MoE layer (router, experts, shared experts) at its
+    published widths, fp32, from seed 0, under the prefix 'moe'."""
+    from repro_torch.models.moe import init_moe
+    from repro_torch.models.params import Ctx
+    ctx = Ctx(SEED, "float32", dev)
+    init_moe(ctx.sub("moe"), cfg)
+    return ctx.params
+
+
+def grouped_check(smi, dev, peak_bw, gm) -> dict:
+    """(a) the three kernels against their plain versions in fp32 and bf16
+    (fp32 weights) at the published expert shapes of deepseek-v2 (E 160,
+    d_model 5,120, d_ff_expert 1,536, top-6) and llama4-scout (E 16,
+    d_model 5,120, d_ff_expert 8,192, top-1), for the gate's (and up's)
+    weights (K d_model, N d_ff_expert) and the down projection's (K
+    d_ff_expert, N d_model), routed by each arch's router on seed-0
+    weights for batch A's prefill (2,048 tokens) and a decode step (4),
+    then the edge cases at each shape; each routed case timed. Returns the
+    kernels line's rows and deepseek-v2's layer params (for
+    ``moe_layer_full``)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    rows, keep = {}, None
+    for arch in (SCOUT, DEEPSEEK):
+        cfg = get_config(arch)
+        p = moe_params(cfg, dev)
+        routed = {}
+        for tokens in (t for a, t in GROUPED_TOKENS if a == arch):
+            gen.manual_seed(SEED)
+            routed[tokens] = routed_rows(cfg, p, tokens, gen, dev)
+        for weight in GROUPED_WEIGHTS:
+            w = p[f"moe/{weight}"]
+            w_lib = w.to(BF16)
+            e, k, n = w.shape
+            for tokens, (h, offs) in routed.items():
+                gen.manual_seed(SEED)
+                # the gate's rows are the routed hidden states; the down
+                # projection's are d_ff_expert wide, on the same routing
+                x32 = h if weight == "w_gate" else torch.randn(
+                    (h.shape[0], k), generator=gen, device=dev)
+                dy32 = torch.randn((x32.shape[0], n), generator=gen,
+                                   device=dev)
+                lib, why = grouped_library(x32.to(BF16), w_lib,
+                                           dy32.to(BF16), offs)
+                for dt in ("float32", "bfloat16"):
+                    x, dy = (x32.to(getattr(torch, dt)),
+                             dy32.to(getattr(torch, dt)))
+                    errs = grouped_case(gm, x, w, dy, offs)
+                    t = grouped_times(gm, x, w, dy, offs, peak_bw,
+                                      lib if dt == "bfloat16" else {})
+                    emit({"phase": "grouped_check", "arch": arch,
+                          "weight": weight, "E": e, "K": k, "N": n,
+                          "top_k": cfg.moe.top_k, "tokens": tokens,
+                          "rows": x.shape[0], "dtype": dt,
+                          "w_dtype": "float32",
+                          "active_experts": t.pop("active_experts"),
+                          "errors": errs, "times": t,
+                          "library": "torch._grouped_mm, bf16 x and w"
+                          if dt == "bfloat16" else None,
+                          "library_refused": why if dt == "bfloat16"
+                          else {}, "nvidia_smi": smi})
+                    if (arch, tokens, dt, weight) == GROUPED_MAIN:
+                        rows = {name: {**t[name], "max_abs_err":
+                                       errs[name]["max_abs_err"]}
+                                for name in GROUPED_KERNELS}
+            for case, offs in edge_offsets(e, dev).items():
+                gen.manual_seed(SEED)
+                r = int(offs[-1])
+                for dt in (FP32, BF16):
+                    x = torch.randn((r, k), generator=gen, device=dev).to(dt)
+                    dy = torch.randn((r, n), generator=gen,
+                                     device=dev).to(dt)
+                    emit({"phase": "grouped_check", "arch": arch,
+                          "weight": weight, "case": case, "E": e, "K": k,
+                          "N": n, "rows": r,
+                          "dtype": str(dt).replace("torch.", ""),
+                          "errors": grouped_case(gm, x, w, dy, offs)})
+            del w, w_lib
+        del routed
+        if arch == DEEPSEEK:
+            keep = p
+        del p
+        torch.cuda.empty_cache()
+    emit({"phase": "grouped_check_done",
+          "seconds": time.perf_counter() - t0})
+    return rows, keep
+
+
+def moe_layer_full(smi, dev, p, gm) -> dict:
+    """(c) one deepseek-v2 ``apply_moe`` layer at published widths (top-6
+    of 160 experts, 2 shared; bf16 compute, fp32 params) on 4 × 512
+    tokens, forward and backward (the input's and every parameter's
+    gradient) eager, then captured in a CUDA graph and replayed: outputs
+    and gradients ``torch.equal``; the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import apply_moe
+    cfg = get_config(DEEPSEEK).replace(dtype="bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    b, t = MOE_LAYER_TOKENS
+    x = torch.randn((b, t, cfg.d_model), generator=gen, device=dev).to(BF16)
+    probe = torch.randn((b, t, cfg.d_model), generator=gen, device=dev)
+    leaves = [x.requires_grad_(), *(v.requires_grad_() for v in p.values())]
+
+    def step():
+        # the outputs detached: a graph kept alive would keep the leaves'
+        # gradient accumulators of the eager run's stream into the capture
+        out, aux = apply_moe(cfg, p, x, prefix="moe")
+        loss = (out.float() * probe).sum() + aux
+        grads = torch.autograd.grad(loss, leaves)
+        return (out.detach(), aux.detach(), *grads)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gm.reset_launches()
+    eager = step()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(gm.LAUNCHES)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        captured = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    replay_ms = time_ms(graph.replay, 3)
+    unequal = sum(int((a != c).sum()) for a, c in zip(eager, captured))
+    res = {"phase": "moe_layer_full", "arch": DEEPSEEK, "tokens": [b, t],
+           "E": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+           "n_shared": cfg.moe.n_shared, "dtype": "bfloat16",
+           "param_dtype": "float32",
+           "params": sum(int(v.numel()) for v in p.values()),
+           "eager_ms": eager_ms, "capture_and_replay_ms": capture_ms,
+           "replay_ms": replay_ms, "unequal_elements": unequal,
+           "tensors_compared": len(eager), "launches_eager": launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "nvidia_smi": smi}
+    emit(res)
+    assert unequal == 0, res
+    assert all(launches[k] == 3 for k in GROUPED_KERNELS), launches
+    assert all(bool(torch.isfinite(v.float()).all()) for v in eager), res
+    return res
+
+
+def moe_chunks(smi, gm) -> dict:
+    """(b) reduced deepseek-v2, llama4-scout and jamba-1.5 through
+    ``launch/train.py --algo quafl --scan-chunk 2 --steps 4`` and reduced
+    deepseek-v2 through ``--algo spmd`` over the NCCL group of one, each
+    chunked run against its eager run under ``sync_debug("error")``:
+    engine ``scanned``, the final state equal, bits exact every round, the
+    grouped kernels launched (counts from 0 just before, read just
+    after)."""
+    import torch.distributed as dist
+    from repro_torch.fed.engine import sync_debug
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_size
+    t0 = time.perf_counter()
+    runs = [(arch, "quafl") for arch in MOE_CHUNK_ARCHS] + [(DEEPSEEK,
+                                                             "spmd")]
+    gm.reset_launches()
+    res = {"phase": "moe_chunks", "sync_debug": "error", "runs": {},
+           "nvidia_smi": smi}
+    nccl_group_of_one()
+    try:
+        for arch, algo in runs:
+            argv = ["--arch", arch, "--algo", algo] + MOE_CHUNK_ARGV
+            with sync_debug("error"):
+                eager = train.main(argv)
+                chunked = train.main(argv + ["--scan-chunk", "2"])
+            torch.cuda.synchronize()
+            a, b = eager.trace, chunked.trace
+            if algo == "spmd":
+                unequal = spmd_states_equal(a.final_state, b.final_state)
+            else:
+                unequal = int((a.final_state.server
+                               != b.final_state.server).sum())
+                d = tree_size(eager.alg.eval_params(a.final_state))
+                for r in a.rows + b.rows:
+                    assert (r["bits_up"], r["bits_down"]) == bits_a_round(
+                        algo, d, r), (arch, r)
+            same = all(ra[f] == rb[f] for ra, rb in zip(a.rows, b.rows)
+                       for f in ("bits_up", "bits_down", "sim_time"))
+            res["runs"][f"{arch}/{algo}"] = {
+                "engine": b.engine, "rounds": b.rounds,
+                "unequal": unequal, "rows_equal": same,
+                "server_loss": [r["server_loss"] for r in b.rows],
+                "us_per_round": [a.us_per_round, b.us_per_round]}
+            assert b.engine == "scanned" and unequal == 0 and same, \
+                (arch, algo, res["runs"][f"{arch}/{algo}"])
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    res["launches"] = dict(gm.LAUNCHES)
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    for k in GROUPED_KERNELS:
+        assert res["launches"][k] > 0, (k, res["launches"])
+    return res
+
+
+def moe_phases() -> int:
+    """``chip_smoke.py --moe``, in a process of its own: ``grouped_check``,
+    ``moe_chunks`` (the path: counts from 0 just before, read just after)
+    and ``moe_layer_full``; then the grouped kernels' rows of the kernels
+    line (``moe_kernels``)."""
+    from repro_torch.kernels import grouped_mm as gm
+    smi = smi_line()
+    dev = torch.device("cuda", 0)
+    peak_bw = peak_bytes_per_s(torch.cuda.get_device_name(0))
+    t0 = time.perf_counter()
+    assert not torch.backends.cuda.matmul.allow_tf32   # plain fp32: no TF32
+    gm.library()
+    rows, p = grouped_check(smi, dev, peak_bw, gm)
+    moe_layer_full(smi, dev, p, gm)
+    del p
+    torch.cuda.empty_cache()
+    chunks = moe_chunks(smi, gm)
+    emit({"phase": "moe_kernels", "nvidia_smi": smi, "kernels": {
+        k: {**rows[k], "launches": chunks["launches"][k]}
+        for k in GROUPED_KERNELS}})
+    emit({"phase": "moe_process", "seconds": time.perf_counter() - t0})
+    return 0
+
+
+def run_moe() -> dict:
+    """``chip_smoke.py --moe`` in a process of its own, its lines relayed;
+    its wall gated at ``MOE_BUDGET``. Returns the grouped kernels' rows."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--moe"], capture_output=True, text=True,
+                          timeout=MOE_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise RuntimeError(f"the moe phases exited {proc.returncode}")
+    emit({"phase": "moe_wall", "seconds": seconds, "budget": MOE_BUDGET})
+    assert seconds <= MOE_BUDGET, (seconds, MOE_BUDGET)
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith('{"phase": "moe_kernels"')]
+    assert len(lines) == 1, "the moe process printed no kernels line"
+    return lines[0]["kernels"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4362,11 +4792,14 @@ def main() -> int:
         return tools_phases()
     if sys.argv[1:] == ["--analysis"]:
         return analysis_phases()
+    if sys.argv[1:] == ["--moe"]:
+        return moe_phases()
     from repro_torch import default_device
     from repro_torch.fed.engine import clone_tree
     from repro_torch.kernels import build
     from repro_torch.kernels import exchange as kx
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_mm as gm
     from repro_torch.kernels import hadamard as hd
     from repro_torch.kernels import lattice_quant as lq
     from repro_torch.kernels import ops
@@ -4385,10 +4818,10 @@ def main() -> int:
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     names = ("exchange", "flash_attention", "flash_wgmma", "hadamard",
-             "lattice_quant")
+             "lattice_quant", "grouped_mm")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build.build, names)))
-    for module in (kx, fa, hd, lq):
+    for module in (kx, fa, hd, lq, gm):
         module.library()
     # ptxas -v names no dynamic shared memory: the bf16 flash kernel's, a
     # CTA of each instantiation, from its own plan
@@ -4430,6 +4863,10 @@ def main() -> int:
     # path 15, the invariant gate over the whole matrix, captured chunks
     # under the sync-debug mode: its own process, an NCCL group of one
     run_analysis()
+    # path 16, the MoE's grouped product: its kernels against their plain
+    # versions, MoE training in captured chunks, a full-width layer
+    # captured: its own process
+    grouped = run_moe()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -4669,7 +5106,10 @@ def main() -> int:
                            replaces=REPLACES[k], launches=launches[k],
                            max_abs_err=errors[k], **timings[k],
                            device_ms=device_ms[k])
-                      for k in REPLACES]})
+                      for k in REPLACES]
+          + [dict(name=k, route="cuda", source=CSRC + "grouped_mm.cu",
+                  replaces=GROUPED_REPLACES, **grouped[k])
+             for k in GROUPED_KERNELS]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

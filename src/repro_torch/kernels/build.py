@@ -151,13 +151,16 @@ def _tensors(obj):
     return []
 
 
-def costed(flops):
+def costed(flops, nbytes=None):
     """Decorator of a kernel wrapper: with a cost walker listening, report
     the call to it as one kernel, ``flops(*args, **kw)`` matmul-class flops
-    and the bytes of every tensor argument (read once) and every tensor
-    returned (written once), and mute the walker for the ops inside (the
-    plain version on the CPU, the outputs' allocation on the card or on
-    ``meta``), whose storages it still tracks. With a wire recorder
+    and ``nbytes(*args, **kw)`` bytes, by default those of every tensor
+    argument (read once) and every tensor returned (written once); a
+    wrapper that reads only part of an argument (the grouped product reads
+    the experts that have rows) counts its own, from shapes alone, so
+    ``meta`` and the card count alike. It mutes the walker for the ops
+    inside (the plain version on the CPU, the outputs' allocation on the
+    card or on ``meta``), whose storages it still tracks. With a wire recorder
     listening (``analysis/provenance.py``), hand it the call's tensors in
     and out: a launch is no aten op, so a round's op log sees it only
     here. A wrapper called inside another is part of the outer one's
@@ -176,7 +179,9 @@ def costed(flops):
             ins = _tensors(args) + _tensors(list(kw.values()))
             outs = _tensors(out)
             if listeners:
-                moved = sum(t.numel() * t.element_size() for t in ins + outs)
+                moved = (float(nbytes(*args, **kw)) if nbytes is not None
+                         else sum(t.numel() * t.element_size()
+                                  for t in ins + outs))
                 work = float(flops(*args, **kw))
                 for walker in listeners:
                     walker.kernel(fn.__name__, work, float(moved))

@@ -18,10 +18,11 @@ is touched. So ``lower_s`` is that run's seconds and ``compile_s`` is null;
 ``xla_cost_analysis``; ``memory`` holds the rank's blocks of the arguments
 (exact, from ``pspec_for``) and of the outputs, the walk's peak of live
 storage less the arguments as ``temp_bytes``, and no generated code. An MoE
-arch's routing is 'balanced' on ``meta`` (``models/moe.group_sizes``), which
-gives any routing's flops. ``donate`` has no counterpart: a step returns
-new blocks and the caller still holds the old ones, so the peak holds both,
-as without donation.
+arch's grouped products (``kernels/grouped_mm.py``) count from their shapes
+alone: 2·R·K·N flops and the weights of min(E, R) experts, so any routing
+walks alike on ``meta`` and on the card. ``donate`` has no counterpart: a
+step returns new blocks and the caller still holds the old ones, so the
+peak holds both, as without donation.
 
 The port's steps gather each leaf and run the model whole on every rank
 (``launch/steps.py``), where the reference's GSPMD partitions the compute
@@ -161,7 +162,7 @@ def lower_pair(arch: str, shape_name: str, mesh, fed: FedConfig,
     terms = rf.roofline(flops, bytes_acc, coll)
     mf = rf.model_flops(cfg, shape, fed.local_steps, n_slots)
     n_dev = int(math.prod(mesh.shape.values()))
-    res = {
+    return {
         "arch": arch, "shape": shape_name,
         "mesh": dict(mesh.shape), "n_devices": n_dev,
         "fed_mode": fed_mode if shape.kind == "train" else "-",
@@ -182,9 +183,6 @@ def lower_pair(arch: str, shape_name: str, mesh, fed: FedConfig,
         "kernels": s["kernels"],
         "lower_s": seconds, "compile_s": None,
     }
-    if cfg.moe is not None:
-        res["moe_groups"] = "balanced"
-    return res
 
 
 def parse_args(argv=None):

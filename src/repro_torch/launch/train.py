@@ -41,8 +41,8 @@ parameters). Every decoder of the zoo trains the same way, e.g.
 (llama4, deepseek and jamba take cohort mode under ``--algo spmd``). It
 runs on the card unless ``--device cpu`` asks for the CPU.
 ``--scan-chunk K`` runs the round engine's K-round chunks (CUDA graphs on
-the card, the mesh's collectives captured inside; refused for MoE archs,
-whose routing reads group sizes on the host); ``--kernel-backend``
+the card, the mesh's collectives and the MoE's grouped products captured
+inside, every arch as the reference); ``--kernel-backend``
 picks the exchange's CUDA kernels (``cuda``) or their plain versions
 (``torch``); ``--checkpoint-dir`` saves the final ``eval_params`` in the
 reference's checkpoint layout.
@@ -73,10 +73,6 @@ class TrainRun(NamedTuple):
     trace: Any     # the simulate() trace
     alg: Any       # the registry algorithm
     data: Any      # {"tokens": (n_clients, pool, seq)}
-
-
-def has_moe(cfg) -> bool:
-    return any(s.mlp == "moe" for s in cfg.prefix + cfg.schedule)
 
 
 def shape_template(params):
@@ -112,12 +108,6 @@ def run_registry(args, cfg, fed: FedConfig, device=None) -> TrainRun:
     if why:
         raise NotImplementedError(why)
     dev = default_device(device)
-    if args.scan_chunk and has_moe(cfg):
-        raise ValueError(
-            f"--scan-chunk {args.scan_chunk}: {cfg.name}'s MoE layers read "
-            f"their expert group sizes on the host, which a captured chunk "
-            f"cannot; run eager (the group sizes on the device are ROADMAP "
-            f"Queue 1 item 16)")
     loss_fn = partial(lm_loss, cfg)
     # per-client token pool: every algorithm samples its minibatches with
     # replacement from these rows (the reference's sizing)

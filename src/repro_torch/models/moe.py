@@ -2,25 +2,23 @@
 of ``repro.models.moe``).
 
 Three implementations:
-  * 'ragged' — tokens sorted by expert (a stable sort), then a grouped
-    product: each expert's rows times that expert's weights, in the
-    compute dtype. Only the experts that receive a token are cast and
-    multiplied (the reference casts every expert tensor whole; the values
-    are the same). The group sizes are read on the host, so a round that
-    routes tokens cannot be captured in a CUDA graph (``launch/train.py``
-    refuses ``--scan-chunk`` for MoE archs; ROADMAP Queue 1 item 16). On
-    ``meta`` tensors (an abstract run reads nothing) the T·k routed rows
-    split evenly over the experts, the remainder to the first ones: a
-    grouped product's flops depend on the total row count alone; where
-    every expert gets a row, the equal groups run batched, with the loop's
-    flops and bytes.
+  * 'ragged' — tokens sorted by expert (a stable sort), then three grouped
+    products (``kernels/grouped_mm.py``: a CUDA kernel each way, forward,
+    dgrad and wgrad, on the card; a loop over the groups on the CPU),
+    each expert's rows times that expert's weights, rounded to the compute
+    dtype as they are read (the reference casts every expert tensor whole;
+    the values are the same). The group offsets are built and read on the
+    device, so a round that routes tokens captures in a CUDA graph
+    (``--scan-chunk``) and a serve step reads nothing on the host. On
+    ``meta`` the grouped product's cost depends on the shapes alone.
   * 'ragged_shmap' — 'ragged' on this rank's block of the expert-FFN
     dimension of the mesh set by :func:`set_moe_mesh` (``w_gate``/``w_up``
     cut on their last axis, ``w_down`` on its middle one, over 'model'),
     then ``mesh.psum`` of the down-projection's partial sums over 'model':
     the reference's shard_map variant. The mesh steps hand it the rank's
     blocks (the prefill and serve steps gather no expert leaf over
-    'model'); given whole leaves it cuts the block itself, and under
+    'model'); given whole leaves it cuts the block itself (a contiguous
+    copy, which the grouped product reads densely), and under
     autograd the block's gradient is gathered back over 'model' and the
     input's summed over it, so every model rank holds the whole gradient.
   * 'dense'  — capacity-based one-hot dispatch/combine einsums (GShard);
@@ -35,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.grouped_mm import grouped_mm
 from repro_torch.models.layers import apply_mlp, init_mlp
 
 _MOE_MESH = None  # set by the launcher or the mesh steps for 'ragged_shmap'
@@ -69,6 +68,14 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def one_hot(idx, n: int):
+    """``F.one_hot(idx, n)`` as float32, by comparison with ``arange(n)``:
+    the same values, and no host read (``F.one_hot`` checks the index range
+    on the host everywhere but on the card)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(
+        torch.float32)
+
+
 def _router(cfg, p, x, pre):
     """x: (T, d) -> (weights (T, k) in x's dtype, idx (T, k), aux_loss)."""
     m = cfg.moe
@@ -78,19 +85,22 @@ def _router(cfg, p, x, pre):
     weights = weights / torch.sum(weights, dim=-1, keepdim=True)
     # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
     density = torch.mean(probs, dim=0)                          # (E,)
-    one_hot = F.one_hot(idx, m.n_experts).to(torch.float32)     # (T, k, E)
-    frac = torch.mean(torch.sum(one_hot, dim=1), dim=0)         # (E,)
+    frac = torch.mean(torch.sum(one_hot(idx, m.n_experts), dim=1),
+                      dim=0)                                    # (E,)
     aux = m.n_experts * torch.sum(frac * density) * m.router_aux_coef
     return weights.to(x.dtype), idx, aux
 
 
-def group_sizes(flat_idx, n_experts: int):
-    """Rows routed to each expert, read on the host; on ``meta`` the rows
-    split evenly ('balanced', the remainder to the first experts)."""
-    if flat_idx.device.type == "meta":
-        q, r = divmod(flat_idx.numel(), n_experts)
-        return [q + (e < r) for e in range(n_experts)]
-    return torch.bincount(flat_idx, minlength=n_experts).tolist()
+def group_offsets(flat_idx, n_experts: int):
+    """The groups' cumulative row ends (E,) int32 of the rows sorted by
+    expert, on the rows' device: counts by ``scatter_add_`` (integer adds,
+    exact in any order) and an int32 ``cumsum``. Nothing is read on the
+    host (``bincount`` would be: its output length depends on the data)."""
+    counts = torch.zeros(n_experts, dtype=torch.int32,
+                         device=flat_idx.device)
+    counts.scatter_add_(0, flat_idx, torch.ones_like(flat_idx,
+                                                     dtype=torch.int32))
+    return torch.cumsum(counts, 0, dtype=torch.int32)
 
 
 def _moe_ragged(cfg, p, x, weights, idx, pre):
@@ -100,54 +110,12 @@ def _moe_ragged(cfg, p, x, weights, idx, pre):
     flat_idx = idx.reshape(-1)                                  # (T*k,)
     order = torch.argsort(flat_idx, stable=True)
     inv = torch.argsort(order, stable=True)
-    xs = torch.repeat_interleave(x, k, dim=0)[order]            # sorted
-    sizes = group_sizes(flat_idx, m.n_experts)
-    w = [p[f"{pre}{n}"] for n in ("w_gate", "w_up", "w_down")]
-    # on meta every expert with rows, the equal groups batched
-    parts = (_balanced_parts if xs.device.type == "meta" and min(sizes)
-             else _expert_parts)
-    y = torch.cat(parts(xs, sizes, w, x.dtype))[inv].reshape(T, k, d)
+    xs = x[order // k]                      # repeat(x, k)[order], sorted
+    offs = group_offsets(flat_idx, m.n_experts)
+    wg, wu, wd = (p[f"{pre}{n}"] for n in ("w_gate", "w_up", "w_down"))
+    h = F.silu(grouped_mm(xs, wg, offs)) * grouped_mm(xs, wu, offs)
+    y = grouped_mm(h, wd, offs)[inv].reshape(T, k, d)
     return torch.sum(y * weights[..., None], dim=1)
-
-
-def _expert_parts(xs, sizes, w, dtype):
-    """Each expert's rows of ``xs`` through its FFN, one expert at a time
-    (experts with no row skipped)."""
-    # the rows split and each stacked weight unbound once, so that under
-    # autograd each gradient is assembled once, not zero-filled whole for
-    # every expert
-    wg, wu, wd = (v.unbind(0) for v in w)
-    parts = []
-    for e, xe in enumerate(xs.split(sizes)):
-        if not len(xe):
-            continue
-        h = (F.silu(xe @ wg[e].to(dtype)) * (xe @ wu[e].to(dtype)))
-        parts.append(h @ wd[e].to(dtype))
-    return parts
-
-
-def _balanced_parts(xs, sizes, w, dtype):
-    """:func:`_expert_parts` over 'balanced' group sizes of at least one
-    row (an abstract run, on ``meta``): the first r experts' q + 1 rows,
-    then the others' q, each set of equal groups one batched product. The
-    same products, casts and elementwise ops on the same bytes as the
-    loop, each gradient assembled by one concatenation as the loop's; a
-    160-expert layer walks in a dozen ops, not a thousand (with the loop,
-    deepseek-v2 × train_4k's walk took ~62 s and was the dry run's
-    critical path: ``PERF.md`` §6)."""
-    d, q = xs.shape[1], min(sizes)
-    r = sum(1 for n in sizes if n > q)
-    counts, rows = (r, len(sizes) - r), (q + 1, q)
-    halves = [v.split(counts) for v in w]
-    parts = []
-    for i, xe in enumerate(xs.split([c * n for c, n in zip(counts, rows)])):
-        if not len(xe):
-            continue
-        xe = xe.reshape(counts[i], rows[i], d)
-        wg, wu, wd = (h[i].to(dtype) for h in halves)
-        hid = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
-        parts.append(torch.bmm(hid, wd).reshape(-1, d))
-    return parts
 
 
 def _moe_dense(cfg, p, x, weights, idx, pre):
@@ -157,16 +125,15 @@ def _moe_dense(cfg, p, x, weights, idx, pre):
     T, d = x.shape
     f32 = torch.float32
     cap = max(1, int(m.capacity_factor * T * m.top_k / m.n_experts))
-    one_hot = F.one_hot(idx, m.n_experts).to(f32)               # (T, k, E)
-    pos = torch.cumsum(one_hot, dim=0) * one_hot - 1.0          # slot ids
-    keep = ((pos < cap) & (one_hot > 0)).to(f32)
+    oh = one_hot(idx, m.n_experts)                              # (T, k, E)
+    pos = torch.cumsum(oh, dim=0) * oh - 1.0                    # slot ids
+    keep = ((pos < cap) & (oh > 0)).to(f32)
     # one-hot of the slot: none for -1 (not routed) or past the capacity
     pos_oh = (pos.to(torch.int64)[..., None]
               == torch.arange(cap, device=x.device)).to(f32)    # (T,k,E,c)
-    dispatch = torch.einsum("tke,tkec->tec", one_hot * keep, pos_oh)
+    dispatch = torch.einsum("tke,tkec->tec", oh * keep, pos_oh)
     combine = torch.einsum("tke,tkec->tec",
-                           weights.to(f32)[..., None] * one_hot * keep,
-                           pos_oh)
+                           weights.to(f32)[..., None] * oh * keep, pos_oh)
     xe = torch.einsum("td,tec->ecd", x.to(f32), dispatch).to(x.dtype)
     h = (F.silu(torch.einsum("ecd,edf->ecf", xe,
                              p[f"{pre}w_gate"].to(x.dtype)))
@@ -212,7 +179,10 @@ class _ModelBlock(torch.autograd.Function):
         n = mesh.shape["model"]
         blk = w.shape[dim] // n
         ctx.mesh, ctx.dim = mesh, dim
-        return w.narrow(dim, mesh.axis_index("model") * blk, blk)
+        # copied contiguous: the grouped product reads an expert's block
+        # densely (a narrowed leaf is strided)
+        return w.narrow(dim, mesh.axis_index("model") * blk,
+                        blk).contiguous()
 
     @staticmethod
     def backward(ctx, g):

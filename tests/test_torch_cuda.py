@@ -12,6 +12,7 @@ import torch
 from repro_torch.compression.rotation import pad_len, signs
 from repro_torch.kernels import exchange as kx
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_mm as gm
 from repro_torch.kernels import hadamard as hd
 from repro_torch.kernels import lattice_quant as lq
 from repro_torch.kernels import ops
@@ -1451,3 +1452,119 @@ def test_meta_branch_takes_meta_only_and_the_walker_counts_launches(dev):
         assert w.kernels == {"fused_rotate": 1, "flash_attention": 1}
     assert walks["cuda"].flops == walks["meta"].flops > 0
     assert walks["cuda"].bytes == walks["meta"].bytes > 0
+
+
+# ---------------------------------------------------------------------------
+# the MoE's grouped product: fwd, dgrad and wgrad against their plain
+# versions (fp32 max|Δ| <= 1e-5·max|want|, bf16 ‖Δ‖/‖want‖ <= 1e-3: w
+# truncated to bf16 rather than rounded to nearest-even is ~4.7e-3 off)
+# ---------------------------------------------------------------------------
+
+GROUPED_CASES = {
+    # (group sizes, K, N): ragged with empty groups (the first and last
+    # among them), all rows in one group, below one 64-row tile, rows past
+    # the last group, edges that are not multiples of 64
+    "ragged": ([0, 130, 7, 0, 64, 1, 300, 0], 256, 192),
+    "one_group": ([0, 0, 517, 0], 128, 64),
+    "below_a_tile": ([3, 0, 2], 64, 128),
+    "tail_rows": ([40, 0, 25], 200, 136),
+}
+
+
+def _grouped_inputs(dev, sizes, k, n, dtype, w_dtype=torch.float32,
+                    tail=0, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rows = sum(sizes) + tail
+    x = torch.randn((rows, k), generator=g, device=dev).to(dtype)
+    w = torch.randn((len(sizes), k, n), generator=g, device=dev).to(w_dtype)
+    dy = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+    offs = torch.tensor(sizes, device=dev).cumsum(0).to(torch.int32)
+    return x, w, dy, offs
+
+
+def _grouped_gate(got, want, dtype):
+    """The fp32 gate where the compute dtype and the output's are fp32;
+    the bf16 gate where either is bf16 (dW of a bf16 product stored in
+    fp32, or of an fp32 product stored in bf16, is rounded to bf16 on
+    either side, and the sums' order may flip a rounding)."""
+    lossy = torch.bfloat16 in (dtype, got.dtype)
+    got, want = got.float(), want.float()
+    if not lossy:
+        return float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+    return float((got - want).norm()) <= 1e-3 * float(want.norm())
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+def test_grouped_mm_kernels_match_plain_versions(dev, case, dtype, w_dtype):
+    sizes, k, n = GROUPED_CASES[case]
+    tail = 11 if case == "tail_rows" else 0
+    x, w, dy, offs = _grouped_inputs(dev, sizes, k, n, dtype, w_dtype, tail)
+    gm.reset_launches()
+    y = gm.grouped_mm_fwd(x, w, offs)
+    dx = gm.grouped_mm_dgrad(dy, w, offs)
+    dw = gm.grouped_mm_wgrad(x, dy, offs, w_dtype=w_dtype)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES == {"grouped_mm_fwd": 1, "grouped_mm_dgrad": 1,
+                           "grouped_mm_wgrad": 1}
+    assert (y.dtype, dx.dtype, dw.dtype) == (dtype, dtype, w_dtype)
+    for got, want, what in (
+            (y, gm.grouped_mm_plain(x, w, offs), "fwd"),
+            (dx, gm.grouped_mm_dgrad_plain(dy, w, offs), "dgrad"),
+            (dw, gm.grouped_mm_wgrad_plain(x, dy, offs, w_dtype=w_dtype),
+             "wgrad")):
+        assert _grouped_gate(got, want, dtype), (what, case)
+    empty = [i for i, s in enumerate(sizes) if s == 0]
+    assert not dw[empty].any() and not y[sum(sizes):].any() \
+        and not dx[sum(sizes):].any()
+
+
+def test_grouped_mm_reruns_are_bit_identical(dev):
+    sizes, k, n = GROUPED_CASES["ragged"]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, dy, offs = _grouped_inputs(dev, sizes, k, n, dtype)
+        runs = [(gm.grouped_mm_fwd(x, w, offs),
+                 gm.grouped_mm_dgrad(dy, w, offs),
+                 gm.grouped_mm_wgrad(x, dy, offs, w_dtype=w.dtype))
+                for _ in range(3)]
+        for run in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+
+
+def test_grouped_mm_captured_forward_backward_equals_eager(dev):
+    """``grouped_mm`` forward and backward captured in a CUDA graph and
+    replayed equal the eager run bit for bit (offsets read on the card)."""
+    sizes, k, n = GROUPED_CASES["ragged"]
+    x, w, dy, offs = _grouped_inputs(dev, sizes, k, n, torch.bfloat16)
+    x.requires_grad_()
+    w.requires_grad_()
+
+    def step():
+        # y detached: a graph kept alive would keep the leaves' gradient
+        # accumulators of the eager run's stream into the capture
+        y = gm.grouped_mm(x, w, offs)
+        return (y.detach(), *torch.autograd.grad(y, (x, w), dy))
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    gm.reset_launches()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES == {k: 0 for k in gm.LAUNCHES}   # a replay: no call
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+    # new offsets in place: the replay follows them
+    offs.copy_(torch.tensor(sizes[::-1], device=dev).cumsum(0).to(
+        torch.int32))
+    graph.replay()
+    want = step()
+    assert all(torch.equal(a, b) for a, b in zip(want, captured))

@@ -58,6 +58,7 @@ from repro_torch.configs.base import FedConfig, ShapeConfig
 from repro_torch.kernels import build
 from repro_torch.kernels import exchange as kx
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.grouped_mm import grouped_mm
 from repro_torch.kernels import hadamard as hd
 from repro_torch.kernels import lattice_quant as lq
 from repro_torch.launch import dryrun, profile_pair
@@ -245,13 +246,16 @@ def test_walker_flops_match_reference_hlo(arch):
     n_flash = w.kernels.get("flash_attention", 0)
     dense = 4 * cfg.head_dim * HLO_B * cfg.n_heads * HLO_T * HLO_T
     got = w.flops - w.kernel_flops + n_flash * dense
-    # ragged_dot on the CPU: every routed row against every expert
+    # ragged_dot on the CPU: every routed row against every expert, where
+    # the port's grouped products (kernel flops, taken out above) count
+    # each routed row against its own
     if cfg.moe is not None:
         m = cfg.moe
         n_moe = sum(s.mlp == "moe" for s in cfg.schedule) * cfg.n_periods
         grouped = 2 * HLO_B * HLO_T * m.top_k * cfg.d_model * \
             m.d_ff_expert * 3
-        got += n_moe * (m.n_experts - 1) * grouped
+        assert w.kernels["grouped_mm_fwd"] == 3 * n_moe
+        got += n_moe * m.n_experts * grouped
     assert abs(got - want) <= 5e-3 * want, (got, want)
     assert got == want     # the residue after both conventions: none
 
@@ -338,38 +342,45 @@ def test_moe_flops_equal_for_any_routing():
 
 @pytest.mark.parametrize("arch,tokens", [("deepseek-v2-236b", 37), ("deepseek-v2-236b", 1),
                                          ("llama4-scout-17b-a16e", 64)])
-def test_balanced_groups_cost_what_the_expert_loop_costs(arch, tokens):
-    """On ``meta`` the 'balanced' groups (``moe.group_sizes``) run as two
-    batched products (``moe._balanced_parts``; the loop where an expert
-    gets no row, as with one token): the same flops and bytes as the
-    expert loop over the same sizes on the CPU, forward and backward (the
-    rows' and every weight's gradient), each gradient assembled once (no
-    whole-size zero fill per expert)."""
+def test_grouped_products_count_alike_on_meta_and_cpu(arch, tokens):
+    """The MoE's three grouped products (``kernels/grouped_mm.py``) walk to
+    the same flops and bytes on ``meta`` (offsets unread) as on the CPU
+    with a real routing (one token: experts without rows), forward and
+    backward (the rows' and every weight's gradient: dgrad and wgrad), each
+    launch exactly 2·R·K·N flops, and no slice of a weight zero-filled."""
     from repro_torch.models import moe
     cfg = configs.get_reduced(arch)
     m, d, f = cfg.moe, cfg.d_model, cfg.moe.d_ff_expert
     rows = tokens * m.top_k
-    sizes = moe.group_sizes(torch.empty(rows, device="meta"), m.n_experts)
-    assert sum(sizes) == rows and max(sizes) - min(sizes) <= 1
     rng = np.random.default_rng(0)
+    ids = torch.from_numpy(np.sort(rng.integers(0, m.n_experts, rows)))
     host = [torch.from_numpy(rng.standard_normal(s, np.float32)).to(
         torch.bfloat16) for s in ((m.n_experts, d, f), (m.n_experts, d, f),
                                   (m.n_experts, f, d), (rows, d))]
     costs = []
-    meta = moe._balanced_parts if min(sizes) else moe._expert_parts
-    for dev, parts in (("meta", meta), ("cpu", moe._expert_parts)):
+    for dev in ("meta", "cpu"):
         *w, xs = (v.to(dev) for v in host)
+        offs = moe.group_offsets(ids.to(dev), m.n_experts)
         for grad in (False, True):
             leaves = [v.requires_grad_(grad) for v in (xs, *w)]
             walker = CostWalker(records=True)
             with torch.set_grad_enabled(grad), walker:
-                y = torch.cat(parts(leaves[0], sizes, leaves[1:],
-                                    xs.dtype))
+                x_, wg, wu, wd = leaves
+                h = (torch.nn.functional.silu(grouped_mm(x_, wg, offs))
+                     * grouped_mm(x_, wu, offs))
+                y = grouped_mm(h, wd, offs)
                 if grad:
                     torch.autograd.grad(y.float().sum(), leaves)
             ops = {r[0] for r in walker.records}
             assert "slice_backward" not in ops, ops
-            costs.append((walker.flops, walker.bytes))
+            kernels = [r for r in walker.records if r[0].startswith(
+                "grouped_mm")]
+            assert sorted(r[0] for r in kernels) == sorted(
+                ["grouped_mm_fwd"] * 3 + (["grouped_mm_dgrad",
+                                           "grouped_mm_wgrad"] * 3
+                                          if grad else []))
+            assert all(r[2] == 2.0 * rows * d * f for r in kernels), kernels
+            costs.append((walker.flops, walker.bytes, walker.kernel_flops))
     assert costs[:2] == costs[2:] and costs[0][0] > 0
 
 
