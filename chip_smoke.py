@@ -137,19 +137,22 @@ then drives the port's paths:
   across ranks; then a 10-round QuAFL chunk's captured graph read back
   (``lowered_chunk``), its kernel nodes equal to a replay's launches.
 * the MoE's grouped product (``kernels/grouped_mm.py``), in a process of
-  its own (``--moe``): its three kernels (``grouped_fwd_kernel``,
-  ``grouped_dgrad_kernel``, ``grouped_wgrad_kernel``) against their plain
+  its own (``--moe``): its three kernels (forward and dgrad on wgmma in
+  bf16, ``grouped_{fwd,dgrad}_wgmma_kernel`` with their ordered sum of a
+  split K, on FMAs in fp32; ``grouped_wgrad_kernel``) against their plain
   versions in fp32 and bf16 at deepseek-v2's and llama4-scout's published
   expert shapes (the gate's and up's, d_model to d_ff_expert, and the down
   projection's, back), routed by each arch's router for batch A's prefill
-  and a decode step, and at edge cases, each timed beside its bound, the plain
-  loop and ``torch._grouped_mm`` (``grouped_check``); one deepseek-v2 MoE
-  layer at published widths forward and backward, eager and captured in a
-  CUDA graph, ``torch.equal`` (``moe_layer_full``); reduced deepseek-v2,
-  llama4-scout and jamba-1.5 through ``--scan-chunk 2`` and deepseek-v2's
-  ``--algo spmd`` chunks, every captured round under the sync-debug mode,
-  equal to eager (``moe_chunks``). The zoo's MoE serving runs the same
-  forward kernel.
+  and a decode step, and at edge cases, each timed beside its bound, the
+  plain loop, ``torch._grouped_mm`` on bf16 weights and the reference's
+  own work (the cast of the weights, then that call), with the bf16
+  kernels' launch geometry and registers (``grouped_check``); one
+  deepseek-v2 MoE layer at published widths forward and backward, eager
+  and captured in a CUDA graph, ``torch.equal`` (``moe_layer_full``);
+  reduced deepseek-v2, llama4-scout and jamba-1.5 through ``--scan-chunk
+  2`` and deepseek-v2's ``--algo spmd`` chunks, every captured round
+  under the sync-debug mode, equal to eager (``moe_chunks``). The zoo's
+  MoE serving runs the same forward kernel.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It prints JSON lines per phase, a ``kernels`` line, the card's name
@@ -4377,9 +4380,16 @@ MOE_BUDGET = 120                  # seconds the moe process may take
 MOE_TIMEOUT = 2 * MOE_BUDGET
 DEEPSEEK = "deepseek-v2-236b"
 GROUPED_KERNELS = ("grouped_mm_fwd", "grouped_mm_dgrad", "grouped_mm_wgrad")
-GROUPED_SYMBOLS = {"grouped_mm_fwd": "grouped_fwd_kernel",
-                   "grouped_mm_dgrad": "grouped_dgrad_kernel",
-                   "grouped_mm_wgrad": "grouped_wgrad_kernel"}
+# each wrapper's kernels, by a substring of their symbols: bf16 forward and
+# dgrad launch a wgmma kernel (and the ordered sum of its slices where K is
+# split), fp32 the CUDA-core kernel
+GROUPED_SYMBOLS = {"grouped_mm_fwd": ("grouped_fwd_wgmma_kernel",
+                                      "grouped_fwd_sum_kernel",
+                                      "grouped_fwd_kernel"),
+                   "grouped_mm_dgrad": ("grouped_dgrad_wgmma_kernel",
+                                        "grouped_dgrad_sum_kernel",
+                                        "grouped_dgrad_kernel"),
+                   "grouped_mm_wgrad": ("grouped_wgrad_kernel",)}
 # jax.lax.ragged_dot in the reference's _moe_ragged (no Pallas kernel)
 GROUPED_REPLACES = "src/repro/models/moe.py:72"
 # routed tokens: batch A's 4 x 512 prefill and a decode step of 4
@@ -4430,29 +4440,79 @@ def grouped_case(gm, x, w, dy, offs) -> dict:
     return out
 
 
-def grouped_library(x, w_lib, dy, offs):
-    """One ``torch._grouped_mm`` call a kernel on the same inputs in bf16
-    (the yardstick; the port never calls it), or None where it refuses
-    the shape; then its refusal, if any."""
-    calls = {"grouped_mm_fwd": lambda: torch._grouped_mm(x, w_lib, offs),
-             "grouped_mm_dgrad": lambda: torch._grouped_mm(
-                 dy, w_lib.transpose(-2, -1), offs),
-             "grouped_mm_wgrad": lambda: torch._grouped_mm(x.t(), dy, offs)}
-    out, why = {}, {}
-    for k, fn in calls.items():
-        try:
-            out[k] = time_ms(fn, GROUPED_ITERS)
-        except (RuntimeError, TypeError, ValueError) as e:
-            out[k], why[k] = None, str(e).splitlines()[0][:160]
+def grouped_library(x, w, dy, offs):
+    """The yardsticks of each kernel on the same inputs in bf16 (the port
+    never calls them): ``library``, one ``torch._grouped_mm`` call on bf16
+    weights; ``library_cast``, the reference's own work, the cast of the
+    weights to bf16 (``.astype(x.dtype)``) and then that call (wgrad: the
+    call, then its cast back to w's dtype); each None where the call
+    refuses the shape. Then the refusals, if any."""
+    w_lib = w.to(BF16)
+    calls = {"grouped_mm_fwd": (lambda: torch._grouped_mm(x, w_lib, offs),
+                                lambda: torch._grouped_mm(x, w.to(BF16),
+                                                          offs)),
+             "grouped_mm_dgrad": (
+                 lambda: torch._grouped_mm(dy, w_lib.transpose(-2, -1),
+                                           offs),
+                 lambda: torch._grouped_mm(
+                     dy, w.to(BF16).transpose(-2, -1), offs)),
+             "grouped_mm_wgrad": (
+                 lambda: torch._grouped_mm(x.t(), dy, offs),
+                 lambda: torch._grouped_mm(x.t(), dy, offs).to(w.dtype))}
+    out, why = {"library": {}, "library_cast": {}}, {}
+    for k, fns in calls.items():
+        for kind, fn in zip(out, fns):
+            try:
+                out[kind][k] = time_ms(fn, GROUPED_ITERS)
+            except (RuntimeError, TypeError, ValueError) as e:
+                out[kind][k], why[k] = None, str(e).splitlines()[0][:160]
+    del w_lib
     return out, why
 
 
+def grouped_geometry(gm, x, w, dy, ptxas) -> dict:
+    """The bf16 forward's and dgrad's launches at these shapes (from shapes
+    alone, ``rows_plan``): row tile BR, slices S of the reduction, CTAs
+    launched and expected busy, the ring's stages and a CTA's shared
+    memory; and ptxas's registers and spills of the two kernels at that
+    BR (and of the ordered sum where S > 1)."""
+    lib, sms = gm.library(), gm.sm_count(x.device.index)
+    wb = int(w.dtype == BF16)
+    wt = "bf16" if wb else "f32"
+    out = {}
+    for name, kind, a, nout in (("grouped_mm_fwd", "fwd", x, w.shape[2]),
+                                ("grouped_mm_dgrad", "dgrad", dy,
+                                 w.shape[1])):
+        plan = gm.rows_plan(a.shape[0], w.shape[0], a.shape[1], nout, sms)
+        sym = f"grouped_{kind}_wgmma_kernel<{plan.br},{wt}>"
+        out[name] = {**plan._asdict(),
+                     "stages": lib.grouped_rows_plan(plan.br, wb, 1),
+                     "smem_bytes": lib.grouped_rows_plan(plan.br, wb, 0),
+                     "ptxas": {k: v for k, v in ptxas.items()
+                               if k == sym or (plan.splits > 1 and k ==
+                                               f"grouped_{kind}_sum_kernel")}}
+    return out
+
+
+def ms_per_call(kernels, symbols: dict, calls: int) -> dict:
+    """Device ms a wrapper call of each named wrapper (None if none of its
+    kernels ran): the device time of every kernel whose symbol holds one
+    of its substrings, over ``calls``."""
+    out = {}
+    for name, subs in symbols.items():
+        hits = [e for e in kernels if any(s in e.key for s in subs)]
+        out[name] = (sum(e.self_device_time_total for e in hits) / calls
+                     / 1e3 if hits else None)
+    return out
+
+
 def grouped_times(gm, x, w, dy, offs, peak_bw, lib) -> dict:
-    """ms (CUDA events over wrapper calls), device ms a launch (profiler),
-    the plain loop's ms, the library's, and the bound over this routing:
-    bytes of x, the output and offs, the weights of the experts that have
-    rows (fwd, dgrad) or all of dW written (wgrad), against 2·R·K·N flops
-    at the peak of the compute dtype."""
+    """ms (CUDA events over wrapper calls), device ms a call (profiler:
+    every kernel the wrapper launches), the plain loop's ms, the
+    library's and the cast-plus-library's (``lib``), and the bound over
+    this routing: bytes of x, the output and offs, the weights of the
+    experts that have rows (fwd, dgrad) or all of dW written (wgrad),
+    against 2·R·K·N flops at the peak of the compute dtype."""
     r, (e, k, n) = x.shape[0], w.shape
     active = int((torch.diff(offs, prepend=offs.new_zeros(1)) > 0).sum())
     xs, ws = x.element_size(), w.element_size()
@@ -4475,7 +4535,7 @@ def grouped_times(gm, x, w, dy, offs, peak_bw, lib) -> dict:
     for _ in range(3):      # the trace now and then holds no kernel events
         _, _, ev = profiled(lambda: [all_three()
                                      for _ in range(GROUPED_ITERS)])
-        device = ms_per_launch(ev, GROUPED_SYMBOLS)
+        device = ms_per_call(ev, GROUPED_SYMBOLS, GROUPED_ITERS)
         if all(v is not None for v in device.values()):
             break
     out = {}
@@ -4487,7 +4547,9 @@ def grouped_times(gm, x, w, dy, offs, peak_bw, lib) -> dict:
         out[name] = {"ms": time_ms(kernel, GROUPED_ITERS),
                      "plain_ms": time_ms(plain, GROUPED_ITERS),
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib.get(name),
+                     "library_ms": lib.get("library", {}).get(name),
+                     "library_cast_ms": lib.get("library_cast",
+                                                {}).get(name),
                      "device_ms": device[name]}
     out["active_experts"] = active
     return out
@@ -4532,7 +4594,8 @@ def moe_params(cfg, dev):
 
 def grouped_check(smi, dev, peak_bw, gm) -> dict:
     """(a) the three kernels against their plain versions in fp32 and bf16
-    (fp32 weights) at the published expert shapes of deepseek-v2 (E 160,
+    (fp32 weights; the edge cases also with bf16 weights) at the
+    published expert shapes of deepseek-v2 (E 160,
     d_model 5,120, d_ff_expert 1,536, top-6) and llama4-scout (E 16,
     d_model 5,120, d_ff_expert 8,192, top-1), for the gate's (and up's)
     weights (K d_model, N d_ff_expert) and the down projection's (K
@@ -4542,9 +4605,13 @@ def grouped_check(smi, dev, peak_bw, gm) -> dict:
     kernels line's rows and deepseek-v2's layer params (for
     ``moe_layer_full``)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     rows, keep = {}, None
+    # the registers and spills of every kernel of the library, from the
+    # build's ptxas -v (the parent process's build, or gm.library()'s)
+    ptxas = ptxas_summary((build.BUILD_DIR / "grouped_mm.log").read_text())
     for arch in (SCOUT, DEEPSEEK):
         cfg = get_config(arch)
         p = moe_params(cfg, dev)
@@ -4554,7 +4621,6 @@ def grouped_check(smi, dev, peak_bw, gm) -> dict:
             routed[tokens] = routed_rows(cfg, p, tokens, gen, dev)
         for weight in GROUPED_WEIGHTS:
             w = p[f"moe/{weight}"]
-            w_lib = w.to(BF16)
             e, k, n = w.shape
             for tokens, (h, offs) in routed.items():
                 gen.manual_seed(SEED)
@@ -4564,8 +4630,14 @@ def grouped_check(smi, dev, peak_bw, gm) -> dict:
                     (h.shape[0], k), generator=gen, device=dev)
                 dy32 = torch.randn((x32.shape[0], n), generator=gen,
                                    device=dev)
-                lib, why = grouped_library(x32.to(BF16), w_lib,
+                lib, why = grouped_library(x32.to(BF16), w,
                                            dy32.to(BF16), offs)
+                emit({"phase": "grouped_geometry", "arch": arch,
+                      "weight": weight, "tokens": tokens,
+                      "rows": x32.shape[0], "w_dtype": "float32",
+                      "sms": gm.sm_count(dev.index),
+                      **grouped_geometry(gm, x32.to(BF16), w,
+                                         dy32.to(BF16), ptxas)})
                 for dt in ("float32", "bfloat16"):
                     x, dy = (x32.to(getattr(torch, dt)),
                              dy32.to(getattr(torch, dt)))
@@ -4579,7 +4651,8 @@ def grouped_check(smi, dev, peak_bw, gm) -> dict:
                           "w_dtype": "float32",
                           "active_experts": t.pop("active_experts"),
                           "errors": errs, "times": t,
-                          "library": "torch._grouped_mm, bf16 x and w"
+                          "library": "torch._grouped_mm, bf16 x and w; "
+                          "library_cast: w.to(bf16) then that call"
                           if dt == "bfloat16" else None,
                           "library_refused": why if dt == "bfloat16"
                           else {}, "nvidia_smi": smi})
@@ -4587,19 +4660,26 @@ def grouped_check(smi, dev, peak_bw, gm) -> dict:
                         rows = {name: {**t[name], "max_abs_err":
                                        errs[name]["max_abs_err"]}
                                 for name in GROUPED_KERNELS}
-            for case, offs in edge_offsets(e, dev).items():
-                gen.manual_seed(SEED)
-                r = int(offs[-1])
-                for dt in (FP32, BF16):
-                    x = torch.randn((r, k), generator=gen, device=dev).to(dt)
-                    dy = torch.randn((r, n), generator=gen,
-                                     device=dev).to(dt)
-                    emit({"phase": "grouped_check", "arch": arch,
-                          "weight": weight, "case": case, "E": e, "K": k,
-                          "N": n, "rows": r,
-                          "dtype": str(dt).replace("torch.", ""),
-                          "errors": grouped_case(gm, x, w, dy, offs)})
-            del w, w_lib
+            # the edge cases with the fp32 weights and with their bf16
+            # copy (the kernels' bf16-weight instantiations)
+            for wt in (w, w.to(BF16)):
+                for case, offs in edge_offsets(e, dev).items():
+                    gen.manual_seed(SEED)
+                    r = int(offs[-1])
+                    for dt in (FP32, BF16):
+                        x = torch.randn((r, k), generator=gen,
+                                        device=dev).to(dt)
+                        dy = torch.randn((r, n), generator=gen,
+                                         device=dev).to(dt)
+                        emit({"phase": "grouped_check", "arch": arch,
+                              "weight": weight, "case": case, "E": e,
+                              "K": k, "N": n, "rows": r,
+                              "dtype": str(dt).replace("torch.", ""),
+                              "w_dtype": str(wt.dtype).replace("torch.",
+                                                               ""),
+                              "errors": grouped_case(gm, x, wt, dy,
+                                                     offs)})
+            del w
         del routed
         if arch == DEEPSEEK:
             keep = p

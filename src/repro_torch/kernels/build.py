@@ -53,10 +53,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """The library of ``csrc/<name>.cu``, named by a hash of the source, of
-    every header in ``csrc/`` (the sources include ``common.cuh`` and
-    ``butterfly.cuh``; hashing all headers rebuilds a library after any
-    header edit) and of the
-    flags."""
+    every header in ``csrc/`` (the sources include ``common.cuh``,
+    ``butterfly.cuh`` and ``hopper.cuh``; hashing all headers rebuilds a
+    library after any header edit) and of the flags."""
     digest = hashlib.sha256()
     for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(src.read_bytes())

@@ -22,10 +22,17 @@ Each wrapper launches its kernel on CUDA tensors, runs its plain version
 (a loop over the groups, which reads ``offs`` on the host) on CPU tensors,
 returns empty outputs on ``meta`` tensors, raises on anything else, and
 counts its launches in :data:`LAUNCHES`.
+
+In bf16, forward and dgrad run on ``wgmma`` with the weights as the
+register operand; :func:`rows_plan` picks their row tile and their split of
+the reduction from shapes alone (``csrc/grouped_mm.cu`` sets out the
+design).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,11 +49,71 @@ LAUNCHES = {"grouped_mm_fwd": 0, "grouped_mm_dgrad": 0,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # (a, w, offs, out, R, kin, nout, E, x_bf16, w_bf16, dgrad, stream)
-    "grouped_mm_rows": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
+    # (a, w, offs, out, part, R, kin, nout, E, x_bf16, w_bf16, dgrad, br,
+    #  splits, stream)
+    "grouped_mm_rows": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
+    # (br, w_bf16, stages): the ring's stages, or a CTA's shared memory
+    "grouped_rows_plan": [_I, _I, _I],
     # (x, dy, offs, dw, R, K, N, E, x_bf16, w_bf16, stream)
     "grouped_mm_wgrad": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
 }
+
+# The bf16 forward and dgrad kernels (csrc/grouped_mm.cu): a CTA owns
+# TILE_M of the weights' output columns (dgrad: rows) and one row tile of
+# ``br`` rows of one group, and walks the reduction in stages of STEP_K.
+ROW_TILES = (8, 16, 32, 64, 128, 256)  # the widths the kernels are built for
+TILE_M = 128
+STEP_K = 64
+HEADROOM = 1.25    # a row tile holds this many times the mean group's rows
+SPLIT_WAVES = 8    # with fewer busy CTAs than this many an SM, split K
+MIN_SLICE = 8      # stages a slice of the reduction at least
+H100_SMS = 132
+
+
+class RowsPlan(NamedTuple):
+    """The launch of a bf16 forward or dgrad: row tiles of ``br`` rows, the
+    reduction in ``splits`` ordered slices of ``steps_per_slice`` stages,
+    ``ctas`` CTAs (``m_tiles`` × ``splits`` × ``row_tiles``, the surplus
+    exits), ``busy`` of them expected to hold rows."""
+    br: int
+    splits: int
+    steps_per_slice: int
+    m_tiles: int
+    row_tiles: int
+    ctas: int
+    busy: int
+
+
+def rows_plan(rows: int, e: int, kin: int, nout: int,
+              sms: int = H100_SMS) -> RowsPlan:
+    """The bf16 forward's or dgrad's launch from shapes alone (rows R,
+    experts E, reduction ``kin``, output width ``nout``, the card's SMs),
+    never from ``offs``, so a captured launch fits every routing. ``br``:
+    the least built width that holds HEADROOM × R/E rows (a group at batch
+    A fits one tile: its weights are read once). ``splits``: 1 unless the
+    CTAs that can hold rows (at most min(R, E) + R // br row tiles, times
+    the output tiles) are under SPLIT_WAVES × ``sms``; then enough slices
+    for that many, each at least MIN_SLICE stages long."""
+    br = next((b for b in ROW_TILES if b >= HEADROOM * rows / e),
+              ROW_TILES[-1])
+    m_tiles = -(-nout // TILE_M)
+    steps = -(-kin // STEP_K)
+    row_tiles = min(rows, -(-rows // br) + e)   # each holds a row
+    busy = max(1, (min(rows, e) + rows // br) * m_tiles)
+    splits = 1
+    if busy < SPLIT_WAVES * sms:
+        splits = max(1, min(-(-SPLIT_WAVES * sms // busy),
+                            steps // MIN_SLICE))
+    per = -(-steps // splits)
+    splits = -(-steps // per)        # no slice left without a stage
+    return RowsPlan(br, splits, per, m_tiles, row_tiles,
+                    m_tiles * splits * row_tiles, busy)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launches() -> None:
@@ -96,6 +163,18 @@ def _check_w(w):
     if not w.is_contiguous():
         raise ValueError("w must be contiguous (E, K, N): the kernels read "
                          "each expert's K x N block densely")
+
+
+def _check_tma(*named):
+    """The bf16 kernels read rows and weights with TMA, which takes 16-byte
+    aligned base addresses and row strides; the strides are (the tensors
+    are contiguous, K and N multiples of ALIGN), the addresses of views
+    need not be."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the bf16 kernels read it with TMA, "
+                             f"which takes 16-byte aligned addresses "
+                             f"(got {t.data_ptr()})")
 
 
 def _spans(offs, rows: int):
@@ -162,12 +241,24 @@ def _wgrad_cost(x, dy, offs, *, w_dtype):
 
 
 def _launch_rows(a, w, offs, out, dgrad: bool):
+    """One launch of the forward or dgrad kernel (with its ordered sum of
+    the slices' partials in bf16 when the plan splits K)."""
+    rows, kin, nout, e = a.shape[0], a.shape[1], out.shape[1], w.shape[0]
+    bf16 = a.dtype == torch.bfloat16
+    br, splits, part = 0, 1, None
+    if bf16:
+        _check_tma(("dy" if dgrad else "x", a), ("w", w))
+        br, splits = rows_plan(rows, e, kin, nout,
+                               sm_count(a.device.index))[:2]
+        if splits > 1:
+            part = torch.empty((splits, rows, nout), dtype=torch.float32,
+                               device=a.device)
     fn = "grouped_mm_rows"
     build.check(getattr(library(), fn)(
         build.ptr(a), build.ptr(w), build.ptr(offs), build.ptr(out),
-        a.shape[0], a.shape[1], out.shape[1], w.shape[0],
-        int(a.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-        int(dgrad), build.stream()), fn)
+        build.ptr(part), rows, kin, nout, e, int(bf16),
+        int(w.dtype == torch.bfloat16), int(dgrad), br, splits,
+        build.stream()), fn)
 
 
 @build.costed(lambda *a: _rows_cost(*a)[0], lambda *a: _rows_cost(*a)[1])
@@ -178,10 +269,11 @@ def grouped_mm_fwd(x, w, offs):
     ``repro/models/moe.py`` · ``_moe_ragged`` (XLA's own lowering), so that
     the group offsets stay on the card. Bound on the H100: bytes, the fp32
     expert weights (deepseek-v2's batch-A prefill: 5.0 GB a product against
-    0.19 TFLOP). Design: one CTA per 64 x 64 output tile of one group's
-    rows, ceil(R/64) + E row tiles located from ``offs`` on the card
-    (surplus CTAs exit), each w tile rounded to x's dtype as it is staged;
-    bf16 on mma.sync, fp32 on FMAs (``csrc/grouped_mm.cu``).
+    0.19 TFLOP). Design (``csrc/grouped_mm.cu``): in bf16, wgmma on the
+    transposed tile with w, rounded as it is read, as the register operand,
+    a TMA ring, row tiles as wide as the groups and an ordered split of K
+    for few rows (:func:`rows_plan`); in fp32, one CTA per 64 x 64 output
+    tile on FMAs. Row tiles are located from ``offs`` on the card.
     """
     _check_w(w)
     _check(x.shape[0], w.shape, w.dtype, offs, ("x", x, w.shape[1]))

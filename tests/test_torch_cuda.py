@@ -1468,6 +1468,12 @@ GROUPED_CASES = {
     "one_group": ([0, 0, 517, 0], 128, 64),
     "below_a_tile": ([3, 0, 2], 64, 128),
     "tail_rows": ([40, 0, 25], 200, 136),
+    # the bf16 kernels' paths (rows_plan): one group of 600 rows over three
+    # 256-row tiles, the last of which begins mid-group and runs into the
+    # next group's rows and past R; a decode step's few rows over a long
+    # reduction, which splits K (fwd 8 slices, dgrad 2)
+    "wide_group": ([0, 600, 40, 0], 128, 136),
+    "decode_split": ([0, 2, 1, 0, 3], 4096, 1024),
 }
 
 
@@ -1523,48 +1529,78 @@ def test_grouped_mm_kernels_match_plain_versions(dev, case, dtype, w_dtype):
 
 
 def test_grouped_mm_reruns_are_bit_identical(dev):
-    sizes, k, n = GROUPED_CASES["ragged"]
-    for dtype in (torch.float32, torch.bfloat16):
-        x, w, dy, offs = _grouped_inputs(dev, sizes, k, n, dtype)
-        runs = [(gm.grouped_mm_fwd(x, w, offs),
-                 gm.grouped_mm_dgrad(dy, w, offs),
-                 gm.grouped_mm_wgrad(x, dy, offs, w_dtype=w.dtype))
-                for _ in range(3)]
-        for run in runs[1:]:
-            assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+    """Three runs equal bit for bit, also where the bf16 kernels split K
+    (``decode_split``: the slices' partials added in a fixed order)."""
+    for case in ("ragged", "decode_split"):
+        sizes, k, n = GROUPED_CASES[case]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dy, offs = _grouped_inputs(dev, sizes, k, n, dtype)
+            runs = [(gm.grouped_mm_fwd(x, w, offs),
+                     gm.grouped_mm_dgrad(dy, w, offs),
+                     gm.grouped_mm_wgrad(x, dy, offs, w_dtype=w.dtype))
+                    for _ in range(3)]
+            for run in runs[1:]:
+                assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+    sms = gm.sm_count(torch.cuda.current_device())
+    assert gm.rows_plan(6, 5, 4096, 1024, sms).splits > 1
+    assert gm.rows_plan(6, 5, 1024, 4096, sms).splits > 1
 
 
 def test_grouped_mm_captured_forward_backward_equals_eager(dev):
     """``grouped_mm`` forward and backward captured in a CUDA graph and
-    replayed equal the eager run bit for bit (offsets read on the card)."""
-    sizes, k, n = GROUPED_CASES["ragged"]
+    replayed equal the eager run bit for bit (offsets read on the card),
+    also where the bf16 kernels split K (the workspace of the partials is
+    captured with the graph)."""
+    for case in ("ragged", "decode_split"):
+        sizes, k, n = GROUPED_CASES[case]
+        x, w, dy, offs = _grouped_inputs(dev, sizes, k, n, torch.bfloat16)
+        x.requires_grad_()
+        w.requires_grad_()
+
+        def step():
+            # y detached: a graph kept alive would keep the leaves' gradient
+            # accumulators of the eager run's stream into the capture
+            y = gm.grouped_mm(x, w, offs)
+            return (y.detach(), *torch.autograd.grad(y, (x, w), dy))
+
+        eager = step()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = step()
+        gm.reset_launches()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert gm.LAUNCHES == {k: 0 for k in gm.LAUNCHES}  # a replay: no call
+        assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+        # new offsets in place: the replay follows them
+        offs.copy_(torch.tensor(sizes[::-1], device=dev).cumsum(0).to(
+            torch.int32))
+        graph.replay()
+        want = step()
+        assert all(torch.equal(a, b) for a, b in zip(want, captured))
+
+
+@pytest.mark.parametrize("what", ["x", "dy", "w"])
+def test_grouped_mm_refuses_views_that_tma_cannot_read(dev, what):
+    """The bf16 kernels read rows and weights with TMA: a contiguous view
+    whose base address is not 16-byte aligned is refused, not misread."""
+    sizes, k, n = GROUPED_CASES["tail_rows"]
     x, w, dy, offs = _grouped_inputs(dev, sizes, k, n, torch.bfloat16)
-    x.requires_grad_()
-    w.requires_grad_()
-
-    def step():
-        # y detached: a graph kept alive would keep the leaves' gradient
-        # accumulators of the eager run's stream into the capture
-        y = gm.grouped_mm(x, w, offs)
-        return (y.detach(), *torch.autograd.grad(y, (x, w), dy))
-
-    eager = step()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        step()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = step()
-    gm.reset_launches()
-    graph.replay()
-    torch.cuda.synchronize()
-    assert gm.LAUNCHES == {k: 0 for k in gm.LAUNCHES}   # a replay: no call
-    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
-    # new offsets in place: the replay follows them
-    offs.copy_(torch.tensor(sizes[::-1], device=dev).cumsum(0).to(
-        torch.int32))
-    graph.replay()
-    want = step()
-    assert all(torch.equal(a, b) for a, b in zip(want, captured))
+    src = {"x": x, "dy": dy, "w": w}[what]
+    flat = torch.empty(src.numel() + 1, dtype=src.dtype, device=dev)
+    view = flat[1:].view(src.shape)
+    view.copy_(src)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if what == "x":
+            gm.grouped_mm_fwd(view, w, offs)
+        elif what == "dy":
+            gm.grouped_mm_dgrad(view, w, offs)
+        else:
+            gm.grouped_mm_fwd(x, view, offs)
+    assert gm.grouped_mm_fwd(x, w, offs).shape == (x.shape[0], n)
