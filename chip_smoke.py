@@ -137,9 +137,10 @@ then drives the port's paths:
   across ranks; then a 10-round QuAFL chunk's captured graph read back
   (``lowered_chunk``), its kernel nodes equal to a replay's launches.
 * the MoE's grouped product (``kernels/grouped_mm.py``), in a process of
-  its own (``--moe``): its three kernels (forward and dgrad on wgmma in
-  bf16, ``grouped_{fwd,dgrad}_wgmma_kernel`` with their ordered sum of a
-  split K, on FMAs in fp32; ``grouped_wgrad_kernel``) against their plain
+  its own (``--moe``): its three kernels (on wgmma in bf16: forward and
+  dgrad ``grouped_{fwd,dgrad}_wgmma_kernel`` with their ordered sum of a
+  split K, wgrad ``grouped_wgrad_wgmma_kernel`` in persistent CTAs; on
+  FMAs in fp32) against their plain
   versions in fp32 and bf16 at deepseek-v2's and llama4-scout's published
   expert shapes (the gate's and up's, d_model to d_ff_expert, and the down
   projection's, back), routed by each arch's router for batch A's prefill
@@ -4380,16 +4381,17 @@ MOE_BUDGET = 120                  # seconds the moe process may take
 MOE_TIMEOUT = 2 * MOE_BUDGET
 DEEPSEEK = "deepseek-v2-236b"
 GROUPED_KERNELS = ("grouped_mm_fwd", "grouped_mm_dgrad", "grouped_mm_wgrad")
-# each wrapper's kernels, by a substring of their symbols: bf16 forward and
-# dgrad launch a wgmma kernel (and the ordered sum of its slices where K is
-# split), fp32 the CUDA-core kernel
+# each wrapper's kernels, by a substring of their symbols: bf16 launches a
+# wgmma kernel (forward and dgrad also the ordered sum of their slices
+# where K is split), fp32 the CUDA-core kernel
 GROUPED_SYMBOLS = {"grouped_mm_fwd": ("grouped_fwd_wgmma_kernel",
                                       "grouped_fwd_sum_kernel",
                                       "grouped_fwd_kernel"),
                    "grouped_mm_dgrad": ("grouped_dgrad_wgmma_kernel",
                                         "grouped_dgrad_sum_kernel",
                                         "grouped_dgrad_kernel"),
-                   "grouped_mm_wgrad": ("grouped_wgrad_kernel",)}
+                   "grouped_mm_wgrad": ("grouped_wgrad_wgmma_kernel",
+                                        "grouped_wgrad_kernel")}
 # jax.lax.ragged_dot in the reference's _moe_ragged (no Pallas kernel)
 GROUPED_REPLACES = "src/repro/models/moe.py:72"
 # routed tokens: batch A's 4 x 512 prefill and a decode step of 4
@@ -4407,6 +4409,7 @@ MOE_CHUNK_ARGV = ["--reduced", "--batch", "4", "--seq", "64", "--log-every",
                   "1", "--lr", "0.05", "--steps", "4", "--seed", "0"]
 MOE_CHUNK_ARCHS = (DEEPSEEK, SCOUT, "jamba-1.5-large-398b")
 MOE_LAYER_TOKENS = (4, 512)
+EDGE_NAN_ROWS = 123   # rows of no group, NaN, in the edge case nan_outside
 
 
 def grouped_err(got, want, dtype):
@@ -4471,11 +4474,13 @@ def grouped_library(x, w, dy, offs):
 
 
 def grouped_geometry(gm, x, w, dy, ptxas) -> dict:
-    """The bf16 forward's and dgrad's launches at these shapes (from shapes
-    alone, ``rows_plan``): row tile BR, slices S of the reduction, CTAs
-    launched and expected busy, the ring's stages and a CTA's shared
-    memory; and ptxas's registers and spills of the two kernels at that
-    BR (and of the ordered sum where S > 1)."""
+    """The bf16 kernels' launches at these shapes, from shapes alone: the
+    forward's and dgrad's (``rows_plan``: row tile BR, slices S of the
+    reduction, CTAs launched and expected busy, the ring's stages and a
+    CTA's shared memory) and wgrad's (``wgrad_plan``: dW tile 128 × BN,
+    items, persistent CTAs, stages, shared memory by the plan and by the
+    library); and ptxas's registers and spills of each kernel at that BR
+    (and of the ordered sum where S > 1), of wgrad at both BN."""
     lib, sms = gm.library(), gm.sm_count(x.device.index)
     wb = int(w.dtype == BF16)
     wt = "bf16" if wb else "f32"
@@ -4491,6 +4496,16 @@ def grouped_geometry(gm, x, w, dy, ptxas) -> dict:
                      "ptxas": {k: v for k, v in ptxas.items()
                                if k == sym or (plan.splits > 1 and k ==
                                                f"grouped_{kind}_sum_kernel")}}
+    e, k, n = w.shape
+    plan = gm.wgrad_plan(x.shape[0], e, k, n, w.dtype, sms)
+    out["grouped_mm_wgrad"] = {
+        **plan._asdict(), "tile": [gm.WGRAD_TILE_K, plan.bn],
+        "smem_bytes_library": lib.grouped_wgrad_plan(plan.bn, wb,
+                                                     plan.stages, e),
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith("grouped_wgrad_wgmma_kernel<")
+                  and k.endswith(f",{wt}>")}}
+    assert out["grouped_mm_wgrad"]["smem_bytes_library"] == plan.smem_bytes
     return out
 
 
@@ -4551,6 +4566,17 @@ def grouped_times(gm, x, w, dy, offs, peak_bw, lib) -> dict:
                      "library_cast_ms": lib.get("library_cast",
                                                 {}).get(name),
                      "device_ms": device[name]}
+    if x.dtype == BF16:
+        # the bf16 wgrad at each dW tile width it is built for, the plan's
+        # choice among them
+        dw = torch.empty(w.shape, dtype=w.dtype, device=x.device)
+        sms = gm.sm_count(x.device.index)
+        plans = {bn: gm.wgrad_plan(r, e, k, n, w.dtype, sms, bn=bn)
+                 for bn in gm.WGRAD_TILES_N}
+        out["grouped_mm_wgrad"]["ms_by_bn"] = {
+            bn: time_ms(lambda p=p: gm._launch_wgrad(x, dy, offs, dw, p),
+                        GROUPED_ITERS) for bn, p in plans.items()}
+        del dw
     out["active_experts"] = active
     return out
 
@@ -4570,7 +4596,9 @@ def routed_rows(cfg, p, tokens, gen, dev):
 def edge_offsets(e: int, dev) -> dict:
     """Offsets of the edge cases at E experts: every row in one expert,
     empty first and last experts (rows spread over the others), fewer
-    rows than one 64-row tile."""
+    rows than one 64-row tile, and ``nan_outside`` (``below_a_tile``'s
+    groups, then EDGE_NAN_ROWS rows of no group that hold NaN in x and dy:
+    the last groups' row boxes run into them)."""
     rng = np.random.default_rng(SEED)
     spread = np.zeros(e, np.int64)
     spread[1:-1] = rng.multinomial(1000, np.ones(e - 2) / (e - 2))
@@ -4579,7 +4607,7 @@ def edge_offsets(e: int, dev) -> dict:
     below = np.bincount([1, 1, e // 2, e - 2, e - 2], minlength=e)
     return {name: torch.tensor(np.cumsum(c), dtype=torch.int32, device=dev)
             for name, c in (("one_expert", one), ("empty_ends", spread),
-                            ("below_a_tile", below))}
+                            ("below_a_tile", below), ("nan_outside", below))}
 
 
 def moe_params(cfg, dev):
@@ -4666,14 +4694,17 @@ def grouped_check(smi, dev, peak_bw, gm) -> dict:
                 for case, offs in edge_offsets(e, dev).items():
                     gen.manual_seed(SEED)
                     r = int(offs[-1])
+                    tail = EDGE_NAN_ROWS if case == "nan_outside" else 0
                     for dt in (FP32, BF16):
-                        x = torch.randn((r, k), generator=gen,
+                        x = torch.randn((r + tail, k), generator=gen,
                                         device=dev).to(dt)
-                        dy = torch.randn((r, n), generator=gen,
+                        dy = torch.randn((r + tail, n), generator=gen,
                                          device=dev).to(dt)
+                        x[r:] = float("nan")
+                        dy[r:] = float("nan")
                         emit({"phase": "grouped_check", "arch": arch,
                               "weight": weight, "case": case, "E": e,
-                              "K": k, "N": n, "rows": r,
+                              "K": k, "N": n, "rows": r + tail,
                               "dtype": str(dt).replace("torch.", ""),
                               "w_dtype": str(wt.dtype).replace("torch.",
                                                                ""),

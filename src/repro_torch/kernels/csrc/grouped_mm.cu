@@ -11,7 +11,8 @@
 //                                      grouped_fwd_kernel (fp32)
 //   dgrad  dX[r] = dY[r] . W[g(r)]^T   grouped_dgrad_wgmma_kernel (bf16),
 //                                      grouped_dgrad_kernel (fp32)
-//   wgrad  dW[g] = X_g^T . dY_g        grouped_wgrad_kernel
+//   wgrad  dW[g] = X_g^T . dY_g        grouped_wgrad_wgmma_kernel (bf16),
+//                                      grouped_wgrad_kernel (fp32)
 //
 // over R rows sorted by group, X (R, K), W (E, K, N), Y (R, N); offs (E,)
 // int32 holds the groups' cumulative row ends and is read on the device.
@@ -70,21 +71,67 @@
 //     trip); min(R, ceil(R / BR) + E) row tiles cover any routing, the
 //     surplus exits.
 //
-// fp32 fwd and dgrad (reduced widths only) and wgrad: one CTA per 64 x 64
-// output tile. fwd and dgrad launch ceil(R / 64) + E row tiles (enough for
-// every group's last partial tile), found as above from offs in device
-// memory. wgrad launches one CTA per (group, K-tile, N-tile) and walks its
-// group's rows in chunks. The loop stages a tile of each operand in shared
-// memory (a warp reads consecutive addresses along whichever axis is
-// contiguous), then multiplies; bf16 wgrad on mma.sync m16n8k16. Index
-// arithmetic is 64-bit where it spans a matrix (deepseek-v2's W holds
-// 1.26e9 values).
+// bf16 wgrad (the training path's weight gradient). dW is the bound: all
+// of it is written, an expert without rows included (deepseek-v2's fp32
+// dW is 5.03 GB a product) against 0.16 GB of x and dY at batch A. So the
+// kernel keeps dW's store stream busy, overlaps it with the products, and
+// reads few operand bytes beside it (they share L2 with the stores):
+//
+//   * a work item is (expert, 128 of K, BN of N) of dW, BN 128 or 256; a
+//     persistent grid of about one CTA an SM walks the items in a fixed
+//     order (CTA c takes items c, c + grid, ...), experts outermost, so
+//     the CTAs in flight share one expert's rows in L2. The tile, the grid
+//     and the ring's stages come from shapes and the SM count alone
+//     (kernels/grouped_mm.py, wgrad_plan): a capture fits any routing.
+//     Each CTA finds its group's rows from a copy of offs in shared memory;
+//   * one producer thread keeps a TMA ring of stages in flight on full and
+//     empty mbarriers: a stage is 64 routed rows from the group's first
+//     row on, the x box (64 rows x 128 of K, two 128-byte panels) and the
+//     dY box (64 rows x BN, BN / 64 panels), 128-byte swizzle. The group's
+//     last, partial stage comes in boxes of 16 rows, as many as its rows
+//     need (deepseek-v2's batch A has ~77 rows an expert: 80 rows read,
+//     not 128). A box may run into the next group's rows or past R (TMA
+//     reads zeros there);
+//   * two consumer warpgroups, 64 of K each, run wgmma m64nBNk16 with the
+//     routed rows as the reduction, one a 16 rows: A = x_g^T and B = dY_g,
+//     both MN-major in shared memory (the transpose bits of the SS form).
+//     A comes straight from the TMA box: the register form would need an
+//     ldmatrix.trans of every fragment and registers beside the BN / 2
+//     accumulators, for nothing the SS form lacks;
+//   * rows outside the group add exactly nothing, whatever they hold (inf
+//     or NaN too): where the group ends inside a 16-row step, the
+//     consumers zero the step's rows at or past the end in both boxes in
+//     shared memory, then fence.proxy.async (wgmma reads through the async
+//     proxy) before the product;
+//   * the epilogue rounds the accumulator to bf16, widens it to W's dtype
+//     and stages it in shared memory in 128-byte swizzled panels (no bank
+//     conflict: a warp's accesses cover each bank the fewest times their
+//     bytes allow). The consumers then store it in 16-byte stores of whole
+//     lines, half of it after each wgmma of the next item is issued and
+//     before it is waited for, the rest before the next epilogue: the
+//     stores of one item and the products of the next overlap without a
+//     second staged tile (the store stream needs the issue slots of many
+//     warps: three store warps, or TMA stores, kept it slower). An expert
+//     without rows issues no load and no wgmma: its tile goes out as
+//     zeros straight from registers;
+//   * each output element has one accumulator chain, steps in row order:
+//     no atomics and no split of the rows.
+//
+// fp32 compute (reduced widths only): one CTA per 64 x 64 output tile on
+// the CUDA cores with explicit FMAs. fwd and dgrad launch ceil(R / 64) + E
+// row tiles (enough for every group's last partial tile), found as above
+// from offs in device memory. wgrad launches one CTA per (group, K-tile,
+// N-tile) and walks its group's rows in chunks. The loop stages a tile of
+// each operand in shared memory (a warp reads consecutive addresses along
+// whichever axis is contiguous), then multiplies. Index arithmetic is
+// 64-bit where it spans a matrix (deepseek-v2's W holds 1.26e9 values).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper.cuh"
 
@@ -106,13 +153,11 @@ template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// The multiply of one 64 x 64 output tile, by compute dtype. A staged
-// operand tile of KT x 64 lives in shared memory at at(kk, mn).
-template <typename TC> struct Core;
-
-// fp32: 256 threads, 4 x 4 outputs each, FMAs on the CUDA cores; tiles laid
-// out [k][mn] so that a thread reads its 4 rows and 4 columns as float4.
-template <> struct Core<float> {
+// The multiply of one 64 x 64 output tile on the CUDA cores (fp32
+// compute): 256 threads, 4 x 4 outputs each, explicit FMAs. A staged
+// operand tile of BK x 64 lives in shared memory at at(kk, mn), laid out
+// [k][mn] so that a thread reads its 4 rows and 4 columns as float4.
+struct Core {
   static constexpr int BK = 16, THREADS = 256, LDS = BM + 4;
   static constexpr int SMEM = BK * LDS;
   float acc[4][4];
@@ -150,95 +195,24 @@ template <> struct Core<float> {
   }
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// bf16: 4 warps in a 2 x 2 grid, 32 x 32 outputs each as 2 x 4 mma.sync
-// m16n8k16 tiles with fp32 accumulators; tiles laid out [mn][k] (k
-// contiguous, rows padded to 40 values: the fragment loads hit 32 banks).
-template <> struct Core<bf16> {
-  static constexpr int BK = 32, THREADS = 128, LDS = BK + 8;
-  static constexpr int SMEM = BM * LDS;
-  float acc[2][4][4];
-
-  __device__ static int at(int kk, int mn) { return mn * LDS + kk; }
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-  }
-
-  __device__ void step(const bf16* As, const bf16* Bs) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / 2, wn = warp % 2, gid = lane / 4, tig = lane % 4;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + gid;
-        a[mi][0] = ld32(As + at(ks + tig * 2, r));
-        a[mi][1] = ld32(As + at(ks + tig * 2, r + 8));
-        a[mi][2] = ld32(As + at(ks + tig * 2 + 8, r));
-        a[mi][3] = ld32(As + at(ks + tig * 2 + 8, r + 8));
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn * 32 + ni * 8 + gid;
-        b[ni][0] = ld32(Bs + at(ks + tig * 2, c));
-        b[ni][1] = ld32(Bs + at(ks + tig * 2 + 8, c));
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          float* d = acc[mi][ni];
-          asm volatile(
-              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-              "{%0, %1, %2, %3};\n"
-              : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-              : "r"(a[mi][0]), "r"(a[mi][1]), "r"(a[mi][2]), "r"(a[mi][3]),
-                "r"(b[ni][0]), "r"(b[ni][1]));
-        }
-    }
-  }
-
-  template <typename F> __device__ void each(F f) const {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / 2, wn = warp % 2, gid = lane / 4, tig = lane % 4;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          f(wm * 32 + mi * 16 + gid + (c >= 2 ? 8 : 0),
-            wn * 32 + ni * 8 + tig * 2 + (c & 1), acc[mi][ni][c]);
-  }
-};
-
-// Stage a KT x MT operand tile into shared memory in the compute dtype:
-// element (kk, mn) is src[kk * ld + mn] (K_CONTIG false) or src[mn * ld +
-// kk] (K_CONTIG true), zero outside (k_lim, mn_lim). The thread index runs
-// fastest along the contiguous axis, so a warp reads consecutive addresses.
-template <typename TC, int KT, int MT, bool K_CONTIG, typename TS>
-__device__ __forceinline__ void stage(TC* s, const TS* __restrict__ src,
+// Stage a BK x 64 operand tile into shared memory in fp32: element (kk,
+// mn) is src[kk * ld + mn] (K_CONTIG false) or src[mn * ld + kk] (K_CONTIG
+// true), widened from TS, zero outside (k_lim, mn_lim). The thread index
+// runs fastest along the contiguous axis, so a warp reads consecutive
+// addresses.
+template <bool K_CONTIG, typename TS>
+__device__ __forceinline__ void stage(float* s, const TS* __restrict__ src,
                                       long long ld, int k_lim, int mn_lim) {
+  constexpr int KT = Core::BK, MT = 64;
 #pragma unroll 4
-  for (int i = threadIdx.x; i < KT * MT; i += Core<TC>::THREADS) {
+  for (int i = threadIdx.x; i < KT * MT; i += Core::THREADS) {
     const int kk = K_CONTIG ? i % KT : i / MT;
     const int mn = K_CONTIG ? i / KT : i % MT;
     float v = 0.f;
     if (kk < k_lim && mn < mn_lim)
       v = as_float(src[K_CONTIG ? (long long)mn * ld + kk
                                 : (long long)kk * ld + mn]);
-    s[Core<TC>::at(kk, mn)] = from_float<TC>(v);
+    s[Core::at(kk, mn)] = v;
   }
 }
 
@@ -302,118 +276,116 @@ __device__ Tile row_tile(const int* __restrict__ offs, int E, long long R,
 
 // fwd (DGRAD false): out (R, nout) = a (R, kin) . W[g], W (E, kin, nout).
 // dgrad (DGRAD true): out (R, nout) = a (R, kin) . W[g]^T, W (E, nout, kin).
-template <typename TC, typename TW, bool DGRAD>
-__device__ __forceinline__ void rows_body(const TC* __restrict__ a,
+template <typename TW, bool DGRAD>
+__device__ __forceinline__ void rows_body(const float* __restrict__ a,
                                           const TW* __restrict__ w,
                                           const int* __restrict__ offs,
-                                          TC* __restrict__ out, long long R,
+                                          float* __restrict__ out, long long R,
                                           int kin, int nout, int E) {
-  using C = Core<TC>;
-  __shared__ __align__(16) TC As[C::SMEM];
-  __shared__ __align__(16) TC Bs[C::SMEM];
+  __shared__ __align__(16) float As[Core::SMEM];
+  __shared__ __align__(16) float Bs[Core::SMEM];
   const Tile tile = row_tile(offs, E, R, blockIdx.x, BM);
   if (tile.g < 0) return;
   const int n0 = blockIdx.y * BN;
   const int rows = tile.r1 - tile.r0, cols = min(BN, nout - n0);
-  C core;
+  Core core;
   core.zero();
   if (tile.g < E) {
-    const TC* a0 = a + (long long)tile.r0 * kin;
+    const float* a0 = a + (long long)tile.r0 * kin;
     const TW* wg = w + (long long)tile.g * kin * nout;
-    for (int k0 = 0; k0 < kin; k0 += C::BK) {
-      const int kl = min(C::BK, kin - k0);
-      stage<TC, C::BK, BM, true>(As, a0 + k0, kin, kl, rows);
+    for (int k0 = 0; k0 < kin; k0 += Core::BK) {
+      const int kl = min(Core::BK, kin - k0);
+      stage<true>(As, a0 + k0, kin, kl, rows);
       if (DGRAD)  // (kk, n) = W[g][n0 + n][k0 + kk]
-        stage<TC, C::BK, BN, true>(Bs, wg + (long long)n0 * kin + k0, kin,
-                                   kl, cols);
+        stage<true>(Bs, wg + (long long)n0 * kin + k0, kin, kl, cols);
       else        // (kk, n) = W[g][k0 + kk][n0 + n]
-        stage<TC, C::BK, BN, false>(Bs, wg + (long long)k0 * nout + n0,
-                                    nout, kl, cols);
+        stage<false>(Bs, wg + (long long)k0 * nout + n0, nout, kl, cols);
       __syncthreads();
       core.step(As, Bs);
       __syncthreads();
     }
   }
-  TC* o = out + (long long)tile.r0 * nout + n0;
+  float* o = out + (long long)tile.r0 * nout + n0;
   core.each([&](int m, int n, float v) {
-    if (m < rows && n < cols) o[(long long)m * nout + n] = from_float<TC>(v);
+    if (m < rows && n < cols) o[(long long)m * nout + n] = v;
   });
 }
 
-template <typename TC, typename TW>
-__global__ void __launch_bounds__(Core<TC>::THREADS)
-    grouped_fwd_kernel(const TC* __restrict__ a, const TW* __restrict__ w,
-                       const int* __restrict__ offs, TC* __restrict__ out,
+template <typename TW>
+__global__ void __launch_bounds__(Core::THREADS)
+    grouped_fwd_kernel(const float* __restrict__ a, const TW* __restrict__ w,
+                       const int* __restrict__ offs, float* __restrict__ out,
                        long long R, int kin, int nout, int E) {
-  rows_body<TC, TW, false>(a, w, offs, out, R, kin, nout, E);
+  rows_body<TW, false>(a, w, offs, out, R, kin, nout, E);
 }
 
-template <typename TC, typename TW>
-__global__ void __launch_bounds__(Core<TC>::THREADS)
-    grouped_dgrad_kernel(const TC* __restrict__ a, const TW* __restrict__ w,
-                         const int* __restrict__ offs, TC* __restrict__ out,
+template <typename TW>
+__global__ void __launch_bounds__(Core::THREADS)
+    grouped_dgrad_kernel(const float* __restrict__ a, const TW* __restrict__ w,
+                         const int* __restrict__ offs, float* __restrict__ out,
                          long long R, int kin, int nout, int E) {
-  rows_body<TC, TW, true>(a, w, offs, out, R, kin, nout, E);
+  rows_body<TW, true>(a, w, offs, out, R, kin, nout, E);
 }
 
-// dW[g] (K, N) = x_g^T . dy_g over the group's rows; x (R, K), dy (R, N).
-template <typename TC, typename TW>
-__global__ void __launch_bounds__(Core<TC>::THREADS)
-    grouped_wgrad_kernel(const TC* __restrict__ x, const TC* __restrict__ dy,
+// dW[g] (K, N) = x_g^T . dy_g over the group's rows in fp32, stored in TW;
+// x (R, K), dy (R, N).
+template <typename TW>
+__global__ void __launch_bounds__(Core::THREADS)
+    grouped_wgrad_kernel(const float* __restrict__ x,
+                         const float* __restrict__ dy,
                          const int* __restrict__ offs, TW* __restrict__ dw,
                          long long R, int K, int N, int E) {
-  using C = Core<TC>;
-  __shared__ __align__(16) TC As[C::SMEM];
-  __shared__ __align__(16) TC Bs[C::SMEM];
+  __shared__ __align__(16) float As[Core::SMEM];
+  __shared__ __align__(16) float Bs[Core::SMEM];
   const int g = blockIdx.y;
   const int tiles_n = (N + BN - 1) / BN;
   const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
   const int rows_k = min(BM, K - m0), cols = min(BN, N - n0);
   const int start = g ? clamp_row(offs[g - 1], R) : 0;
   const int end = max(start, clamp_row(offs[g], R));
-  C core;
+  Core core;
   core.zero();
-  for (int r = start; r < end; r += C::BK) {
-    const int kl = min(C::BK, end - r);
+  for (int r = start; r < end; r += Core::BK) {
+    const int kl = min(Core::BK, end - r);
     // (kk, m) = x[r + kk][m0 + m]; (kk, n) = dy[r + kk][n0 + n]
-    stage<TC, C::BK, BM, false>(As, x + (long long)r * K + m0, K, kl, rows_k);
-    stage<TC, C::BK, BN, false>(Bs, dy + (long long)r * N + n0, N, kl, cols);
+    stage<false>(As, x + (long long)r * K + m0, K, kl, rows_k);
+    stage<false>(Bs, dy + (long long)r * N + n0, N, kl, cols);
     __syncthreads();
     core.step(As, Bs);
     __syncthreads();
   }
   TW* o = dw + (long long)g * K * N + (long long)m0 * N + n0;
   core.each([&](int m, int n, float v) {
-    if (m < rows_k && n < cols)
-      o[(long long)m * N + n] = from_float<TW>(as_float(from_float<TC>(v)));
+    if (m < rows_k && n < cols) o[(long long)m * N + n] = from_float<TW>(v);
   });
 }
 
-template <typename TC, typename TW>
+template <typename TW>
 int launch_rows(const void* a, const void* w, const void* offs, void* out,
                 long long R, int kin, int nout, int E, int dgrad,
                 cudaStream_t st) {
   const dim3 grid((unsigned)((R + BM - 1) / BM + E),
                   (unsigned)((nout + BN - 1) / BN));
-  const dim3 block(Core<TC>::THREADS);
+  const dim3 block(Core::THREADS);
   if (dgrad)
-    grouped_dgrad_kernel<TC, TW><<<grid, block, 0, st>>>(
-        (const TC*)a, (const TW*)w, (const int*)offs, (TC*)out, R, kin, nout,
-        E);
+    grouped_dgrad_kernel<TW><<<grid, block, 0, st>>>(
+        (const float*)a, (const TW*)w, (const int*)offs, (float*)out, R, kin,
+        nout, E);
   else
-    grouped_fwd_kernel<TC, TW><<<grid, block, 0, st>>>(
-        (const TC*)a, (const TW*)w, (const int*)offs, (TC*)out, R, kin, nout,
-        E);
+    grouped_fwd_kernel<TW><<<grid, block, 0, st>>>(
+        (const float*)a, (const TW*)w, (const int*)offs, (float*)out, R, kin,
+        nout, E);
   return (int)cudaGetLastError();
 }
 
-template <typename TC, typename TW>
+template <typename TW>
 int launch_wgrad(const void* x, const void* dy, const void* offs, void* dw,
                  long long R, int K, int N, int E, cudaStream_t st) {
   const dim3 grid((unsigned)(((K + BM - 1) / BM) * ((N + BN - 1) / BN)),
                   (unsigned)E);
-  grouped_wgrad_kernel<TC, TW><<<grid, Core<TC>::THREADS, 0, st>>>(
-      (const TC*)x, (const TC*)dy, (const int*)offs, (TW*)dw, R, K, N, E);
+  grouped_wgrad_kernel<TW><<<grid, Core::THREADS, 0, st>>>(
+      (const float*)x, (const float*)dy, (const int*)offs, (TW*)dw, R, K, N,
+      E);
   return (int)cudaGetLastError();
 }
 
@@ -787,6 +759,328 @@ int plan_of(int br, int stages) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 wgrad: wgmma with the routed rows as the reduction
+// ---------------------------------------------------------------------------
+
+constexpr int kWgradTileK = 128;  // dW rows (of K) an item: two warpgroups
+constexpr int kWgradStep = 64;    // routed rows a stage of the ring
+constexpr int kWgradSub = 16;     // rows a box of a group's partial stage
+constexpr int kPanel = 64 * 128;  // one swizzled box: 64 rows of 128 bytes
+static_assert(kWgradSub == 16, "a partial stage's box is one wgmma step");
+
+// Shared-memory plan of a wgrad CTA with dW tiles of kWgradTileK x BN in TW
+// (bytes from a 1024-aligned base): the staged dW tile, a 64 x BN half a
+// consumer warpgroup, in panels of 64 rows x PO values; the ring, each
+// stage the x box (two panels: 64 rows x 128 of K) and the dY box (BN / 64
+// panels: 64 rows x BN); the full and empty mbarriers; the copy of offs.
+// Every panel has the 128-byte swizzle. wgrad_smem in kernels/grouped_mm.py
+// repeats bytes().
+template <int BN, typename TW>
+struct WgradPlan {
+  static constexpr int PO = 128 / (int)sizeof(TW);  // dW values a panel row
+  static constexpr int OUT_WG = 64 * BN * (int)sizeof(TW);
+  static constexpr int RING = 2 * OUT_WG;  // where the ring starts
+  static constexpr int X_BOX = 2 * kPanel;
+  static constexpr int STAGE = X_BOX + (BN / 64) * kPanel;
+  static constexpr int PANELS = STAGE / kPanel;
+  static constexpr long long bytes(int stages, int E) {
+    return 1024LL + RING + (long long)stages * (STAGE + 16) + 4LL * E;
+  }
+  static_assert(BN == 128 || BN == 256, "the dW tile widths");
+};
+
+// The (expert, first dW row, first dW column, first routed row, row past
+// the last) of work item t.
+struct WgradItem {
+  int g, k0, n0, start, end;
+};
+
+__device__ __forceinline__ WgradItem wgrad_item(const int* soffs, long long R,
+                                                int t, int k_tiles,
+                                                int n_tiles, int bn) {
+  const int per_g = k_tiles * n_tiles, rest = t % per_g;
+  WgradItem it;
+  it.g = t / per_g;
+  it.k0 = (rest / n_tiles) * kWgradTileK;
+  it.n0 = (rest % n_tiles) * bn;
+  it.start = it.g ? clamp_row(soffs[it.g - 1], R) : 0;
+  it.end = max(it.start, clamp_row(soffs[it.g], R));
+  return it;
+}
+
+// The routed rows of a stage from row r of a group that ends at row end:
+// a whole stage of kWgradStep, or the last, partial one in ceil(valid /
+// kWgradSub) boxes of kWgradSub rows (wgmma steps of 16).
+__device__ __forceinline__ int wgrad_steps(int r, int end) {
+  const int valid = end - r;
+  return valid >= kWgradStep ? kWgradStep / 16
+                             : (valid + kWgradSub - 1) / kWgradSub;
+}
+
+// A consumer warpgroup's 64 x BN half of an item's dW tile on its way out:
+// 16-byte vectors of whole lines, vector j of this thread (0 <= j < J) at
+// v = wtid + 128 j, row v / V, columns (v % V) VW ... + VW - 1 (a warp
+// writes 512 contiguous bytes), read from the staged half or zero.
+template <int BN, typename TW>
+struct WgradOut {
+  static constexpr int V = BN * (int)sizeof(TW) / 16;  // vectors a row
+  static constexpr int VW = 16 / (int)sizeof(TW);      // dW values a vector
+  static constexpr int J = 64 * V / 128;               // vectors a thread
+  const uint8_t* staged;
+  TW* o;  // the half's first element in dW
+  int rows, cols, next;
+
+  __device__ void begin(const uint8_t* s, TW* dw, const WgradItem& it,
+                        int k0, int K, int N) {
+    staged = s;
+    o = dw + ((long long)it.g * K + k0) * N + it.n0;
+    rows = min(64, K - k0);
+    cols = min(BN, N - it.n0);
+    next = 0;
+  }
+
+  // Store this thread's vectors next ... upto - 1 (zeros when zero).
+  __device__ void put(int upto, int wtid, int N, bool zero = false) {
+    using P = WgradPlan<BN, TW>;
+    for (; next < min(upto, J); ++next) {
+      const int v = wtid + 128 * next, row = v / V, col = (v % V) * VW;
+      if (row < rows && col < cols) {
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (!zero)
+          val = *reinterpret_cast<const uint4*>(
+              staged + (col / P::PO) * kPanel +
+              swizzle128(row, (col % P::PO) * (int)sizeof(TW)));
+        *reinterpret_cast<uint4*>(o + (long long)row * N + col) = val;
+      }
+    }
+  }
+};
+
+// dW[g] (K, N) = x_g^T . dy_g, rounded to bf16, stored in TW (see the
+// header). xmap, xmap16: x as (K, R, 1, 1), boxes of (64, 64) and (64,
+// 16); dymap, dymap16: dy as (N, R, 1, 1), the same boxes. Item t is
+// expert t / (k_tiles n_tiles), then K tile, then N tile.
+template <int BN, typename TW>
+__global__ void __launch_bounds__(kThreads, 1) grouped_wgrad_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap xmap16,
+    const __grid_constant__ CUtensorMap dymap,
+    const __grid_constant__ CUtensorMap dymap16, const int* __restrict__ offs,
+    TW* __restrict__ dw, long long R, int K, int N, int E, int stages) {
+  using P = WgradPlan<BN, TW>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const sbase = smem_raw + (base - smem_u32(smem_raw));
+  const int tid = threadIdx.x;
+  const uint32_t ring = base + P::RING;
+  const uint32_t full0 = ring + stages * P::STAGE, empty0 = full0 + 8 * stages;
+  int* const soffs =
+      reinterpret_cast<int*>(sbase + P::RING + stages * (P::STAGE + 16));
+  const int k_tiles = (K + kWgradTileK - 1) / kWgradTileK;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int items = E * k_tiles * n_tiles;
+
+  for (int e = tid; e < E; e += kThreads) soffs[e] = offs[e];
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);  // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer warpgroup: one thread keeps the ring full, item after item
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == kConsumers) {
+      uint32_t i = 0;
+      for (int t = blockIdx.x; t < items; t += gridDim.x) {
+        const WgradItem it = wgrad_item(soffs, R, t, k_tiles, n_tiles, BN);
+        for (int r = it.start; r < it.end; r += kWgradStep, ++i) {
+          const uint32_t s = i % stages, phase = (i / stages) & 1;
+          const uint32_t full = full0 + 8 * s, st = ring + s * P::STAGE;
+          const int steps = wgrad_steps(r, it.end);
+          mbar_wait(empty0 + 8 * s, phase ^ 1);  // the stage is free
+          mbar_expect_tx(full, P::PANELS * kWgradSub * 128 * steps);
+          if (steps == kWgradStep / 16) {
+            for (int p = 0; p < 2; ++p)
+              tma_load(st + p * kPanel, &xmap, full, it.k0 + 64 * p, r, 0,
+                       0);
+            for (int p = 0; p < BN / 64; ++p)
+              tma_load(st + P::X_BOX + p * kPanel, &dymap, full,
+                       it.n0 + 64 * p, r, 0, 0);
+          } else {
+            for (int j = 0; j < steps; ++j) {
+              const int rj = r + kWgradSub * j;
+              const uint32_t sj = st + kWgradSub * 128 * j;
+              for (int p = 0; p < 2; ++p)
+                tma_load(sj + p * kPanel, &xmap16, full, it.k0 + 64 * p, rj,
+                         0, 0);
+              for (int p = 0; p < BN / 64; ++p)
+                tma_load(sj + P::X_BOX + p * kPanel, &dymap16, full,
+                         it.n0 + 64 * p, rj, 0, 0);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: warpgroup wg owns dW rows k0 + 64 wg ... + 63 of
+  // an item; this thread's accumulator rows are m and m + 8 of them, its
+  // columns 8 j + 2 tig and the one after it
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid >> 7, wtid = tid & 127;
+  const int lane = tid & 31, tig = lane & 3;
+  const int m = 16 * (wtid >> 5) + (lane >> 2);
+  uint8_t* const out_s = sbase + wg * P::OUT_WG;
+  using Out = WgradOut<BN, TW>;
+  Out staged;  // the last item with rows: its staged half, still going out
+  staged.next = Out::J;
+  float acc[BN / 2];
+  uint32_t i = 0;
+  for (int t = blockIdx.x; t < items; t += gridDim.x) {
+    const WgradItem it = wgrad_item(soffs, R, t, k_tiles, n_tiles, BN);
+    if (it.end == it.start) {  // no rows: no load, no product, zeros out
+      Out zero;
+      zero.begin(out_s, dw, it, it.k0 + 64 * wg, K, N);
+      zero.put(Out::J, wtid, N, true);
+      continue;
+    }
+#pragma unroll
+    for (int r = 0; r < BN / 2; ++r) acc[r] = 0.f;
+    for (int r = it.start; r < it.end; r += kWgradStep, ++i) {
+      const uint32_t s = i % stages;
+      const uint32_t st = ring + s * P::STAGE;
+      mbar_wait(full0 + 8 * s, (i / stages) & 1);
+      const int valid = it.end - r, steps = wgrad_steps(r, it.end);
+      if (valid < kWgradSub * steps) {
+        // the group's last step: rows at or past its end (the next
+        // group's, rows of no group, zeros past R) add exactly nothing,
+        // whatever they hold
+        uint8_t* const p0 = sbase + P::RING + s * P::STAGE + valid * 128;
+        const int chunks = (kWgradSub * steps - valid) * 8;  // 16 B each
+        for (int c = tid; c < P::PANELS * chunks; c += kConsumers)
+          *reinterpret_cast<uint4*>(p0 + (c / chunks) * kPanel +
+                                    (c % chunks) * 16) = make_uint4(0, 0, 0,
+                                                                    0);
+        fence_proxy_async();
+        asm volatile("bar.sync 3, 256;\n" ::: "memory");
+      }
+      __syncwarp();  // wgmma's .aligned forms need the warp converged
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // 16 routed rows a step
+        if (kk < steps)
+          wgmma_ss_mn(
+              acc, smem_desc(st + wg * kPanel + kk * 2048, kPanel, 1024, 1),
+              smem_desc(st + P::X_BOX + kk * 2048, kPanel, 1024, 1));
+      wgmma_commit();
+      // while the products run: half the last item's stores
+      staged.put(staged.next + Out::J / 2, wtid, N);
+      wgmma_wait_all();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    }
+
+    // the epilogue: the last item's stores done, bf16, then TW, into this
+    // warpgroup's staged half; its stores go out during the next item's
+    // products
+    staged.put(Out::J, wtid, N);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+#pragma unroll
+    for (int r = 0; r < BN / 2; r += 2) {
+      const int row = m + 8 * ((r >> 1) & 1), col = 8 * (r >> 2) + 2 * tig;
+      const uint32_t pb = pack_bf16(acc[r], acc[r + 1]);
+      uint8_t* const dst = out_s + (col / P::PO) * kPanel +
+                           swizzle128(row, (col % P::PO) * (int)sizeof(TW));
+      if constexpr (sizeof(TW) == 4)
+        *reinterpret_cast<float2*>(dst) = make_float2(
+            __uint_as_float(pb << 16), __uint_as_float(pb & 0xffff0000u));
+      else
+        *reinterpret_cast<uint32_t*>(dst) = pb;
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    staged.begin(out_s, dw, it, it.k0 + 64 * wg, K, N);
+  }
+  staged.put(Out::J, wtid, N);
+}
+
+template <int BN, typename TW>
+int launch_wgrad_wgmma(const void* x, const void* dy, const void* offs,
+                       void* dw, long long R, int K, int N, int E, int stages,
+                       int ctas, cudaStream_t st) {
+  using P = WgradPlan<BN, TW>;
+  const long long items = (long long)E * ((K + kWgradTileK - 1) / kWgradTileK) *
+                          ((N + BN - 1) / BN);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long bytes = P::bytes(stages, E);
+  if (stages < 2 || ctas < 1 || items > INT_MAX || bytes > optin)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  // no row: no load, no map of x or dy (TMA takes no empty tensor)
+  CUtensorMap maps[4];
+  memset(maps, 0, sizeof maps);
+  CUresult res = CUDA_SUCCESS;
+  for (int m = 0; m < 4 && R > 0 && res == CUDA_SUCCESS; ++m)
+    res = encode_mats(fn, &maps[m], m < 2 ? x : dy,
+                      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, m < 2 ? K : N, R,
+                      1, 64, m % 2 ? kWgradSub : kWgradStep);
+  if (res != CUDA_SUCCESS) return kEncodeFailed + (int)res;
+  auto kernel = grouped_wgrad_wgmma_kernel<BN, TW>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)(ctas < items ? ctas : items), kThreads, (size_t)bytes,
+           st>>>(maps[0], maps[1], maps[2], maps[3], (const int*)offs,
+                 (TW*)dw, R, K, N, E, stages);
+  return (int)cudaGetLastError();
+}
+
+// The dW tile widths that the bf16 wgrad kernel is built for (wgrad_plan
+// in kernels/grouped_mm.py picks one).
+#define GROUPED_WGRAD_TILES(X) X(128) X(256)
+
+template <typename TW>
+int launch_wgrad_bn(int bn, const void* x, const void* dy, const void* offs,
+                    void* dw, long long R, int K, int N, int E, int stages,
+                    int ctas, cudaStream_t st) {
+  switch (bn) {
+#define CASE(B)                                                           \
+  case B:                                                                 \
+    return launch_wgrad_wgmma<B, TW>(x, dy, offs, dw, R, K, N, E, stages, \
+                                     ctas, st);
+    GROUPED_WGRAD_TILES(CASE)
+#undef CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TW>
+long long wgrad_bytes(int bn, int stages, int E) {
+  switch (bn) {
+#define CASE(B) \
+  case B:       \
+    return WgradPlan<B, TW>::bytes(stages, E);
+    GROUPED_WGRAD_TILES(CASE)
+#undef CASE
+    default:
+      return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -810,10 +1104,10 @@ int grouped_mm_rows(const void* a, const void* w, const void* offs, void* out,
                                           nout, E, dgrad, splits, st)
                   : launch_wgmma_br<float>(br, a, w, offs, out, part, R, kin,
                                            nout, E, dgrad, splits, st);
-  return w_bf16 ? launch_rows<float, bf16>(a, w, offs, out, R, kin, nout, E,
-                                           dgrad, st)
-                : launch_rows<float, float>(a, w, offs, out, R, kin, nout, E,
-                                            dgrad, st);
+  return w_bf16 ? launch_rows<bf16>(a, w, offs, out, R, kin, nout, E, dgrad,
+                                    st)
+                : launch_rows<float>(a, w, offs, out, R, kin, nout, E, dgrad,
+                                     st);
 }
 
 // The ring's stages (stages 1) or the dynamic shared memory of a CTA in
@@ -824,16 +1118,31 @@ int grouped_rows_plan(int br, int w_bf16, int stages) {
 }
 
 // dW (E, K, N) in W's dtype (w_bf16) = x_g^T . dy_g, rounded to the compute
-// dtype first; x (R, K) and dy (R, N) in the compute dtype (x_bf16).
+// dtype first; x (R, K) and dy (R, N) in the compute dtype (x_bf16). bf16
+// compute takes the wgmma kernel with dW tiles of 128 x bn, a ring of
+// stages and ctas persistent CTAs (x, dy 16-byte aligned); fp32 compute
+// the CUDA-core kernel (bn, stages and ctas unused). Returns a cudaError_t,
+// or 10000 + the CUresult of a tensor map that failed to encode.
 int grouped_mm_wgrad(const void* x, const void* dy, const void* offs,
                      void* dw, long long R, int K, int N, int E, int x_bf16,
-                     int w_bf16, void* stream) {
+                     int w_bf16, int bn, int stages, int ctas, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (x_bf16)
-    return w_bf16 ? launch_wgrad<bf16, bf16>(x, dy, offs, dw, R, K, N, E, st)
-                  : launch_wgrad<bf16, float>(x, dy, offs, dw, R, K, N, E, st);
-  return w_bf16 ? launch_wgrad<float, bf16>(x, dy, offs, dw, R, K, N, E, st)
-                : launch_wgrad<float, float>(x, dy, offs, dw, R, K, N, E, st);
+    return w_bf16 ? launch_wgrad_bn<bf16>(bn, x, dy, offs, dw, R, K, N, E,
+                                          stages, ctas, st)
+                  : launch_wgrad_bn<float>(bn, x, dy, offs, dw, R, K, N, E,
+                                           stages, ctas, st);
+  return w_bf16 ? launch_wgrad<bf16>(x, dy, offs, dw, R, K, N, E, st)
+                : launch_wgrad<float>(x, dy, offs, dw, R, K, N, E, st);
+}
+
+// The dynamic shared memory of a bf16 wgrad CTA in bytes at dW tile width
+// bn, W in bf16 (w_bf16) or fp32, the ring's stages and E experts; -1 for a
+// bn it is not built for, or a size past INT_MAX.
+int grouped_wgrad_plan(int bn, int w_bf16, int stages, int E) {
+  const long long b = w_bf16 ? wgrad_bytes<bf16>(bn, stages, E)
+                             : wgrad_bytes<float>(bn, stages, E);
+  return b > INT_MAX ? -1 : (int)b;
 }
 
 }  // extern "C"

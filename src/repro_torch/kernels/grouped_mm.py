@@ -25,8 +25,10 @@ counts its launches in :data:`LAUNCHES`.
 
 In bf16, forward and dgrad run on ``wgmma`` with the weights as the
 register operand; :func:`rows_plan` picks their row tile and their split of
-the reduction from shapes alone (``csrc/grouped_mm.cu`` sets out the
-design).
+the reduction from shapes alone. wgrad runs on ``wgmma`` with the routed
+rows as the reduction, in persistent CTAs that walk (expert, 128 × BN tile
+of dW) items; :func:`wgrad_plan` picks BN, the ring's stages and the grid
+from shapes alone (``csrc/grouped_mm.cu`` sets out both designs).
 """
 from __future__ import annotations
 
@@ -55,8 +57,12 @@ _SIGNATURES = {
                         _I, _P],
     # (br, w_bf16, stages): the ring's stages, or a CTA's shared memory
     "grouped_rows_plan": [_I, _I, _I],
-    # (x, dy, offs, dw, R, K, N, E, x_bf16, w_bf16, stream)
-    "grouped_mm_wgrad": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    # (x, dy, offs, dw, R, K, N, E, x_bf16, w_bf16, bn, stages, ctas,
+    #  stream)
+    "grouped_mm_wgrad": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
+    # (bn, w_bf16, stages, E): a wgrad CTA's shared memory
+    "grouped_wgrad_plan": [_I, _I, _I, _I],
 }
 
 # The bf16 forward and dgrad kernels (csrc/grouped_mm.cu): a CTA owns
@@ -109,6 +115,66 @@ def rows_plan(rows: int, e: int, kin: int, nout: int,
     splits = -(-steps // per)        # no slice left without a stage
     return RowsPlan(br, splits, per, m_tiles, row_tiles,
                     m_tiles * splits * row_tiles, busy)
+
+
+# The bf16 wgrad kernel: a work item is (expert, WGRAD_TILE_K rows of dW
+# held by two consumer warpgroups, BN columns); a stage of its ring is
+# WGRAD_STEP routed rows.
+WGRAD_TILE_K = 128
+WGRAD_TILES_N = (128, 256)   # the widths BN the kernel is built for
+WGRAD_STEP = 64
+WGRAD_MAX_STAGES = 8
+SMEM_OPTIN = 232_448         # shared memory an H100 CTA may opt into
+
+
+class WgradPlan(NamedTuple):
+    """The launch of a bf16 wgrad: dW tiles of WGRAD_TILE_K × ``bn``, a ring
+    of ``stages``, ``items`` = E × ``k_tiles`` × ``n_tiles`` work items
+    walked by ``ctas`` persistent CTAs of ``smem_bytes`` each."""
+    bn: int
+    stages: int
+    k_tiles: int
+    n_tiles: int
+    items: int
+    ctas: int
+    smem_bytes: int
+
+
+def wgrad_smem(bn: int, w_bytes: int, stages: int, e: int) -> int:
+    """A wgrad CTA's shared memory (``WgradPlan::bytes`` of
+    ``csrc/grouped_mm.cu``): alignment slack, the staged dW tile (128 × bn
+    in W's dtype), ``stages`` ring stages (the x and dY boxes of WGRAD_STEP
+    bf16 rows, two mbarriers) and the copy of ``offs``."""
+    stage = 2 * WGRAD_STEP * (WGRAD_TILE_K + bn) + 16
+    return 1024 + WGRAD_TILE_K * bn * w_bytes + stages * stage + 4 * e
+
+
+def wgrad_plan(rows: int, e: int, k: int, n: int, w_dtype: torch.dtype,
+               sms: int = H100_SMS, bn: int | None = None) -> WgradPlan:
+    """The bf16 wgrad's launch from shapes alone (rows R, experts E, dW's
+    K × N in ``w_dtype``, the card's SMs), never from ``offs``, so a
+    captured launch fits every routing. ``bn`` (unless given): 256 where
+    the mean group holds two stages of rows or more (R/E ≥ 2·WGRAD_STEP)
+    and N is wider than 128, if two stages fit beside the staged tile;
+    else 128, whose ring holds more stages to run ahead of items with few
+    rows; ``stages``: as many as fit in SMEM_OPTIN, at most
+    WGRAD_MAX_STAGES; ``ctas``: one an SM, at most one an item."""
+    w_bytes = w_dtype.itemsize
+    wide = rows >= 2 * WGRAD_STEP * e and n > WGRAD_TILES_N[0]
+    widths = (bn,) if bn is not None else \
+        WGRAD_TILES_N[::-1] if wide else WGRAD_TILES_N[:1]
+    for b in widths:
+        stage = wgrad_smem(b, w_bytes, 1, 0) - wgrad_smem(b, w_bytes, 0, 0)
+        stages = min(WGRAD_MAX_STAGES,
+                     (SMEM_OPTIN - wgrad_smem(b, w_bytes, 0, e)) // stage)
+        if stages >= 2:
+            k_tiles, n_tiles = -(-k // WGRAD_TILE_K), -(-n // b)
+            items = e * k_tiles * n_tiles
+            return WgradPlan(b, stages, k_tiles, n_tiles, items,
+                             min(items, sms),
+                             wgrad_smem(b, w_bytes, stages, e))
+    raise ValueError(f"E={e}: offs does not fit a wgrad CTA's shared "
+                     f"memory beside two stages")
 
 
 @functools.lru_cache(maxsize=None)
@@ -306,13 +372,34 @@ def grouped_mm_dgrad(dy, w, offs):
     return out
 
 
+def _launch_wgrad(x, dy, offs, out, plan: WgradPlan | None = None):
+    """One launch of the wgrad kernel into ``out`` (E, K, N): in bf16 on
+    ``plan`` (:func:`wgrad_plan`'s unless given), in fp32 on the CUDA
+    cores."""
+    (rows, k), n, e = x.shape, dy.shape[1], offs.shape[0]
+    bf16 = x.dtype == torch.bfloat16
+    bn = stages = ctas = 0
+    if bf16:
+        _check_tma(("x", x), ("dy", dy))
+        plan = plan or wgrad_plan(rows, e, k, n, out.dtype,
+                                  sm_count(x.device.index))
+        bn, stages, ctas = plan.bn, plan.stages, plan.ctas
+    fn = "grouped_mm_wgrad"
+    build.check(getattr(library(), fn)(
+        build.ptr(x), build.ptr(dy), build.ptr(offs), build.ptr(out), rows,
+        k, n, e, int(bf16), int(out.dtype == torch.bfloat16), bn, stages,
+        ctas, build.stream()), fn)
+
+
 @build.costed(lambda *a, **kw: _wgrad_cost(*a, **kw)[0],
               lambda *a, **kw: _wgrad_cost(*a, **kw)[1])
 def grouped_mm_wgrad(x, dy, offs, *, w_dtype):
     """dW (E, K, N) = x_gᵀ · dy_g, rounded to x's dtype, in ``w_dtype``
     (the backward of ``ragged_dot`` with respect to its weights, through
-    the cast). One CTA per (group, 64 x 64 tile of dW) walks its group's
-    rows in order: no atomics, reruns bit-identical."""
+    the cast). In bf16, persistent CTAs walk (expert, 128 × BN tile of dW)
+    items (:func:`wgrad_plan`), each summing its group's rows in order on
+    wgmma; in fp32 one CTA per (group, 64 x 64 tile) on the CUDA cores. No
+    atomics and no split of the rows: reruns bit-identical."""
     k, n = x.shape[1], dy.shape[1]
     _check(x.shape[0], (offs.shape[0], k, n), w_dtype, offs,
            ("x", x, k), ("dy", dy, n))
@@ -321,11 +408,7 @@ def grouped_mm_wgrad(x, dy, offs, *, w_dtype):
     if build.on_cpu(x, dy, offs):
         return grouped_mm_wgrad_plain(x, dy, offs, w_dtype=w_dtype)
     out = torch.empty((offs.shape[0], k, n), dtype=w_dtype, device=x.device)
-    fn = "grouped_mm_wgrad"
-    build.check(getattr(library(), fn)(
-        build.ptr(x), build.ptr(dy), build.ptr(offs), build.ptr(out),
-        x.shape[0], k, n, offs.shape[0], int(x.dtype == torch.bfloat16),
-        int(w_dtype == torch.bfloat16), build.stream()), fn)
+    _launch_wgrad(x, dy, offs, out)
     LAUNCHES["grouped_mm_wgrad"] += 1
     return out
 

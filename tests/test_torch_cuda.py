@@ -1474,7 +1474,14 @@ GROUPED_CASES = {
     # reduction, which splits K (fwd 8 slices, dgrad 2)
     "wide_group": ([0, 600, 40, 0], 128, 136),
     "decode_split": ([0, 2, 1, 0, 3], 4096, 1024),
+    # rows past the last group hold NaN in x and dy: the row boxes of both
+    # groups run into them (wgrad's stages of 64 rows, fwd's and dgrad's
+    # row tiles), which must add exactly nothing; two N tiles of wgrad, the
+    # second 8 wide, and a K tile whose second half lies past K
+    "nan_outside": ([0, 70, 0, 5], 136, 264),
 }
+# rows past offs[-1]
+GROUPED_TAILS = {"tail_rows": 11, "nan_outside": 57}
 
 
 def _grouped_inputs(dev, sizes, k, n, dtype, w_dtype=torch.float32,
@@ -1507,8 +1514,11 @@ def _grouped_gate(got, want, dtype):
 @pytest.mark.parametrize("case", list(GROUPED_CASES))
 def test_grouped_mm_kernels_match_plain_versions(dev, case, dtype, w_dtype):
     sizes, k, n = GROUPED_CASES[case]
-    tail = 11 if case == "tail_rows" else 0
+    tail = GROUPED_TAILS.get(case, 0)
     x, w, dy, offs = _grouped_inputs(dev, sizes, k, n, dtype, w_dtype, tail)
+    if case == "nan_outside":
+        x[sum(sizes):] = float("nan")
+        dy[sum(sizes):] = float("nan")
     gm.reset_launches()
     y = gm.grouped_mm_fwd(x, w, offs)
     dx = gm.grouped_mm_dgrad(dy, w, offs)
