@@ -34,6 +34,7 @@ from repro_torch.analysis.opbudget import OpBudget
 from repro_torch.analysis.provenance import wire_mark
 from repro_torch.compression.rotation import DEFAULT_BLOCK, pad_len, signs
 from repro_torch.kernels import exchange as kx
+from repro_torch.utils import spans
 
 BACKENDS = ("torch", "cuda")
 
@@ -240,8 +241,9 @@ class ExchangePipeline:
         """
         s, d = Y.shape
         up, down = self._wire(up), self._wire(down)
-        sg, u_cl, u_srv = self._randomness(generator, s, d, signs, u_cl,
-                                           u_srv)
+        with spans.span("exchange.draws", eager_only=True):
+            sg, u_cl, u_srv = self._randomness(generator, s, d, signs, u_cl,
+                                               u_srv)
 
         # Every (s, d_pad) temporary is dropped as soon as it is dead and
         # the client averaging runs in place, in the same order of
@@ -249,41 +251,48 @@ class ExchangePipeline:
         # the peak is the encode's inputs and outputs.
         # uplink: fused rotate+encode of every client message; the rotated
         # coords come back too and serve as downlink decode references
-        gam_up = self.gammas(hints_up, _norms(Y), d, up)
-        Y_rot, codes_up = self.rotate_encode(Y, sg, u_cl, gam_up, wire=up)
-        observe_lattice_wire(codes_up, gam_up, up, channel="up")
-        del u_cl
-        srv_rot = self.rotate(server[None], sg)
-        QY_rot = self.snap(codes_up, srv_rot, gam_up, up)       # (s, d_pad)
-        del codes_up
-        rel_err = torch.mean(_norms(QY_rot - Y_rot)
-                             / (_norms(Y_rot) + 1e-9))
+        with spans.span("exchange.uplink", eager_only=True):
+            gam_up = self.gammas(hints_up, _norms(Y), d, up)
+            Y_rot, codes_up = self.rotate_encode(Y, sg, u_cl, gam_up,
+                                                 wire=up)
+            observe_lattice_wire(codes_up, gam_up, up, channel="up")
+            del u_cl
+            srv_rot = self.rotate(server[None], sg)
+            QY_rot = self.snap(codes_up, srv_rot, gam_up, up)   # (s, d_pad)
+            del codes_up
+            rel_err = torch.mean(_norms(QY_rot - Y_rot)
+                                 / (_norms(Y_rot) + 1e-9))
 
         # downlink: Enc(X_t) quantizes the cached rotated server
-        hint_srv = torch.max(_norms(QY_rot - srv_rot)) + 1e-8
-        gam_dn = self.gammas(hint_srv[None], _norms(server[None]), d, down)
-        codes_dn = self.quantize(srv_rot, u_srv, gam_dn, down)
-        observe_lattice_wire(codes_dn, gam_dn, down, channel="down")
-        del u_srv
+        with spans.span("exchange.downlink", eager_only=True):
+            hint_srv = torch.max(_norms(QY_rot - srv_rot)) + 1e-8
+            gam_dn = self.gammas(hint_srv[None], _norms(server[None]), d,
+                                 down)
+            codes_dn = self.quantize(srv_rot, u_srv, gam_dn, down)
+            observe_lattice_wire(codes_dn, gam_dn, down, channel="down")
+            del u_srv
 
         # (s+1)-averaging in rotated coordinates; inverse-rotate only the
         # final states
-        if avg_mode in ("both", "server_only"):
-            srv_new_rot = (srv_rot[0] + torch.sum(QY_rot, 0)) / (s + 1)
-        else:
-            srv_new_rot = torch.mean(QY_rot, 0)
-        del QY_rot, srv_rot
-        QX_rot = self.snap(codes_dn, Y_rot, gam_dn, down)       # (s, d_pad)
-        del codes_dn
-        if avg_mode in ("both", "client_only"):
-            # QX/(s+1) + s·Y/(s+1), each step in place
-            cl_new_rot = QX_rot.div_(s + 1).add_(Y_rot.mul_(s).div_(s + 1))
-        else:
-            cl_new_rot = QX_rot
-        del QX_rot, Y_rot
-        server_new = self.unrotate(srv_new_rot[None], sg, d)[0]
-        del srv_new_rot
-        clients_new = self.unrotate(cl_new_rot, sg, d)
+        with spans.span("exchange.average", eager_only=True):
+            if avg_mode in ("both", "server_only"):
+                srv_new_rot = (srv_rot[0] + torch.sum(QY_rot, 0)) / (s + 1)
+            else:
+                srv_new_rot = torch.mean(QY_rot, 0)
+            del QY_rot, srv_rot
+            QX_rot = self.snap(codes_dn, Y_rot, gam_dn, down)   # (s, d_pad)
+            del codes_dn
+            if avg_mode in ("both", "client_only"):
+                # QX/(s+1) + s·Y/(s+1), each step in place
+                cl_new_rot = QX_rot.div_(s + 1).add_(
+                    Y_rot.mul_(s).div_(s + 1))
+            else:
+                cl_new_rot = QX_rot
+            del QX_rot, Y_rot
+        with spans.span("exchange.unrotate", eager_only=True):
+            server_new = self.unrotate(srv_new_rot[None], sg, d)[0]
+            del srv_new_rot
+            clients_new = self.unrotate(cl_new_rot, sg, d)
         return server_new, clients_new, hint_srv, rel_err
 
     # ------------------------------------------------------------------

@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.utils import spans
 from repro_torch.utils.tree import tree_unflatten_vector
 
 
@@ -104,14 +105,18 @@ def client_steps(loss_fn, template, batch_fn, x, data_i, rows, lr: float,
     when given, accumulates the active steps' gradients. Returns ``x``."""
     g = torch.empty_like(x)
     for q in range(rows.shape[0]):
-        client_grad(loss_fn, template, x, batch_fn(data_i, rows[q]), out=g)
-        if correction is not None:
-            g.sub_(correction)
-        if active is not None:
-            g.mul_(active[q])
-        if h is not None:
-            h.add_(g)
-        x.add_(g, alpha=-lr)
+        with spans.span("local.step", eager_only=True):
+            with spans.span("local.grad", eager_only=True):
+                client_grad(loss_fn, template, x, batch_fn(data_i, rows[q]),
+                            out=g)
+            with spans.span("local.update", eager_only=True):
+                if correction is not None:
+                    g.sub_(correction)
+                if active is not None:
+                    g.mul_(active[q])
+                if h is not None:
+                    h.add_(g)
+                x.add_(g, alpha=-lr)
     return x
 
 

@@ -70,6 +70,7 @@ from repro_torch.fed.population import (Population, build_population,
                                         client_rows, gather_rows,
                                         resolve_participation, scatter_rows,
                                         shard_population, whole_row)
+from repro_torch.utils import spans
 from repro_torch.utils.tree import (tree_flatten_vector, tree_size,
                                     tree_unflatten_vector)
 
@@ -182,19 +183,20 @@ class QuAFL:
                 if self._thread_ef else ())
 
     def init(self, params0) -> QuaflState:
-        x0 = tree_flatten_vector(params0).to(self.device)
-        n = self.fed.n_clients
-        pop = shard_population(build_population(
-            self.fed, n, lam=self.lam, device=self.device,
-            model=client_rows(x0, n),
-            last_time=torch.zeros(n, dtype=torch.float32,
-                                  device=self.device),
-            codec_up=self._codec_state0()), self.client_mesh)
-        # x0 is a fresh vector, so the server takes it without a copy
-        return QuaflState(server=x0, pop=pop,
-                          **counters0(self.device),
-                          srv_dist_est=torch.tensor(1e-3,
-                                                    device=self.device))
+        with spans.span("quafl.init"):
+            x0 = tree_flatten_vector(params0).to(self.device)
+            n = self.fed.n_clients
+            pop = shard_population(build_population(
+                self.fed, n, lam=self.lam, device=self.device,
+                model=client_rows(x0, n),
+                last_time=torch.zeros(n, dtype=torch.float32,
+                                      device=self.device),
+                codec_up=self._codec_state0()), self.client_mesh)
+            # x0 is a fresh vector, so the server takes it without a copy
+            return QuaflState(server=x0, pop=pop,
+                              **counters0(self.device),
+                              srv_dist_est=torch.tensor(1e-3,
+                                                        device=self.device))
 
     # ------------------------------------------------------------------
     def _local_progress(self, cl, data, idx, rows, h_steps,
@@ -202,8 +204,12 @@ class QuAFL:
         """Replay K masked SGD steps of every sampled client ``idx`` at its
         minibatch rows ``rows`` (s, K, B); returns h̃, the sum of the
         active steps' gradients, (s, d). ``correction`` (s, d), when given,
-        is taken off every gradient (SCAFFOLD's c_i − c)."""
+        is taken off every gradient (SCAFFOLD's c_i − c). Masked steps
+        run in full: ``local.steps_computed`` counts every step,
+        ``local.steps_active`` the unmasked ones."""
         eta = self.fed.lr
+        spans.count("local.steps_computed", rows.shape[0] * rows.shape[1])
+        spans.count("local.steps_active", h_steps)
         if self.batch_fn is not None:
             return cohort_progress(self.loss_fn, self.template,
                                    self.batch_fn, cl, data, idx, rows,
@@ -211,13 +217,14 @@ class QuAFL:
         xs, ys = gather_batches(data, idx, rows)
         x, h = cl, torch.zeros_like(cl)
         for q in range(self.fed.local_steps):
-            g = batched_grads(self.loss_fn, self.template, x,
-                              {"x": xs[:, q], "y": ys[:, q]})
-            if correction is not None:
-                g = g - correction
-            act = (q < h_steps).to(torch.float32)[:, None]
-            x = x - eta * act * g
-            h = h + act * g
+            with spans.span("local.step", eager_only=True):
+                g = batched_grads(self.loss_fn, self.template, x,
+                                  {"x": xs[:, q], "y": ys[:, q]})
+                if correction is not None:
+                    g = g - correction
+                act = (q < h_steps).to(torch.float32)[:, None]
+                x = x - eta * act * g
+                h = h + act * g
         return h
 
     # ------------------------------------------------------------------
@@ -231,34 +238,40 @@ class QuAFL:
         (server_new, clients_new, hint_srv, rel_err, the new residuals or
         None)."""
         s, d = Y.shape
-        key_up = (draws["key_up"] if "key_up" in draws
-                  else self.codec_up.keys(generator, s, d))
+        with spans.span("exchange.draws", eager_only=True):
+            key_up = (draws["key_up"] if "key_up" in draws
+                      else self.codec_up.keys(generator, s, d))
         cs_new = None
-        if cs is not None:
-            msg, cs_new = self.codec_up.encode_stateful(key_up, Y, hints_up,
-                                                        cs)
-        else:
-            msg = self.codec_up.encode(key_up, Y, hints_up)
-        QY = self.codec_up.decode(key_up, msg, server[None])
+        with spans.span("exchange.uplink", eager_only=True):
+            if cs is not None:
+                msg, cs_new = self.codec_up.encode_stateful(key_up, Y,
+                                                            hints_up, cs)
+            else:
+                msg = self.codec_up.encode(key_up, Y, hints_up)
+            QY = self.codec_up.decode(key_up, msg, server[None])
 
-        key_dn = (draws["key_dn"] if "key_dn" in draws
-                  else self.codec_down.keys(generator, 1, d))
-        hint_srv = (torch.max(torch.linalg.vector_norm(QY - server[None],
-                                                       dim=1)) + 1e-8)
-        msg = self.codec_down.encode(key_dn, server[None], hint_srv[None])
-        # a codec that ignores the reference decodes one row for all
-        QX = self.codec_down.decode(key_dn, msg, cl).expand(s, d)
+        with spans.span("exchange.downlink", eager_only=True):
+            key_dn = (draws["key_dn"] if "key_dn" in draws
+                      else self.codec_down.keys(generator, 1, d))
+            hint_srv = (torch.max(torch.linalg.vector_norm(
+                QY - server[None], dim=1)) + 1e-8)
+            msg = self.codec_down.encode(key_dn, server[None],
+                                         hint_srv[None])
+            # a codec that ignores the reference decodes one row for all
+            QX = self.codec_down.decode(key_dn, msg, cl).expand(s, d)
 
-        if self.avg_mode in ("both", "server_only"):
-            server_new = (server + torch.sum(QY, 0)) / (s + 1)
-        else:
-            server_new = torch.mean(QY, 0)
-        if self.avg_mode in ("both", "client_only"):
-            cl_new = QX / (s + 1) + s * Y / (s + 1)
-        else:
-            cl_new = QX
-        rel_err = torch.mean(torch.linalg.vector_norm(QY - Y, dim=1)
-                             / (torch.linalg.vector_norm(Y, dim=1) + 1e-9))
+        with spans.span("exchange.average", eager_only=True):
+            if self.avg_mode in ("both", "server_only"):
+                server_new = (server + torch.sum(QY, 0)) / (s + 1)
+            else:
+                server_new = torch.mean(QY, 0)
+            if self.avg_mode in ("both", "client_only"):
+                cl_new = QX / (s + 1) + s * Y / (s + 1)
+            else:
+                cl_new = QX
+            rel_err = torch.mean(torch.linalg.vector_norm(QY - Y, dim=1)
+                                 / (torch.linalg.vector_norm(Y, dim=1)
+                                    + 1e-9))
         return server_new, cl_new, hint_srv, rel_err, cs_new
 
     # ------------------------------------------------------------------
@@ -292,66 +305,76 @@ class QuAFL:
         ``state`` (its store is updated in place)."""
         fed = self.fed
         s = fed.s
-        draws = {k: v.to(self.device) for k, v in (draws or {}).items()}
-        idx, got, h_steps, bidx = self._cohort(state, data, generator,
-                                               draws)
-        cl = got.pop("model")                                     # (s, d)
-        h_tilde = self._local_progress(cl, data, idx, bidx, h_steps)
-        prog = fed.lr * self._eta_t[idx][:, None] * h_tilde       # η·η_i·h̃
-        del h_tilde
-        Y = cl - prog
-
-        hints_up = (torch.linalg.vector_norm(prog, dim=1)
-                    + state.srv_dist_est + 1e-8)
-        del prog
-        cs_new = None          # the sampled clients' new EF rows, if any
-        if self.pipeline is not None:
-            del cl             # the rotated-space exchange reads Y only
-            fn = (self.pipeline.quafl_round
-                  if self.exchange_impl == "pipeline"
-                  else self.pipeline.quafl_round_reference)
-            server_new, cl_new, hint_srv, rel_err = fn(
-                state.server, Y, hints_up, generator=generator,
-                signs=draws.get("signs"), u_cl=draws.get("u_cl"),
-                u_srv=draws.get("u_srv"), avg_mode=self.avg_mode,
-                up=self.codec_up.wire(idx), down=self.codec_down.wire())
-            del Y
-        else:
-            server_new, cl_new, hint_srv, rel_err, cs_new = \
-                self._per_message(state.server, cl, Y, hints_up, generator,
-                                  draws, got["codec_up"] if self._thread_ef
-                                  else None)
-
-        # wire accounting by the codecs: s uplink messages (per-client
-        # widths under a grouped codec) + ONE downlink broadcast Enc(X_t)
-        # that every sampled client decodes
-        if isinstance(self.codec_up, GroupedLatticeCodec):
-            bits_up = self.codec_up.bits_for(idx, self.d)
-        else:
-            bits_up = s * self.codec_up.message_bits(self.d)
-        bits_down = self.codec_down.message_bits(self.d)
-        dt = fed.swt + fed.sit
-        new_time = state.sim_time + dt
-        updates = {"model": cl_new, "last_time": new_time}
-        if cs_new is not None:
-            updates["codec_up"] = cs_new
-        pop = scatter_rows(state.pop, idx, updates)
-        state = QuaflState(
-            server=server_new, pop=pop, t=state.t + 1, sim_time=new_time,
-            bits_up=state.bits_up + bits_up,
-            bits_down=state.bits_down + bits_down,
-            srv_dist_est=0.5 * state.srv_dist_est + 0.5 * hint_srv)
-        hs = h_steps.to(torch.float32)
-        metrics = {
-            "sim_time": new_time,
-            "round_time": dt,
-            "bits_up": _metric(bits_up),
-            "bits_down": float(bits_down),
-            "h_steps_mean": hs.mean(),
-            "h_zero_frac": (hs == 0).to(torch.float32).mean(),
-            "quant_err": rel_err,
-            "bits": _metric(bits_up + bits_down),
-        }
+        # the round's five phases (utils/spans); off, every `with` below
+        # enters a shared null context
+        with spans.span("quafl.round"):
+            with spans.span("quafl.cohort"):
+                draws = {k: v.to(self.device)
+                         for k, v in (draws or {}).items()}
+                idx, got, h_steps, bidx = self._cohort(state, data,
+                                                       generator, draws)
+                cl = got.pop("model")                             # (s, d)
+            with spans.span("quafl.local"):
+                h_tilde = self._local_progress(cl, data, idx, bidx, h_steps)
+            with spans.span("quafl.progress"):
+                # η·η_i·h̃
+                prog = fed.lr * self._eta_t[idx][:, None] * h_tilde
+                del h_tilde
+                Y = cl - prog
+                hints_up = (torch.linalg.vector_norm(prog, dim=1)
+                            + state.srv_dist_est + 1e-8)
+                del prog
+            cs_new = None      # the sampled clients' new EF rows, if any
+            with spans.span("quafl.exchange"):
+                if self.pipeline is not None:
+                    del cl     # the rotated-space exchange reads Y only
+                    fn = (self.pipeline.quafl_round
+                          if self.exchange_impl == "pipeline"
+                          else self.pipeline.quafl_round_reference)
+                    server_new, cl_new, hint_srv, rel_err = fn(
+                        state.server, Y, hints_up, generator=generator,
+                        signs=draws.get("signs"), u_cl=draws.get("u_cl"),
+                        u_srv=draws.get("u_srv"), avg_mode=self.avg_mode,
+                        up=self.codec_up.wire(idx),
+                        down=self.codec_down.wire())
+                    del Y
+                else:
+                    server_new, cl_new, hint_srv, rel_err, cs_new = \
+                        self._per_message(state.server, cl, Y, hints_up,
+                                          generator, draws,
+                                          got["codec_up"] if self._thread_ef
+                                          else None)
+            with spans.span("quafl.commit"):
+                # wire accounting by the codecs: s uplink messages
+                # (per-client widths under a grouped codec) + ONE downlink
+                # broadcast Enc(X_t) that every sampled client decodes
+                if isinstance(self.codec_up, GroupedLatticeCodec):
+                    bits_up = self.codec_up.bits_for(idx, self.d)
+                else:
+                    bits_up = s * self.codec_up.message_bits(self.d)
+                bits_down = self.codec_down.message_bits(self.d)
+                dt = fed.swt + fed.sit
+                new_time = state.sim_time + dt
+                updates = {"model": cl_new, "last_time": new_time}
+                if cs_new is not None:
+                    updates["codec_up"] = cs_new
+                pop = scatter_rows(state.pop, idx, updates)
+                state = QuaflState(
+                    server=server_new, pop=pop, t=state.t + 1,
+                    sim_time=new_time, bits_up=state.bits_up + bits_up,
+                    bits_down=state.bits_down + bits_down,
+                    srv_dist_est=0.5 * state.srv_dist_est + 0.5 * hint_srv)
+                hs = h_steps.to(torch.float32)
+                metrics = {
+                    "sim_time": new_time,
+                    "round_time": dt,
+                    "bits_up": _metric(bits_up),
+                    "bits_down": float(bits_down),
+                    "h_steps_mean": hs.mean(),
+                    "h_zero_frac": (hs == 0).to(torch.float32).mean(),
+                    "quant_err": rel_err,
+                    "bits": _metric(bits_up + bits_down),
+                }
         return state, metrics
 
     def device_round(self, state: QuaflState, data,

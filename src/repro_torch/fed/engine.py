@@ -70,6 +70,7 @@ import torch
 
 from repro_torch.fed.api import FedAlgorithm
 from repro_torch.fed.clock import ArrivalQueue, completion_time
+from repro_torch.utils import spans
 
 
 @runtime_checkable
@@ -299,12 +300,14 @@ AUTOTUNE_CANDIDATES = (4, 16, 64)
 class _Graph(NamedTuple):
     """One captured chunk: the graph, the static state it reads and writes
     in place, its stacked metrics (static outputs), the tensors of the
-    data it reads (kept alive) and its timings."""
+    data it reads (kept alive), its timings, and, when it was captured
+    with spans on, the log of its spans (``utils/spans.captured``)."""
     graph: Any
     state: Any
     metrics: Dict[str, Any]
     data: List[torch.Tensor]
     times: Dict[str, float]
+    spans: Any = None
 
 
 def _data_key(data) -> Tuple:
@@ -323,7 +326,9 @@ class RoundEngine:
     engine owns, registered with each graph; a replay starts from the
     caller's generator state and hands the advanced state back, so a chunk
     consumes the caller's generator exactly as the same rounds run eagerly
-    would. All graphs share one memory pool.
+    would. All graphs share one memory pool. A chunk run with spans on
+    (``utils/spans.recording``) is a graph of its own, with the spans'
+    timing events as nodes: the spans flag is part of a chunk's key.
 
     The state a chunk returns is the graph's static buffers, updated in
     place by the next replay; the state passed in is consumed (copied into
@@ -395,7 +400,7 @@ class RoundEngine:
         begin = getattr(self.alg, "begin", None)
         if begin is not None:
             state = begin(state, generator)
-        key = (length, _data_key(data))
+        key = (length, _data_key(data), spans.on())
         if generator.device.type != "cuda" or not self.capture:
             return self._loop(state, data, generator, length, key)
         return self._replay(state, data, generator, key)
@@ -419,9 +424,11 @@ class RoundEngine:
     def chunk_programs(self) -> Dict[int, int]:
         """The chunk programs made so far, by length: captured graphs on
         the card, distinct (length, data) keys of the plain loop on the
-        CPU. A run that keeps its data makes one a length."""
+        CPU. A run that keeps its data makes one a length; a chunk's twin
+        captured with spans on is the same program."""
         return dict(Counter(key[0] for key in
-                            list(self._graphs) + list(self._loops)))
+                            {k[:2] for k in list(self._graphs)
+                             + list(self._loops)}))
 
     def static_storages(self) -> set:
         """The storages of every captured graph's static state (empty on
@@ -431,20 +438,28 @@ class RoundEngine:
 
     def graph_times(self) -> Dict[int, Dict[str, float]]:
         """Host ms of the warm-up, the capture and the instantiation of
-        each captured chunk, by length."""
-        return {key[0]: g.times for key, g in self._graphs.items()}
+        each captured chunk, by length (the chunk captured without spans
+        where there are both)."""
+        out = {}
+        for key, g in self._graphs.items():
+            if key[0] not in out or not key[2]:
+                out[key[0]] = g.times
+        return out
 
     def _replay(self, state, data, generator, key):
         g = self._graphs.get(key)
-        if g is None:
+        fresh = g is None
+        if fresh:
             g = self._graphs[key] = self._capture(state, data, key[0])
-        else:
-            self.copies.append(_load(g.state, state))
-        self._gen.set_state(generator.get_state())
-        g.graph.replay()
-        generator.set_state(self._gen.get_state())
-        metrics = {k: v.clone() if isinstance(v, torch.Tensor) else v
-                   for k, v in g.metrics.items()}
+        with spans.span("engine.replay") as rec:
+            if not fresh:
+                self.copies.append(_load(g.state, state))
+            self._gen.set_state(generator.get_state())
+            g.graph.replay()
+            generator.set_state(self._gen.get_state())
+            metrics = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                       for k, v in g.metrics.items()}
+        spans.replayed(g.spans, rec)
         return g.state, metrics
 
     def _capture(self, state, data, length, debug: bool = False) -> _Graph:
@@ -461,7 +476,7 @@ class RoundEngine:
         # states that are then restored: kernels build, per-device
         # constants are made and nothing the run draws is consumed
         t0 = time.perf_counter()
-        with kept(gens):
+        with kept(gens), spans.muted():
             warm = clone_tree(state)
             self._stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(self._stream):
@@ -489,7 +504,7 @@ class RoundEngine:
                                    capture_error_mode="thread_local")
             ctx.__enter__()
             try:
-                with _sync_debug():
+                with _sync_debug(), spans.captured() as tpl:
                     st, ms = static, []
                     for _ in range(length):
                         st, m = self.alg.device_round(st, data, gen)
@@ -509,7 +524,10 @@ class RoundEngine:
                 gc.enable()
         times["capture_ms"] = (t1 - t0) * 1e3
         times["instantiate_ms"] = (time.perf_counter() - t1) * 1e3
-        return _Graph(graph, static, metrics, _tensor_leaves(data), times)
+        for phase in ("warmup", "capture", "instantiate"):
+            spans.note(f"engine.{phase}", times[f"{phase}_ms"])
+        return _Graph(graph, static, metrics, _tensor_leaves(data), times,
+                      tpl)
 
     # -- analyzer hooks (repro_torch.analysis) --------------------------------
     def generators_of(self, generator) -> Tuple[torch.Generator, ...]:

@@ -26,6 +26,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.analysis import provenance
+from repro_torch.utils import spans
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
@@ -86,16 +87,22 @@ def build(name: str) -> tuple:
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; ``signatures`` maps
     each C function to its ``argtypes`` (every C function returns the
-    ``cudaError_t`` of its launch as an int)."""
+    ``cudaError_t`` of its launch as an int). With spans recording, a
+    ``build.load`` note holds the load's host ms and the compile's
+    (``compile_ms``) apart."""
     lib = _LOADED.get(name)
     if lib is None:
-        path, _, _ = build(name)
+        t0 = time.perf_counter()
+        path, compile_s, _ = build(name)
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in signatures.items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
         _LOADED[name] = lib
+        total_ms = (time.perf_counter() - t0) * 1e3
+        spans.note("build.load", total_ms - compile_s * 1e3,
+                   compile_ms=compile_s * 1e3, library=name)
     return lib
 
 

@@ -6,6 +6,8 @@ without the suite's conftest:
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider \
         -m cuda tests/test_torch_cuda.py
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -1092,6 +1094,75 @@ def test_floyd_sampler_captures_and_equals_eager(dev):
         [(r["bits_up"], r["sim_time"]) for r in out[2][0].rows]
     torch.testing.assert_close(out[2][1], out[0][1], rtol=1e-4, atol=5e-7)
     assert torch.equal(out[0][2], out[2][2])
+
+
+def test_captured_chunk_spans_time_its_phases(dev):
+    """The paper's MLP at the benchmark cell's size (784-32-10, n 300, s 16,
+    K 5, batch 32), three 10-round chunks captured with spans on
+    (``utils/spans``): the five phases cover at least 95% of every
+    ``quafl.round``'s device interval, the rounds at least 95% of every
+    ``engine.replay``'s, the counters hold every round, and the state,
+    bits and generator equal the chunks captured without spans."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.synthetic import make_federated_classification
+    from repro_torch.fed import RoundEngine, make_algorithm
+    from repro_torch.fed.engine import _leaves, clone_tree
+    from repro_torch.models.mlp import init_mlp_classifier, mlp_loss_batched
+    from repro_torch.utils import spans
+    fed = FedConfig(n_clients=300, s=16, local_steps=5, lr=0.3, bits=8,
+                    kernel_backend="cuda")
+    part, _ = make_federated_classification(0, 300, d=784, n_classes=10,
+                                            iid=False, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    p0 = init_mlp_classifier(g, 784, 32, 10)
+    alg = make_algorithm("quafl", fed, loss_fn=mlp_loss_batched,
+                         template=p0, batch_size=32, device=dev)
+    eng, state0 = RoundEngine(alg), alg.init(p0)
+    out = {}
+    for on in (False, True):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(4)
+        st = clone_tree(state0)
+        with (spans.recording() if on else contextlib.nullcontext()) as log:
+            for _ in range(3):
+                st, _ = eng.run_chunk(st, part, gen, 10)
+        torch.cuda.synchronize()
+        out[on] = ([x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in _leaves(st)], gen.get_state())
+    for x, y in zip(out[False][0], out[True][0]):
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+    assert torch.equal(out[False][1], out[True][1])
+    assert eng.chunk_programs() == {10: 1} and len(eng._graphs) == 2
+    summ = log.summary()
+    recs = log.records
+    kids = {}
+    for r in recs:
+        if r.parent is not None:
+            kids.setdefault(r.parent, []).append(r)
+    rounds = [i for i, r in enumerate(recs) if r.name == "quafl.round"]
+    replays = [i for i, r in enumerate(recs) if r.name == "engine.replay"]
+    assert len(rounds) == 30 and len(replays) == 3 and log.rounds == 30
+    for i in rounds:
+        names = [k.name for k in kids[i]]
+        assert names == ["quafl.cohort", "quafl.local", "quafl.progress",
+                         "quafl.exchange", "quafl.commit"]
+        assert sum(k.device_ms for k in kids[i]) >= 0.95 * recs[i].device_ms
+    for i in replays:
+        assert [k.name for k in kids[i]] == ["quafl.round"] * 10
+        assert sum(k.device_ms for k in kids[i]) >= 0.95 * recs[i].device_ms
+    # the nested spans are left out of a captured chunk; the capture's
+    # set-up is noted from the host times graph_times keeps
+    assert set(summ["spans"]) == {"engine.replay", "quafl.round",
+                                  "quafl.cohort", "quafl.local",
+                                  "quafl.progress", "quafl.exchange",
+                                  "quafl.commit", "engine.warmup",
+                                  "engine.capture", "engine.instantiate"}
+    captured = [g.times for key, g in eng._graphs.items() if key[2]]
+    assert summ["spans"]["engine.capture"]["host_ms"] == \
+        captured[0]["capture_ms"]
+    assert summ["counters"]["local.steps_computed"] == 30 * 16 * 5
+    assert 0 < summ["counters"]["local.steps_active"] <= 30 * 16 * 5
 
 
 # ---------------------------------------------------------------------------
