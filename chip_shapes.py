@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Device time a launch of the exchange kernels (``fused_rotate``,
 ``fused_encode``, ``quantize_codes``, ``snap_codes``, ``fused_decode``) at
-each shape the federated paths launch them with and at the bench shape, and
-of ``hadamard_blocks`` at the ``ops`` path's sizes, from torch.profiler,
-and the ms of a wrapper call (CUDA events, host overhead included, as
-``chip_smoke.py``'s ``ms``):
+each shape the federated paths launch them with and at the bench shape, of
+the round's fused snaps (``uplink``, ``average``) at the two benchmark
+cells' (s, d_pad), and of ``hadamard_blocks`` at the ``ops`` path's sizes,
+from torch.profiler, and the ms of a wrapper call (CUDA events, host
+overhead included, as ``chip_smoke.py``'s ``ms``):
 
     python3 chip_shapes.py [SRC]
 
@@ -60,6 +61,8 @@ HADAMARD_SHAPES = (
     (1024, 256, 128, cs.FP32),
 )
 CLUSTER_SWEEP = (2048, 128, 128)
+# (s, d_pad) of the fused snaps: olmo-1b's round and the paper MLP's
+FUSED_SHAPES = ((2, 1_176_764_416), (16, 32_768))
 # the quantize's path shapes and a bench row, also timed at each count of
 # outputs a thread its kernel takes
 QUANTIZE_SWEEP = ((1, 32_768), (16, 32_768), (1, cs.BENCH_D))
@@ -136,6 +139,72 @@ def exchange_run(kx, dev, gen, kernel, m, d_pad, bits, pack, how):
     return run, kx.snap_plain(*args, **kw), cs.nbytes(*args, y), []
 
 
+def fused_rows(kx, dev, gen, peak_bw, emit):
+    """``uplink`` and ``average`` at FUSED_SHAPES (b = 8 up and down):
+    device ms of each kernel a call, the wrapper's ms, the byte bound, the
+    passes they replace timed alike, and the check against the plain
+    versions (averages bit for bit, rel_err and hint_srv within 1e-5)."""
+    for s, d_pad in FUSED_SHAPES:
+        srv = torch.randn((1, d_pad), generator=gen, device=dev)
+        y = srv + 0.1 * torch.randn((s, d_pad), generator=gen, device=dev)
+        g_up = ((y - srv).abs().amax(dim=1) / 64).contiguous()
+        g_dn = ((y - srv).abs().amax() / 64).reshape(1)
+        u = torch.rand((s, d_pad), generator=gen, device=dev)
+        c_up = kx.quantize_codes(y, u, g_up)
+        c_dn = kx.quantize_codes(srv, u[:1], g_dn)
+        del u
+        got = kx.uplink(c_up, srv, y, g_up)
+        want = kx.uplink_plain(c_up, srv, y, g_up)
+        ok = bool(torch.equal(got[0], want[0])) and all(
+            abs(float(a) - float(b)) <= 1e-5 * abs(float(b))
+            for a, b in zip(got[1:], want[1:]))
+        del got, want
+
+        def unfused_up():
+            qy = kx.snap_codes(c_up, srv, g_up)
+            n = torch.linalg.vector_norm
+            rel = torch.mean(n(qy - y, dim=1) / (n(y, dim=1) + 1e-9))
+            hint = torch.max(n(qy - srv, dim=1)) + 1e-8
+            return (srv[0] + torch.sum(qy, 0)) / (s + 1), rel, hint
+
+        nb = cs.nbytes(c_up, srv, y, srv)
+        emit({"kernel": "uplink", "shape": [s, d_pad], "bits": 8,
+              "pack": 1, "launch": kx.uplink_geometry(s, d_pad),
+              "equal": ok,
+              "device_ms": cs.kernel_device_ms(
+                  lambda: kx.uplink(c_up, srv, y, g_up),
+                  "snap_vec_kernel_up_average"),
+              "finish_device_ms": cs.kernel_device_ms(
+                  lambda: kx.uplink(c_up, srv, y, g_up),
+                  "snap_vec_kernel_up_finish"),
+              "ms": cs.time_ms(lambda: kx.uplink(c_up, srv, y, g_up)),
+              "unfused_ms": cs.time_ms(unfused_up),
+              "bound_ms": nb / peak_bw * 1e3})
+        assert ok
+        work = y.clone()
+        got = kx.average(c_dn, work, g_dn)
+        ok = bool(torch.equal(got, kx.average_plain(c_dn, y.clone(),
+                                                    g_dn)))
+        del got
+
+        def unfused_avg():
+            qx = kx.snap_codes(c_dn, work, g_dn)
+            return qx.div_(s + 1).add_(work.mul_(s).div_(s + 1))
+
+        # each call averages ``work`` again: the values move, the time not
+        emit({"kernel": "average", "shape": [s, d_pad], "bits": 8,
+              "pack": 1, "launch": kx.average_geometry(s, d_pad),
+              "equal": ok,
+              "device_ms": cs.kernel_device_ms(
+                  lambda: kx.average(c_dn, work, g_dn),
+                  "snap_vec_kernel_down_average"),
+              "ms": cs.time_ms(lambda: kx.average(c_dn, work, g_dn)),
+              "unfused_ms": cs.time_ms(unfused_avg),
+              "bound_ms": cs.nbytes(c_dn, y, y) / peak_bw * 1e3})
+        assert ok
+        del srv, y, c_up, c_dn, work
+
+
 def equal(got, want):
     if isinstance(want, tuple):
         return all(torch.equal(g, w) for g, w in zip(got, want))
@@ -174,6 +243,8 @@ def run_shapes(kx, hd, dev, smi, peak_bw, src):
             emit(timed_row(f, want, nb, peak_bw, SYMBOLS[kernel],
                            **{**row, "launch": launch}))
         del run, want, forced
+    if hasattr(kx, "uplink"):
+        fused_rows(kx, dev, gen, peak_bw, emit)
     # an older hadamard module picks no cluster
     picks = getattr(hd, "launch_geometry", lambda n, r, c: None)
     for n, r, c, dtype in HADAMARD_SHAPES:

@@ -58,10 +58,12 @@ then drives the port's paths:
   random weights from seed 0), five QuAFL rounds at b=8, n = s = 2, batch 8
   of 128 tokens, in a process of its own: bits exact every round, the
   peak memory, ms and device ms a round, one profiled round's launches
-  (1 encode, 3 rotations, 1 quantize, 2 snaps) and the four kernels'
-  device ms at this shape beside their byte bounds, and each launch of a
-  further round held against its plain version on its first 2^24
-  coordinates; then every registry algorithm two rounds at reduced width,
+  (1 encode, 3 rotations, 1 quantize, the fused uplink and average) and
+  their device ms at this shape beside their byte bounds, and each launch
+  of a further round held against its plain version on its first 2^24
+  coordinates; with the model freed, the fused uplink and average at the
+  full (2, d_pad) against their plain versions (the averages bit for bit,
+  rel_err and hint_srv within 1e-5 relative); then every registry algorithm two rounds at reduced width,
   a ``--scan-chunk 2`` run against its eager run, and a checkpoint saved
   and restored;
 * the mesh train step (``--algo spmd``, ``launch/train.py``'s default),
@@ -873,11 +875,16 @@ def injected_cfa_round(dev, alg_cuda, state, data, gen):
     return float((servers[0] - servers[1]).abs().max()), max(steps)
 
 
+# a pattern (re.search) of each wrapper's kernel symbol, demangled (the
+# profiler) or mangled (a graph's dump); the uplink's finish kernel
+# (snap_vec_kernel_up_finish) is its second launch and is not counted
 KERNEL_SYMBOLS = {"fused_encode": "encode_cluster_kernel",
                   "fused_rotate": "rotate_cluster_kernel",
                   "quantize_codes": "quantize_vec_kernel",
-                  "snap_codes": "snap_vec_kernel",
-                  "fused_decode": "decode_cluster_kernel"}
+                  "snap_codes": "snap_vec_kernel(?!_)",
+                  "fused_decode": "decode_cluster_kernel",
+                  "uplink": "snap_vec_kernel_up_average",
+                  "average": "snap_vec_kernel_down_average"}
 
 
 def device_events(prof):
@@ -889,10 +896,10 @@ def device_events(prof):
 def ms_per_launch(kernels, symbols: dict) -> dict:
     """Mean device ms per launch of each named kernel (None if it never
     ran), from ``device_events``; ``symbols`` maps names to a substring of
-    the kernel's symbol."""
+    the kernel's symbol, or a pattern of it."""
     out = {}
     for name, sym in symbols.items():
-        hits = [e for e in kernels if sym in e.key]
+        hits = [e for e in kernels if re.search(sym, e.key)]
         count = sum(e.count for e in hits)
         out[name] = (sum(e.self_device_time_total for e in hits) / count
                      / 1e3 if count else None)
@@ -1052,8 +1059,8 @@ def run_quickstart(dev, kx):
             assert tr.rounds == ROUNDS, row
     emit({"phase": "launches", "path": "quickstart", "launches": launches,
           "seconds": wall})
-    for k in ("fused_encode", "fused_rotate", "quantize_codes",
-              "snap_codes"):
+    for k in ("fused_encode", "fused_rotate", "quantize_codes", "uplink",
+              "average"):
         assert launches[k] > 0, f"kernel {k} never launched on the " \
             f"quickstart"
     h, q = traces["quafl_het"].final, traces["quafl"].final
@@ -1241,7 +1248,7 @@ def run_adaptive(dev, kx):
     assert launches == {**{k: 0 for k in launches},
                         "fused_encode": ROUNDS, "fused_rotate": 3 * ROUNDS,
                         "quantize_codes": ROUNDS,
-                        "snap_codes": 2 * ROUNDS}, launches
+                        "uplink": ROUNDS, "average": ROUNDS}, launches
     return alg, tr, data, launches
 
 
@@ -1354,7 +1361,7 @@ ENGINE_RUNS = (
 def port_launches(kernels) -> dict:
     """Launches of each port kernel, from the profiler's device events
     (a graph replay's kernels among them)."""
-    return {k: sum(e.count for e in kernels if sym in e.key)
+    return {k: sum(e.count for e in kernels if re.search(sym, e.key))
             for k, sym in KERNEL_SYMBOLS.items()}
 
 
@@ -1602,7 +1609,7 @@ def run_engine(dev, kx, smi):
           "seconds": time.perf_counter() - t_phase})
     used = {k for _, row in out.values()
             for k, v in row["port_launches_per_round"].items() if v}
-    assert used == set(KERNEL_SYMBOLS), used
+    assert used == set(KERNEL_SYMBOLS) - {"snap_codes"}, used
     fedbuff_bridge(dev, fed, p0, part, gen, table,
                    dict(ENGINE_RUNS[3][2]))
     return out
@@ -2197,10 +2204,14 @@ TRAIN_BITS = {LLAMA_D_PAD: (19_773_259_840, 9_886_629_920),
               MAMBA_D_PAD: (5_893_521_472, 2_946_760_736)}
 # a round's port launches: the fused uplink encode, the server's forward
 # rotation, the server's and the clients' inverse rotations, the downlink
-# quantize, and the uplink and downlink snaps
+# quantize, and the uplink and downlink snaps with their averages
 TRAIN_LAUNCHES = {"fused_encode": 1, "fused_rotate": 3, "quantize_codes": 1,
-                  "snap_codes": 2, "fused_decode": 0}
+                  "snap_codes": 0, "fused_decode": 0, "uplink": 1,
+                  "average": 1}
 TRAIN_PREFIX = 1 << 24            # 1,024 whole blocks of 16,384
+# the fused uplink's rel_err and hint_srv against the plain version's
+# (sums of squares per warp, per CTA and over CTAs; torch another way)
+FUSED_STAT_TOL = 1e-5
 TRAIN_TIMED = 3                   # rounds timed alone after the run
 TRAIN_FULL_TIMEOUT = 600          # seconds for the full-width process
 REDUCED_ARGV = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
@@ -2220,13 +2231,14 @@ def train_bytes(d_pad: int, s: int = TRAIN_S) -> dict:
     inputs read once, outputs written once. Encode: x, u, y, int32 codes
     and the sign row; rotations: the server forward and inverse (1 row)
     and the clients' inverse (s rows), 8 a coordinate, and the sign row
-    each; quantize: y, u, codes; snaps: up s code rows against the
-    server, down one code row against s rows, 8 an output coordinate plus
-    the broadcast side."""
+    each; quantize: y, u, codes; uplink: s code rows and s rows of Y,
+    the server in and its average out; average: one code row, s rows read
+    and written."""
     return {"fused_encode": (16 * s + 4) * d_pad,
             "fused_rotate": (8 * (2 + s) + 12) * d_pad,
             "quantize_codes": 12 * d_pad,
-            "snap_codes": (8 * s + 4) * d_pad * 2}
+            "uplink": (8 * s + 8) * d_pad,
+            "average": (8 * s + 4) * d_pad}
 
 
 def recording_ops(ops, log: list):
@@ -2238,34 +2250,41 @@ def recording_ops(ops, log: list):
             return tuple(head(v) for v in x)
         if not isinstance(x, torch.Tensor):
             return x
-        if x.shape[-1] > TRAIN_PREFIX:
+        if x.dim() and x.shape[-1] > TRAIN_PREFIX:
             return x[..., :TRAIN_PREFIX].clone()
         return x.clone()
 
     def wrap(name, fn):
         def call(*args, **kw):
+            # the inputs before the call: ``average`` writes into its rows
+            ins = ([head(a) for a in args],
+                   {k: head(v) for k, v in kw.items()})
             out = fn(*args, **kw)
-            log.append((name, [head(a) for a in args],
-                        {k: head(v) for k, v in kw.items()}, head(out)))
+            log.append((name, *ins, head(out)))
             return out
         return call
 
     return ops._replace(**{f: wrap(f, getattr(ops, f))
                            for f in ("rotate", "encode", "quantize",
-                                     "snap", "decode")})
+                                     "snap", "decode", "uplink",
+                                     "average")})
 
 
 def check_train_prefixes(kx, log) -> dict:
     """Each recorded launch of the round against its plain version on the
     same prefix and the round's own γ: rotations within ROT_TOL of max|y|,
     codes within ±1 mod L at rounding boundaries (counted), snaps within
-    DECODE_TOL of max|x|."""
+    DECODE_TOL of max|x| (the uplink's server average; its rel_err and
+    hint_srv are of the whole rows, not of the prefix)."""
     plain = {"rotate": kx.rotate_plain, "encode": kx.encode_plain,
              "quantize": kx.quantize_plain, "snap": kx.snap_plain,
-             "decode": kx.decode_plain}
+             "decode": kx.decode_plain, "uplink": kx.uplink_plain,
+             "average": kx.average_plain}
     out = []
     for name, args, kw, got in log:
         want = plain[name](*args, **kw)
+        if name == "uplink":
+            got, want = got[0], want[0]
         row = {"op": name, "shape": list(args[0].shape)}
         if name == "encode":
             codes, codes_w = got, want
@@ -2312,12 +2331,14 @@ def got_numel(got) -> int:
 
 
 def time_train_kernels(kx, dev, peak_bw, d_pad) -> dict:
-    """ms a call (CUDA events, host overhead included) of rows 1-4's
+    """ms a call (CUDA events, host overhead included) of the round's
     wrappers at the training round's shapes, on random inputs: the encode
     of s messages with y kept, the inverse rotation of s rows and the
-    forward rotation of one, the downlink quantize, the uplink snap (s
-    code rows against one reference) and the downlink snap (one code row
-    against s references), each beside its byte bound."""
+    forward rotation of one, the downlink quantize, the fused uplink (s
+    code rows against one server row, the server average out: 8·s + 8 B a
+    coordinate) and the fused average (one code row against s rows,
+    written in place: 8·s + 4 B a coordinate), each beside its byte
+    bound."""
     from repro_torch.compression.rotation import signs
     s = TRAIN_S
     g = torch.Generator(device=dev)
@@ -2339,10 +2360,11 @@ def time_train_kernels(kx, dev, peak_bw, d_pad) -> dict:
                            2 * nbytes(x1) + nbytes(sg), [1, d_pad]),
         "quantize_codes": (lambda: kx.quantize_codes(y1, u1, g1),
                            nbytes(y1, u1, c1), [1, d_pad]),
-        "snap_codes": (lambda: kx.snap_codes(codes, y1, gam),
-                       nbytes(codes, y1) + nbytes(x), [s, d_pad]),
-        "snap_codes_down": (lambda: kx.snap_codes(c1, y, g1),
-                            nbytes(c1, y) + nbytes(x), [s, d_pad])}
+        "uplink": (lambda: kx.uplink(codes, y1, y, gam),
+                   nbytes(codes, y, y1) + nbytes(y1), [s, d_pad]),
+        # last: it writes the rows it reads
+        "average": (lambda: kx.average(c1, y, g1),
+                    nbytes(c1) + 2 * nbytes(y), [s, d_pad])}
     out = {}
     for name, (fn, nb, shape) in calls.items():
         out[name] = {"ms": time_ms(fn, 5), "bound_ms": nb / peak_bw * 1e3,
@@ -2351,13 +2373,58 @@ def time_train_kernels(kx, dev, peak_bw, d_pad) -> dict:
     return out
 
 
+def check_train_fused(kx, dev, d_pad) -> dict:
+    """The fused uplink and average at the training round's full (s, d_pad)
+    against their plain versions, on rows made as a round makes them: the
+    clients' rows near the server row, the clients' codes at γ_up and the
+    server's at γ_dn, each γ from the rows' largest gap. The server
+    average and the clients' average bit for bit; rel_err and hint_srv,
+    which the prefix check cannot see (they are of the whole rows), within
+    FUSED_STAT_TOL relative. Peak about 12 rows of d_pad floats."""
+    s = TRAIN_S
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    srv = torch.randn((1, d_pad), generator=g, device=dev)
+    y = torch.randn((s, d_pad), generator=g, device=dev).mul_(0.1).add_(srv)
+    gap = (y - srv).abs_().amax(dim=1)
+    gam_up = (gap * 4 / 256).contiguous()
+    gam_dn = (gap.amax() * 4 / 256).reshape(1)
+    u = torch.rand((s, d_pad), generator=g, device=dev)
+    codes = kx.quantize_codes(y, u, gam_up)
+    del u
+    got = kx.uplink(codes, srv, y, gam_up)
+    want = kx.uplink_plain(codes, srv, y, gam_up)
+    torch.cuda.synchronize()
+    row = {"shape": [s, d_pad], "uplink_average_equal":
+           bool(torch.equal(got[0], want[0]))}
+    for i, k in ((1, "rel_err"), (2, "hint_srv")):
+        row[k] = [float(got[i]), float(want[i])]
+        row[k + "_rel"] = abs(row[k][0] - row[k][1]) / abs(row[k][1])
+    del codes, got, want
+    torch.cuda.empty_cache()
+    u = torch.rand((1, d_pad), generator=g, device=dev)
+    c_dn = kx.quantize_codes(srv, u, gam_dn)
+    del u, srv
+    mine = kx.average(c_dn, y.clone(), gam_dn)
+    row["average_equal"] = bool(torch.equal(
+        mine, kx.average_plain(c_dn, y, gam_dn)))
+    del mine, y, c_dn
+    torch.cuda.empty_cache()
+    assert row["uplink_average_equal"] and row["average_equal"], row
+    assert row["rel_err_rel"] <= FUSED_STAT_TOL, row
+    assert row["hint_srv_rel"] <= FUSED_STAT_TOL, row
+    return row
+
+
 def train_full(argv=TRAIN_ARGV, d=LLAMA_D, d_pad=LLAMA_D_PAD,
                phase="train_full") -> int:
     """The full-width phase, run as ``chip_smoke.py --train-full`` in its
     own process (llama3.2-1b; mamba2-370m in ``--zoo``): five QuAFL rounds
     through ``launch/train.py`` (counts from 0 just before, read just
     after), then one profiled round and one round whose kernel launches are
-    held against their plain versions on a 2^24-coordinate prefix."""
+    held against their plain versions on a 2^24-coordinate prefix; with
+    the model freed, the wrappers timed and the fused uplink and average
+    held against their plain versions at the full (s, d_pad)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import exchange as kx
     from repro_torch.launch import train
@@ -2433,7 +2500,9 @@ def train_full(argv=TRAIN_ARGV, d=LLAMA_D, d_pad=LLAMA_D_PAD,
         **{f: getattr(kx, n) for f, n in (("rotate", "fused_rotate"),
                                           ("encode", "fused_encode"),
                                           ("quantize", "quantize_codes"),
-                                          ("snap", "snap_codes"))})
+                                          ("snap", "snap_codes"),
+                                          ("uplink", "uplink"),
+                                          ("average", "average"))})
     checks = check_train_prefixes(kx, log)
     res = {"phase": phase, "arch": cfg.name, "d": alg.d,
           "d_pad": d_pad, "n_clients": fed.n_clients, "s": fed.s,
@@ -2463,6 +2532,8 @@ def train_full(argv=TRAIN_ARGV, d=LLAMA_D, d_pad=LLAMA_D_PAD,
     del log, state, m, run, tr, alg, data
     torch.cuda.empty_cache()
     res["kernel_times"] = time_train_kernels(kx, dev, peak_bw, d_pad)
+    torch.cuda.empty_cache()
+    res["fused_checks"] = check_train_fused(kx, dev, d_pad)
     emit(res)
     return 0
 
@@ -2505,8 +2576,8 @@ def run_train_reduced(kx) -> dict:
     launches = dict(kx.LAUNCHES)
     emit({"phase": "launches", "path": "train_reduced",
           "launches": launches})
-    for k in ("fused_encode", "fused_rotate", "quantize_codes", "snap_codes",
-              "fused_decode"):
+    for k in ("fused_encode", "fused_rotate", "quantize_codes", "uplink",
+              "average", "fused_decode"):
         assert launches[k] > 0, f"kernel {k} never launched on training"
 
     eager = train.main(REDUCED_ARGV + ["--steps", "4"])
@@ -2565,10 +2636,11 @@ SPMD_LEAVES = 11
 # launches a leaf: the whole-leaf family's uplink and downlink encodes and
 # decodes; the shard-local exchange's 2 encodes, 3 rotations and 2 snaps
 SPMD_LAUNCHES = {"fused_encode": 2, "fused_rotate": 0, "quantize_codes": 0,
-                 "snap_codes": 0, "fused_decode": 2}
+                 "snap_codes": 0, "fused_decode": 2, "uplink": 0,
+                 "average": 0}
 SHARD_LOCAL_LAUNCHES = {"fused_encode": 2, "fused_rotate": 3,
                         "quantize_codes": 0, "snap_codes": 2,
-                        "fused_decode": 0}
+                        "fused_decode": 0, "uplink": 0, "average": 0}
 SPMD_TIMED = 3
 SPMD_TIMEOUT = 600                # seconds for the spmd process
 SPMD_REDUCED = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
@@ -3162,8 +3234,8 @@ def population_phase(smi, dev) -> dict:
     assert rs.keys() == rw.keys()
     assert all(torch.equal(rs[k], v) for k, v in rw.items())
     assert split == ["group", "last_time", "model"], split
-    for k in ("fused_encode", "fused_rotate", "quantize_codes",
-              "snap_codes"):
+    for k in ("fused_encode", "fused_rotate", "quantize_codes", "uplink",
+              "average"):
         assert ls[k] > 0, f"kernel {k} never launched on the split store"
     assert ls == lw, (ls, lw)
     res = {"phase": "population", "algorithm": "quafl", "n_clients": N_CLIENTS,
@@ -3248,7 +3320,8 @@ def recorded_chunk(kx, alg, state, data, dev) -> dict:
     got = check_summary(rows)
     ops_of = {"fused_encode": "encode", "fused_rotate": "rotate",
               "quantize_codes": "quantize", "snap_codes": "snap",
-              "fused_decode": "decode"}
+              "fused_decode": "decode", "uplink": "uplink",
+              "average": "average"}
     assert {op: got[op]["calls"] for op in got} == {
         ops_of[k]: v for k, v in launches.items() if v}, (got, launches)
     return {"launches": launches, "checks": got,
@@ -3281,7 +3354,7 @@ def population_scale_phase(smi, dev) -> dict:
             ms.append(tr.us_per_round / 1e3)
         launches = dict(kx.LAUNCHES)
         for k in ("fused_encode", "fused_rotate", "quantize_codes",
-                  "snap_codes"):
+                  "uplink", "average"):
             assert launches[k] > 0, (n, k)
         pop = tr.final_state.pop
         store = sum(int(v.store.numel()) * v.store.element_size()
@@ -4158,7 +4231,7 @@ def opbudget_phase(smi, dev, mesh, kx) -> dict:
     res["seconds"] = time.perf_counter() - t0
     emit(res)
     assert rot == [] and counters == rotation_budget(S), res
-    for k in ("fused_encode", "fused_rotate", "snap_codes",
+    for k in ("fused_encode", "fused_rotate", "uplink", "average",
               "quantize_codes"):
         assert rot_launches[k] > 0 or dev.type != "cuda", (k, rot_launches)
     return res
@@ -4239,7 +4312,7 @@ ANALYSIS_CHUNK = ENGINE_CHUNK     # rounds of the chunk whose graph is read
 # the rows the gate's cells launch (the lattice exchange, and the
 # per-message decodes of the baselines)
 ANALYSIS_KERNELS = ("fused_encode", "fused_rotate", "quantize_codes",
-                    "snap_codes", "fused_decode")
+                    "snap_codes", "fused_decode", "uplink", "average")
 
 
 def lint_phase(smi, mesh, kx) -> dict:
@@ -4298,7 +4371,8 @@ def lowered_phase(smi, dev, kx) -> dict:
     (``RoundEngine.lowered_chunk``: the captured graph's debug dump) equal,
     kernel by kernel, the port launches the profiler's device events count
     in a replay of the same chunk, and a round's are the main path's
-    (``TRAIN_LAUNCHES``: 1 encode, 3 rotations, 1 quantize, 2 snaps);
+    (``TRAIN_LAUNCHES``: 1 encode, 3 rotations, 1 quantize, the uplink
+    and the averaging snap);
     neither the caller's generator nor the engine's cache moves."""
     from repro_torch.fed.engine import RoundEngine, clone_tree
     from repro_torch.fed.registry import make_algorithm
@@ -4313,7 +4387,7 @@ def lowered_phase(smi, dev, kx) -> dict:
     nodes = eng.lowered_chunk(state, part, gen, ANALYSIS_CHUNK)
     untouched = (bool(torch.equal(gen.get_state(), g0))
                  and eng.chunk_programs() == {})
-    in_graph = {k: sum(sym in label for label in nodes)
+    in_graph = {k: sum(bool(re.search(sym, label)) for label in nodes)
                 for k, sym in KERNEL_SYMBOLS.items()}
     st, _ = eng.run_chunk(clone_tree(state), part, gen, ANALYSIS_CHUNK)
     for _ in range(3):   # the trace now and then drops events: again
@@ -5107,7 +5181,8 @@ def main() -> int:
     torch.cuda.synchronize()
     quafl_launches = dict(kx.LAUNCHES)
     emit({"phase": "launches", "path": "quafl", "launches": quafl_launches})
-    for k in ("fused_encode", "fused_rotate", "quantize_codes", "snap_codes"):
+    for k in ("fused_encode", "fused_rotate", "quantize_codes", "uplink",
+              "average"):
         assert quafl_launches[k] > 0, f"kernel {k} never launched on QuAFL"
 
     # path 2, the baselines: counts from 0 just before, read just after

@@ -4,7 +4,10 @@
 **Backends** — the five primitive ops of the exchange (batched rotation,
 fused rotate + stochastic round + wrap ``encode``, elementwise ``quantize``
 of already-rotated coordinates, positional ``snap``, and the fully fused
-``decode`` of the per-message codec API) in two implementations:
+``decode`` of the per-message codec API), and the two snaps of the
+rotated-space round with the passes it runs around them (``uplink``: the
+uplink snap, the server average and the error norms; ``average``: the
+downlink snap and the clients' average, in place), in two implementations:
 
   * ``"torch"`` — the plain PyTorch versions, on any device,
   * ``"cuda"``  — the hand-written CUDA kernels of
@@ -15,6 +18,12 @@ of already-rotated coordinates, positional ``snap``, and the fully fused
 message of a round shares one rotation, so encode, decode and the
 (s+1)-averaging all happen in rotated coordinates: ``s + 1`` forward and
 ``s + 1`` inverse rotation passes per round, counted in ``pipeline.stats``.
+On the kernels the snapped rows never reach device memory: the uplink's
+QY_i live only inside ``uplink``, which writes the server average and the
+two statistics, and the downlink's QX_i only inside ``average``, which
+writes the clients' average over their rotated rows. The round's peak
+is at the encode's inputs and outputs (Y, the uplink noise, the rotated
+rows and their codes).
 :meth:`ExchangePipeline.quafl_round_reference` composes the same exchange
 message by message in original coordinates, as the equivalence oracle.
 
@@ -97,7 +106,8 @@ def wrap_gamma(dist_hint, d: int, *, bits: int = None, levels=None,
 
 
 class Backend(NamedTuple):
-    """The five primitive ops; every op is batched over a message axis."""
+    """The five primitive ops and the round's two fused snaps; every op is
+    batched over a message axis."""
     name: str
     rotate: Callable    # (x2, signs, *, block, inverse) -> y2
     encode: Callable    # (x2, signs, u2, gammas, *, bits, block,
@@ -107,13 +117,20 @@ class Backend(NamedTuple):
                         #  levels2) -> q2
     decode: Callable    # (codes2, ref2, signs, gammas, *, bits, block,
                         #  pack, levels2) -> x2 in original coordinates
+    uplink: Callable    # (codes2, srv_rot, y_rot, gammas, *, bits, block,
+                        #  pack, levels2, avg_mode) -> (srv_new, rel_err,
+                        #  hint_srv)
+    average: Callable   # (codes2, y_rot, gammas, *, bits, block, pack,
+                        #  levels2, avg_mode) -> y_rot, averaged in place
 
 
 _REGISTRY = {
     "torch": Backend("torch", kx.rotate_plain, kx.encode_plain,
-                     kx.quantize_plain, kx.snap_plain, kx.decode_plain),
+                     kx.quantize_plain, kx.snap_plain, kx.decode_plain,
+                     kx.uplink_plain, kx.average_plain),
     "cuda": Backend("cuda", kx.fused_rotate, kx.fused_encode,
-                    kx.quantize_codes, kx.snap_codes, kx.fused_decode),
+                    kx.quantize_codes, kx.snap_codes, kx.fused_decode,
+                    kx.uplink, kx.average),
 }
 
 
@@ -202,6 +219,26 @@ class ExchangePipeline:
                              block=self.block, pack=wire.pack,
                              levels2=wire.levels)
 
+    def uplink(self, codes2, srv_rot, y_rot, gammas,
+               wire: LatticeWire = None, avg_mode: str = "both"):
+        """The uplink snap against the rotated server with the server
+        average and the round's statistics: (srv_new_rot, rel_err,
+        hint_srv). No rotation pass."""
+        wire = self._wire(wire)
+        return self.ops.uplink(codes2, srv_rot, y_rot, gammas,
+                               bits=wire.bits, block=self.block,
+                               pack=wire.pack, levels2=wire.levels,
+                               avg_mode=avg_mode)
+
+    def average(self, codes2, y_rot, gammas, wire: LatticeWire = None,
+                avg_mode: str = "both"):
+        """The downlink snap against each rotated client row, averaged
+        into ``y_rot`` in place. No rotation pass."""
+        wire = self._wire(wire)
+        return self.ops.average(codes2, y_rot, gammas, bits=wire.bits,
+                                block=self.block, pack=wire.pack,
+                                levels2=wire.levels, avg_mode=avg_mode)
+
     def unrotate(self, y2, sg, d: int):
         self.stats.inv += int(y2.shape[0])
         return self.ops.rotate(y2.contiguous(), sg, block=self.block,
@@ -238,6 +275,21 @@ class ExchangePipeline:
         server: (d,) X_t; Y: (s, d) client models at poll time; hints_up:
         (s,) upper estimates of ‖Y^i − X_t‖. Returns (server_new (d,),
         clients_new (s, d), hint_srv, rel_err).
+
+        Every (s, d_pad) temporary is dropped as soon as it is dead, and no
+        snapped row is kept: the uplink snap (``uplink``) writes only the
+        server average and the two statistics, the downlink snap
+        (``average``) writes the clients' average over the rotated client
+        rows (the server sum in row order, each division correctly
+        rounded, the clients' average in its div, mul, div, add order). So
+        a round holds at most Y, the uplink noise, the rotated rows and
+        their codes (the encode's inputs and outputs), and an LM at full
+        width fits. At llama3.2-1b's full width (74.2 GB of 80, held by
+        ``chip_smoke.py --train-full``) the fit also relies on
+        :func:`~repro_torch.compression.rotation.signs` allocating its fp32
+        row before its int8 draw: in the other order the freed draw leaves
+        a hole in front of the row, and the caching allocator's free space
+        comes apart into pieces too small for a round's (s, d_pad) rows.
         """
         s, d = Y.shape
         up, down = self._wire(up), self._wire(down)
@@ -245,12 +297,10 @@ class ExchangePipeline:
             sg, u_cl, u_srv = self._randomness(generator, s, d, signs, u_cl,
                                                u_srv)
 
-        # Every (s, d_pad) temporary is dropped as soon as it is dead and
-        # the client averaging runs in place, in the same order of
-        # operations (the same values), so that an LM at full width fits:
-        # the peak is the encode's inputs and outputs.
         # uplink: fused rotate+encode of every client message; the rotated
-        # coords come back too and serve as downlink decode references
+        # coords come back too and serve as downlink decode references; the
+        # snap against the rotated server sums the server average and the
+        # norms of rel_err and hint_srv
         with spans.span("exchange.uplink", eager_only=True):
             gam_up = self.gammas(hints_up, _norms(Y), d, up)
             Y_rot, codes_up = self.rotate_encode(Y, sg, u_cl, gam_up,
@@ -258,37 +308,24 @@ class ExchangePipeline:
             observe_lattice_wire(codes_up, gam_up, up, channel="up")
             del u_cl
             srv_rot = self.rotate(server[None], sg)
-            QY_rot = self.snap(codes_up, srv_rot, gam_up, up)   # (s, d_pad)
+            srv_new_rot, rel_err, hint_srv = self.uplink(
+                codes_up, srv_rot, Y_rot, gam_up, up, avg_mode)
             del codes_up
-            rel_err = torch.mean(_norms(QY_rot - Y_rot)
-                                 / (_norms(Y_rot) + 1e-9))
 
         # downlink: Enc(X_t) quantizes the cached rotated server
         with spans.span("exchange.downlink", eager_only=True):
-            hint_srv = torch.max(_norms(QY_rot - srv_rot)) + 1e-8
             gam_dn = self.gammas(hint_srv[None], _norms(server[None]), d,
                                  down)
             codes_dn = self.quantize(srv_rot, u_srv, gam_dn, down)
             observe_lattice_wire(codes_dn, gam_dn, down, channel="down")
-            del u_srv
+            del u_srv, srv_rot
 
-        # (s+1)-averaging in rotated coordinates; inverse-rotate only the
-        # final states
+        # the clients' (s+1)-averaging in rotated coordinates, over Y_rot;
+        # inverse-rotate only the final states
         with spans.span("exchange.average", eager_only=True):
-            if avg_mode in ("both", "server_only"):
-                srv_new_rot = (srv_rot[0] + torch.sum(QY_rot, 0)) / (s + 1)
-            else:
-                srv_new_rot = torch.mean(QY_rot, 0)
-            del QY_rot, srv_rot
-            QX_rot = self.snap(codes_dn, Y_rot, gam_dn, down)   # (s, d_pad)
-            del codes_dn
-            if avg_mode in ("both", "client_only"):
-                # QX/(s+1) + s·Y/(s+1), each step in place
-                cl_new_rot = QX_rot.div_(s + 1).add_(
-                    Y_rot.mul_(s).div_(s + 1))
-            else:
-                cl_new_rot = QX_rot
-            del QX_rot, Y_rot
+            cl_new_rot = self.average(codes_dn, Y_rot, gam_dn, down,
+                                      avg_mode)
+            del codes_dn, Y_rot
         with spans.span("exchange.unrotate", eager_only=True):
             server_new = self.unrotate(srv_new_rot[None], sg, d)[0]
             del srv_new_rot

@@ -57,10 +57,14 @@ def signs(generator: torch.Generator, n: int) -> torch.Tensor:
     device. The bits are drawn as int8: the generator gives the same 0/1
     values, and moves on by the same amount, for every integer dtype, and
     an int64 draw would be 8 bytes a coordinate (9.9 GB at an LM's
-    1.24e9)."""
+    1.24e9). The fp32 row is allocated before the int8 draw, so that the
+    draw, freed at once, leaves no hole in front of the row in the
+    allocator's cache (at full width such a hole split the free space a
+    round's (s, d_pad) rows need)."""
+    out = torch.empty((n,), dtype=torch.float32, device=generator.device)
     bits = torch.randint(0, 2, (n,), generator=generator,
                          device=generator.device, dtype=torch.int8)
-    return bits.to(torch.float32).mul_(2).sub_(1)
+    return out.copy_(bits).mul_(2).sub_(1)
 
 
 def rotate(x: torch.Tensor, signs: torch.Tensor, block: int = DEFAULT_BLOCK,

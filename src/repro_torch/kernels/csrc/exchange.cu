@@ -8,6 +8,15 @@
 //   exch_snap      <- snap_codes     (_snap_kernel)
 //   exch_decode    <- fused_decode   (_decode_kernel)
 //
+// and two variants of the snap that replace no TPU kernel: they take over
+// the fp32 passes the QuAFL round ran around its two snaps (on the TPU, XLA
+// fuses those into its own loops):
+//
+//   exch_uplink    <- uplink  (the uplink snap, the server average and the
+//                              round's error norms)
+//   exch_average   <- average (the downlink snap and the clients' average,
+//                              in place)
+//
 // Layout: a batch of m messages of d_pad fp32 coordinates, row-major. Each
 // message splits into nb = d_pad / b Hadamard blocks of b = r*c coordinates;
 // the packed code layout views a block as r rows of c columns and packs
@@ -46,13 +55,14 @@
 // of the floats and codes and one access to the packed bytes that hold
 // them.
 //
-// Bound. All five kernels are memory-bound on an H100: the butterfly does
+// Bound. All seven kernels are memory-bound on an H100: the butterfly does
 // log2(b) <= 14 adds per coordinate against 8-16 bytes moved, far below the
 // card's ~20 fp32 flop/byte ridge. The design therefore reads every input
 // once and writes every output once (the rotated block never leaves the
 // SMs between the rotation and the quantize, nor between the snap and the
-// inverse rotation), and keeps the elementwise kernels to one coalesced
-// pass.
+// inverse rotation; a snapped row of the QuAFL round never leaves them
+// between its snap and the averages and norms that read it), and keeps the
+// elementwise kernels to one coalesced pass.
 //
 // Signs. The encode and decode kernels take one sign row shared by every
 // message (sign_stride 0) or one row per message (sign_stride d_pad): the
@@ -378,6 +388,271 @@ snap_vec_kernel(const int32_t* __restrict__ codes32,
   }
 }
 
+// Rows of the uplink snap whose per-warp sums a CTA holds at once; a round
+// with more messages takes them kUpRows at a time, the running server sum
+// kept in `out` between the groups. The finish takes kFinishRows at a time.
+constexpr int kUpRows = 32;
+constexpr int kFinishRows = 1024;
+constexpr int kWarps = kVecThreads / 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// v[e] = p[off + e] for off + e < n, 0 beyond: load8 at V = 8, else one
+// access a value (a warp's accesses still coalesce); reads inside p[0, n).
+template <int V, typename T>
+__device__ __forceinline__ void load_vals(const T* __restrict__ p, int off,
+                                          int n, float v[V]) {
+  if constexpr (V == kVals) {
+    load8(p, off, n, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float x = (float)p[min(off + e, n - 1)];
+      v[e] = off + e < n ? x : 0.f;
+    }
+  }
+}
+
+// The codes of coordinates e0 .. e0 + nv - 1 (nv >= 1) of message i:
+// int32 (pack 1) or from its packed bytes (unpack8 at V = 8, else byte by
+// byte).
+template <int V>
+__device__ __forceinline__ void load_codes(const int32_t* __restrict__ codes32,
+                                           const uint8_t* __restrict__ codes8,
+                                           size_t i, int e0, int nv,
+                                           int d_pad, int b, int c, int bits,
+                                           int pack, float code[V]) {
+  if (pack == 1) {
+    load_vals<V>(codes32 + i * d_pad, e0, d_pad, code);
+    return;
+  }
+  const uint8_t* c8 = codes8 + i * (d_pad / pack);
+  if constexpr (V == kVals) {
+    unpack8(c8, e0, nv, b, c, bits, pack, code);
+  } else {
+    const unsigned mask = (1u << bits) - 1u;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int at = e0 + min(e, nv - 1);
+      const int j = at / b;
+      const int rem = at - j * b;
+      const int row = rem / c;
+      const int col = rem - row * c;
+      const unsigned byte =
+          c8[(size_t)j * (b / pack) + (size_t)(row / pack) * c + col];
+      code[e] = (float)((byte >> ((row % pack) * bits)) & mask);
+    }
+  }
+}
+
+// The uplink snap with what the round reads of it. A CTA strides over
+// chunks of V * kVecThreads coordinates (chunk x, x + gridDim.x, ...); a
+// thread takes V coordinates of a chunk (8, or 1 where 8 would leave the
+// card nearly idle) through all s messages: it snaps message i's codes
+// against the rotated server w, QY_i = snap(c_i, w), sums QY_i in
+// ascending i and writes the server average (w + sum) / (s+1)
+// (`with_server`) or sum / s; for each message it adds (QY_i - Y_i)^2,
+// Y_i^2 and (QY_i - w)^2 over its coordinates, each warp sums them (a fixed
+// butterfly) into its own slots of `red`, and at the end of the CTA's
+// chunks the warps' slots are summed in warp order into the CTA's partials,
+// partials[(q * s + i) * gridDim.x + x], q = 0, 1, 2. No atomics: the same
+// launch gives the same bits.
+template <int V>
+__global__ void __launch_bounds__(kVecThreads)
+snap_vec_kernel_up_average(const int32_t* __restrict__ codes32,
+                           const uint8_t* __restrict__ codes8,
+                           const float* __restrict__ w,
+                           const float* __restrict__ y,
+                           const float* __restrict__ gam, int gam_stride,
+                           const float* __restrict__ levels, int lev_stride,
+                           float levels_default, float* __restrict__ out,
+                           float* __restrict__ partials, int s, int d_pad,
+                           int b, int c, int bits, int pack,
+                           int with_server) {
+  static_assert(V == 1 || V == kVals, "1 or 8 coordinates a thread");
+  __shared__ float red[kWarps][kUpRows][3];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int span = V * kVecThreads;
+  const int chunks = (d_pad + span - 1) / span;
+  for (int i0 = 0; i0 < s; i0 += kUpRows) {
+    const int rows = min(kUpRows, s - i0);
+    const bool last = i0 + rows == s;
+    for (int k = lane; k < kUpRows * 3; k += 32) red[warp][k / 3][k % 3] = 0.f;
+    __syncwarp();
+    for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+      const int e0 = ch * span + V * threadIdx.x;
+      // coordinates of this thread: V, fewer at the end, none past d_pad
+      // (such a thread still takes part in its warp's sums)
+      const int nv = e0 < d_pad ? min(V, d_pad - e0) : 0;
+      float wv[V], acc[V];
+      load_vals<V>(w, e0, d_pad, wv);
+      if (i0 == 0) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = 0.f;
+      } else {
+        load_vals<V>(out, e0, d_pad, acc);
+      }
+      for (int r = 0; r < rows; ++r) {
+        const size_t i = (size_t)(i0 + r);
+        float se = 0.f, sy = 0.f, sd = 0.f;
+        if (nv > 0) {
+          const float g = gam[i * gam_stride];
+          const float L = levels != nullptr ? levels[i * lev_stride]
+                                            : levels_default;
+          float code[V], yv[V];
+          load_codes<V>(codes32, codes8, i, e0, nv, d_pad, b, c, bits, pack,
+                        code);
+          load_vals<V>(y + i * d_pad, e0, d_pad, yv);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            if (e >= nv) continue;
+            const float q = snap_one(code[e], wv[e], g, L);
+            acc[e] = __fadd_rn(acc[e], q);
+            const float dq = __fsub_rn(q, yv[e]);
+            const float dw = __fsub_rn(q, wv[e]);
+            se = __fadd_rn(se, __fmul_rn(dq, dq));
+            sy = __fadd_rn(sy, __fmul_rn(yv[e], yv[e]));
+            sd = __fadd_rn(sd, __fmul_rn(dw, dw));
+          }
+        }
+        se = warp_sum(se);
+        sy = warp_sum(sy);
+        sd = warp_sum(sd);
+        if (lane == 0) {
+          red[warp][r][0] = __fadd_rn(red[warp][r][0], se);
+          red[warp][r][1] = __fadd_rn(red[warp][r][1], sy);
+          red[warp][r][2] = __fadd_rn(red[warp][r][2], sd);
+        }
+      }
+      if (nv == 0) continue;
+      if (last) {
+        const float n = with_server ? (float)(s + 1) : (float)s;
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          acc[e] = __fdiv_rn(with_server ? __fadd_rn(wv[e], acc[e]) : acc[e],
+                             n);
+      }
+      if constexpr (V == kVals) {
+        store8(out + e0, nv, acc);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          if (e < nv) out[e0 + e] = acc[e];
+      }
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < rows * 3; k += blockDim.x) {
+      const int r = k / 3, q = k % 3;
+      float v = 0.f;
+      for (int wp = 0; wp < kWarps; ++wp) v = __fadd_rn(v, red[wp][r][q]);
+      partials[((size_t)q * s + i0 + r) * gridDim.x + blockIdx.x] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// The fixed-order finish of the uplink's sums, one CTA, kFinishRows
+// messages at a time: warp r % kWarps sums message r's three rows of the
+// `nparts` CTA partials (lanes strided, in double, then a butterfly), and
+// its lane 0 keeps sqrt(SE) / (sqrt(SY) + 1e-9) and sqrt(SD) in shared
+// memory; thread 0 then takes the messages in order: stats[0] = the mean
+// of the former (rel_err), stats[1] = the max of the latter + 1e-8
+// (hint_srv; a NaN carries through).
+__global__ void __launch_bounds__(kVecThreads)
+snap_vec_kernel_up_finish(const float* __restrict__ partials, int nparts,
+                          int s, float* __restrict__ stats) {
+  __shared__ float ratio[kFinishRows], dist[kFinishRows];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float rel = 0.f, hint = 0.f;
+  for (int i0 = 0; i0 < s; i0 += kFinishRows) {
+    const int rows = min(kFinishRows, s - i0);
+    for (int r = warp; r < rows; r += kWarps) {
+      const float* p0 = partials + (size_t)(i0 + r) * nparts;
+      const float* p1 = p0 + (size_t)s * nparts;
+      const float* p2 = p1 + (size_t)s * nparts;
+      double se = 0.0, sy = 0.0, sd = 0.0;
+      for (int k = lane; k < nparts; k += 32) {
+        se += (double)p0[k];
+        sy += (double)p1[k];
+        sd += (double)p2[k];
+      }
+      se = warp_sum(se);
+      sy = warp_sum(sy);
+      sd = warp_sum(sd);
+      if (lane == 0) {
+        ratio[r] = __fdiv_rn(sqrtf((float)se),
+                             __fadd_rn(sqrtf((float)sy), 1e-9f));
+        dist[r] = sqrtf((float)sd);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int r = 0; r < rows; ++r) {
+        const float dn = dist[r];
+        rel = __fadd_rn(rel, ratio[r]);
+        if (i0 + r == 0 || dn != dn || dn > hint) hint = dn;
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    stats[0] = __fdiv_rn(rel, (float)s);
+    stats[1] = __fadd_rn(hint, 1e-8f);
+  }
+}
+
+// The downlink snap and the clients' average, in place: thread t of CTA
+// (x, yb) takes coordinates e0 .. e0 + 7, e0 = 8 (x * blockDim.x + t), reads
+// their one code row once, and for each message i = yb, yb + gridDim.y, ...
+// snaps it against Y_i and writes into Y_i either QX / (s+1) + (s Y_i) /
+// (s+1) (`mix`; the divisions, product and sum each rounded once, in that
+// order) or QX.
+__global__ void __launch_bounds__(kVecThreads)
+snap_vec_kernel_down_average(const int32_t* __restrict__ codes32,
+                             const uint8_t* __restrict__ codes8, float* y,
+                             const float* __restrict__ gam,
+                             const float* __restrict__ levels,
+                             float levels_default, int m, int d_pad, int b,
+                             int c, int bits, int pack, int mix) {
+  const int e0 = kVals * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (e0 >= d_pad) return;
+  const int nv = min(kVals, d_pad - e0);
+  const float g = gam[0];
+  const float L = levels != nullptr ? levels[0] : levels_default;
+  const float sf = (float)m, s1 = (float)(m + 1);
+  float code[kVals];
+  if (pack == 1)
+    load8(codes32, e0, d_pad, code);
+  else
+    unpack8(codes8, e0, nv, b, c, bits, pack, code);
+  for (int i = blockIdx.y; i < m; i += gridDim.y) {
+    float* yi = y + (size_t)i * d_pad;
+    float v[kVals];
+    load8(yi, e0, d_pad, v);
+#pragma unroll
+    for (int e = 0; e < kVals; ++e) {
+      const float qx = snap_one(code[e], v[e], g, L);
+      v[e] = mix ? __fadd_rn(__fdiv_rn(qx, s1),
+                             __fdiv_rn(__fmul_rn(v[e], sf), s1))
+                 : qx;
+    }
+    store8(yi + e0, nv, v);
+  }
+}
+
 // Full Dec(ref, msg) of one (message i, block j) pair by a cluster of C
 // CTAs: rotate the reference block, snap every code to the representative
 // nearest it, inverse-rotate; each transform with its own cluster exchange.
@@ -547,6 +822,54 @@ int exch_decode(const void* codes32, const void* codes8, int mc,
       lev_stride, levels_default, (float*)out, d_pad, b, c, bits, pack, scale,
       n, log2i(n));
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The uplink snap of s code rows against the one rotated server row w,
+// with Y (s, d_pad): out (d_pad,) the server average; partials 3 * s *
+// ctas floats; stats (2,) rel_err and hint_srv. Two launches on `stream`:
+// ctas CTAs of `per_thread` (1 or 8) coordinates a thread, then the
+// one-CTA finish.
+int exch_uplink(const void* codes32, const void* codes8, const void* w,
+                const void* y, const void* gam, int gam_stride,
+                const void* levels, int lev_stride, float levels_default,
+                void* out, void* partials, void* stats, int s, int d_pad,
+                int b, int c, int bits, int pack, int with_server, int ctas,
+                int per_thread, void* stream) {
+  void (*kernel)(const int32_t*, const uint8_t*, const float*, const float*,
+                 const float*, int, const float*, int, float, float*, float*,
+                 int, int, int, int, int, int, int) =
+      per_thread == kVals ? snap_vec_kernel_up_average<kVals>
+      : per_thread == 1   ? snap_vec_kernel_up_average<1>
+                          : nullptr;
+  if (kernel == nullptr || s < 1 || ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  kernel<<<ctas, kVecThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)codes32, (const uint8_t*)codes8, (const float*)w,
+      (const float*)y, (const float*)gam, gam_stride, (const float*)levels,
+      lev_stride, levels_default, (float*)out, (float*)partials, s, d_pad, b,
+      c, bits, pack, with_server);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  snap_vec_kernel_up_finish<<<1, kVecThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)partials, ctas, s, (float*)stats);
+  return (int)cudaGetLastError();
+}
+
+// The downlink snap of one code row against the m rows of y, averaged
+// into y in place (`mix`) or written there; `rows` CTAs along the messages.
+int exch_average(const void* codes32, const void* codes8, void* y,
+                 const void* gam, const void* levels, float levels_default,
+                 int m, int d_pad, int b, int c, int bits, int pack, int mix,
+                 int rows, void* stream) {
+  if (m == 0) return (int)cudaSuccess;  // no message: nothing to launch
+  const int per_cta = kVals * kVecThreads;
+  dim3 grid((d_pad + per_cta - 1) / per_cta, rows);
+  snap_vec_kernel_down_average<<<grid, kVecThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      (const int32_t*)codes32, (const uint8_t*)codes8, (float*)y,
+      (const float*)gam, (const float*)levels, levels_default, m, d_pad, b,
+      c, bits, pack, mix);
   return (int)cudaGetLastError();
 }
 

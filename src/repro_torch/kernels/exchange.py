@@ -1,12 +1,17 @@
 """Rotated-space lattice exchange: CUDA kernels and their plain versions
 (port of ``repro.kernels.exchange``).
 
-Four kernels carry the QuAFL round and a fifth, ``fused_decode``, the
-per-message codec API of the baselines. Each has a plain PyTorch version
-here (``*_plain``, any device) and a wrapper under the reference's name that
-launches the CUDA kernel of ``csrc/exchange.cu`` on a CUDA tensor, runs the
-plain version on a CPU tensor, and raises on anything else. Every wrapper
-counts its launches in :data:`LAUNCHES`.
+Four kernels port the reference's QuAFL round and a fifth,
+``fused_decode``, the per-message codec API of the baselines. Two more,
+``uplink`` and ``average``, have no reference kernel: they are the snap
+with the fp32 passes the round runs around it (the server average and the
+error norms of the uplink; the clients' average of the downlink), so the
+rotated-space round never writes the snapped rows to device memory. Each
+has a plain PyTorch version here (``*_plain``, any device) and a wrapper
+(under the reference's name where it has one) that launches the CUDA kernel
+of ``csrc/exchange.cu`` on a CUDA tensor, runs the plain version on a CPU
+tensor, and raises on anything else. Every wrapper counts its launches in
+:data:`LAUNCHES`.
 
 Codes differ from the reference in dtype only: unpacked codes are int32
 (the reference's uint32; every code is below 2^bits <= 2^16, so the values
@@ -24,11 +29,12 @@ import torch
 from repro_torch.compression.rotation import (DEFAULT_BLOCK, _block_size,
                                               _factor, pad_len)
 from repro_torch.kernels import build
+from repro_torch.utils import spans
 
 # Launches of each kernel since the last reset_launches(); a wrapper adds
 # one where it launches its kernel and nowhere else.
 LAUNCHES = {"fused_encode": 0, "fused_rotate": 0, "quantize_codes": 0,
-            "snap_codes": 0, "fused_decode": 0}
+            "snap_codes": 0, "fused_decode": 0, "uplink": 0, "average": 0}
 
 
 def reset_launches() -> None:
@@ -170,6 +176,67 @@ def snap_plain(codes2, wrot2, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
     return q * g
 
 
+# the (s+1)-averaging modes of a QuAFL round
+AVG_MODES = ("both", "server_only", "client_only", "none")
+
+
+def _avg_flags(avg_mode: str):
+    """(the server average keeps the server's own share, the clients'
+    average keeps theirs) of an averaging mode."""
+    if avg_mode not in AVG_MODES:
+        raise ValueError(f"avg_mode={avg_mode!r}; choose from {AVG_MODES}")
+    return avg_mode in ("both", "server_only"), avg_mode in ("both",
+                                                             "client_only")
+
+
+def _row_norms(x2):
+    return torch.linalg.vector_norm(x2, dim=1)
+
+
+def _div(x, n: int):
+    """x / n in place, correctly rounded on every device (the card divides
+    by a host scalar as a product with its reciprocal), as the kernels'
+    ``__fdiv_rn``."""
+    return x.div_(torch.full((), float(n), dtype=x.dtype, device=x.device))
+
+
+def uplink_plain(codes2, srv_rot, y_rot, gammas, *, bits=8,
+                 block=DEFAULT_BLOCK, pack=1, levels2=None, avg_mode="both"):
+    """The uplink of a rotated-space round: each of the s code rows snapped
+    against the one rotated server row, QY_i; the server average (srv +
+    Σ_i QY_i) / (s+1) (``both``, ``server_only``) or Σ_i QY_i / s, the rows
+    summed in ascending order; rel_err = mean_i ‖QY_i − Y_i‖ / (‖Y_i‖ +
+    1e-9) and hint_srv = max_i ‖QY_i − srv‖ + 1e-8. Returns (srv_new
+    (d_pad,), rel_err, hint_srv)."""
+    with_server, _ = _avg_flags(avg_mode)
+    s = y_rot.shape[0]
+    qy = snap_plain(codes2, srv_rot, gammas, bits=bits, block=block,
+                    pack=pack, levels2=levels2)
+    acc = torch.zeros_like(srv_rot[0])
+    for row in qy:
+        acc = acc + row
+    srv_new = _div(srv_rot[0] + acc, s + 1) if with_server else _div(acc, s)
+    rel_err = torch.mean(_row_norms(qy - y_rot)
+                         / (_row_norms(y_rot) + 1e-9))
+    hint_srv = torch.max(_row_norms(qy - srv_rot)) + 1e-8
+    return srv_new, rel_err, hint_srv
+
+
+def average_plain(codes2, y_rot, gammas, *, bits=8, block=DEFAULT_BLOCK,
+                  pack=1, levels2=None, avg_mode="both"):
+    """The downlink of a rotated-space round, in place: the one code row
+    snapped against each of the s rows of ``y_rot``, QX_i, and ``y_rot``
+    overwritten with QX_i / (s+1) + (s·Y_i) / (s+1) (``both``,
+    ``client_only``) or QX_i. Returns ``y_rot``."""
+    _, mix = _avg_flags(avg_mode)
+    s = y_rot.shape[0]
+    qx = snap_plain(codes2, y_rot, gammas, bits=bits, block=block, pack=pack,
+                    levels2=levels2)
+    if not mix:
+        return y_rot.copy_(qx)
+    return _div(y_rot.mul_(s), s + 1).add_(_div(qx, s + 1))
+
+
 def decode_plain(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
                  pack=1, levels2=None):
     """Full Dec(ref, msg): rotate the reference, snap, inverse-rotate;
@@ -196,6 +263,10 @@ _SIGNATURES = {
                   _I, _I, _I, _P],
     "exch_decode": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _F, _P, _I,
                     _I, _I, _I, _I, _I, _F, _I, _P],
+    "exch_uplink": [_P, _P, _P, _P, _P, _I, _P, _I, _F, _P, _P, _P, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _I, _P],
+    "exch_average": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
 }
 # the largest block one CTA holds in shared memory (227 KB on Hopper)
 _MAX_SHARED_BLOCK = 232_448 // 4
@@ -208,6 +279,9 @@ _CHUNK, _MAX_CLUSTER = 2048, 8
 # launch that would start fewer than _FILL threads (half an H100's 270,336
 # resident threads) takes 2 outputs a thread
 _VEC_THREADS, _FILL = 256, 1 << 17
+# uplink: at most one wave of CTAs (an H100's 132 SMs, 8 CTAs of 256 threads
+# each), each striding over chunks of 8 · _VEC_THREADS coordinates
+_WAVE_CTAS = 132 * 8
 
 
 # the launchers take m and d_pad as C ints and round d_pad up to a CTA's
@@ -563,3 +637,127 @@ def fused_decode(codes2, ref2, signs, gammas, *, bits=8, block=DEFAULT_BLOCK,
         lv_stride, lv_default, build.ptr(out), m, d_pad, b, c, bits, pack,
         _scale(b), cluster, build.stream()), "exch_decode")
     return out
+
+
+def uplink_geometry(s: int, d_pad: int):
+    """The grid of an ``uplink`` launch on s messages: coordinates a
+    thread (8, or 1 where 8 would start fewer than ``_FILL`` threads: each
+    thread takes all s messages in turn, so a small launch is bound by its
+    latency), CTAs of 256 threads (one per chunk, at most one wave of
+    ``_WAVE_CTAS``; shapes alone, so every launch of a shape sums in the
+    same order), and the scratch floats (3·s partials a CTA)."""
+    v = 8 if -(-d_pad // 8) >= _FILL else 1
+    ctas = max(1, min(-(-d_pad // (v * _VEC_THREADS)), _WAVE_CTAS))
+    return {"ctas": ctas, "threads": _VEC_THREADS, "per_thread": v,
+            "scratch": 3 * s * ctas}
+
+
+def average_geometry(m: int, d_pad: int):
+    """The grid of an ``average`` launch on m messages: CTAs along the
+    coordinates (8 · 256 a CTA) and along the messages, as few of the
+    latter as fill one wave (each thread reads its codes once for the
+    messages it takes), at least 1, at most m and 65,535."""
+    chunks = -(-d_pad // (8 * _VEC_THREADS))
+    rows = max(1, min(m, -(-_WAVE_CTAS // max(chunks, 1)), 65_535))
+    return {"ctas": chunks * rows, "rows": rows, "threads": _VEC_THREADS}
+
+
+def _code_rows(codes2, m, d_pad, pack):
+    _require(codes2, "codes2", torch.int32 if pack == 1 else torch.uint8,
+             (m, d_pad // pack))
+    return (codes2, None) if pack == 1 else (None, codes2)
+
+
+@build.costed(build.no_flops)
+def uplink(codes2, srv_rot, y_rot, gammas, *, bits=8, block=DEFAULT_BLOCK,
+           pack=1, levels2=None, avg_mode="both"):
+    """The uplink of a rotated-space QuAFL round in one pass: the snap of
+    the s code rows ``codes2`` (s, d_pad // pack) against the rotated
+    server ``srv_rot`` (1, d_pad), the server average and the round's error
+    norms against ``y_rot`` (s, d_pad) (:func:`uplink_plain`). ``gammas``
+    and ``levels2`` hold 1 or s values. Returns (srv_new (d_pad,), rel_err,
+    hint_srv), the last two 0-d, all on the device.
+
+    Replaces no reference kernel: the snap ``snap_codes`` with the passes
+    the round ran on its output (the server's sum, two differences, three
+    norms). Bound on the H100: bytes, 8·s + 8 per coordinate (s codes, s
+    rows of Y, the server in, the average out; packed codes a share of a
+    byte). Design: ``snap_vec_kernel``'s 8 coordinates a thread (1 on a
+    launch too small to fill the card), taken through all s messages, so
+    the snapped rows stay in registers; each message's three sums of
+    squares per warp, then per CTA into a scratch row (at most one wave of
+    CTAs, :func:`uplink_geometry`), and a one-CTA finish sums the CTAs'
+    partials in a fixed order (no atomics: a launch repeats bit for bit)
+    into rel_err and hint_srv on the device, so nothing reads back to the
+    host and a captured chunk still captures.
+    """
+    if build.on_meta(codes2, srv_rot, y_rot, gammas, levels2):
+        return (srv_rot.new_empty((srv_rot.shape[-1],)),
+                srv_rot.new_empty(()), srv_rot.new_empty(()))
+    if build.on_cpu(codes2, srv_rot, y_rot, gammas, levels2):
+        return uplink_plain(codes2, srv_rot, y_rot, gammas, bits=bits,
+                            block=block, pack=pack, levels2=levels2,
+                            avg_mode=avg_mode)
+    with_server, _ = _avg_flags(avg_mode)
+    s, d_pad = y_rot.shape
+    if s < 1:
+        raise ValueError("uplink: no message")
+    check_launch_ints(s, d_pad)
+    b, c = _geometry(d_pad, block, bits, pack)
+    c32, c8 = _code_rows(codes2, s, d_pad, pack)
+    _require(srv_rot, "srv_rot", torch.float32, (1, d_pad))
+    _require(y_rot, "y_rot", torch.float32, (s, d_pad))
+    g_stride = _row(gammas, "gammas", s)
+    lv, lv_stride, lv_default = _levels_args(levels2, bits, s)
+    geo = uplink_geometry(s, d_pad)
+    out = torch.empty((d_pad,), dtype=torch.float32, device=y_rot.device)
+    scratch = torch.empty((geo["scratch"],), dtype=torch.float32,
+                          device=y_rot.device)
+    stats = torch.empty((2,), dtype=torch.float32, device=y_rot.device)
+    LAUNCHES["uplink"] += 1
+    spans.count("exchange.fused_average", 1)
+    build.check(library().exch_uplink(
+        build.ptr(c32), build.ptr(c8), build.ptr(srv_rot), build.ptr(y_rot),
+        build.ptr(gammas), g_stride, build.ptr(lv), lv_stride, lv_default,
+        build.ptr(out), build.ptr(scratch), build.ptr(stats), s, d_pad, b, c,
+        bits, pack, int(with_server), geo["ctas"], geo["per_thread"],
+        build.stream()), "exch_uplink")
+    return out, stats[0], stats[1]
+
+
+@build.costed(build.no_flops)
+def average(codes2, y_rot, gammas, *, bits=8, block=DEFAULT_BLOCK, pack=1,
+            levels2=None, avg_mode="both"):
+    """The downlink of a rotated-space QuAFL round in one pass, in place:
+    the one code row ``codes2`` (1, d_pad // pack) snapped against each
+    row of ``y_rot`` (s, d_pad) and averaged into it
+    (:func:`average_plain`). ``gammas`` and ``levels2`` hold 1 value.
+    Returns ``y_rot``.
+
+    Replaces no reference kernel: the snap ``snap_codes`` with the four
+    in-place passes of the clients' average. Bound on the H100: bytes,
+    8·s + 4 per coordinate (the code once, each row read and written).
+    Design: ``snap_vec_kernel``'s 8 coordinates a thread; a thread reads
+    its codes once for every message it takes (:func:`average_geometry`)
+    and writes each row where it read it, dividing, multiplying and adding
+    with one rounding each in the plain version's order.
+    """
+    if build.on_meta(codes2, y_rot, gammas, levels2):
+        return y_rot
+    if build.on_cpu(codes2, y_rot, gammas, levels2):
+        return average_plain(codes2, y_rot, gammas, bits=bits, block=block,
+                             pack=pack, levels2=levels2, avg_mode=avg_mode)
+    _, mix = _avg_flags(avg_mode)
+    m, d_pad = y_rot.shape
+    check_launch_ints(m, d_pad)
+    b, c = _geometry(d_pad, block, bits, pack)
+    c32, c8 = _code_rows(codes2, 1, d_pad, pack)
+    _require(y_rot, "y_rot", torch.float32, (m, d_pad))
+    _row(gammas, "gammas", 1)          # one code row: one γ, one level
+    lv, _, lv_default = _levels_args(levels2, bits, 1)
+    LAUNCHES["average"] += 1
+    build.check(library().exch_average(
+        build.ptr(c32), build.ptr(c8), build.ptr(y_rot), build.ptr(gammas),
+        build.ptr(lv), lv_default, m, d_pad, b, c, bits, pack, int(mix),
+        average_geometry(m, d_pad)["rows"], build.stream()), "exch_average")
+    return y_rot

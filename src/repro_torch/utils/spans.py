@@ -8,8 +8,11 @@ The span sites (``PERF.md`` §3 lists them with the metrics they feed):
 ``.uplink``, ``.downlink``, ``.average``, ``.unrotate``) and ``quafl.commit``;
 the round engine's ``engine.replay``; and set-up: ``quafl.init``, and the
 host-only notes ``build.load``, ``engine.warmup``, ``engine.capture`` and
-``engine.instantiate``. The counters: ``local.steps_computed`` and
-``local.steps_active``.
+``engine.instantiate``. The counters: ``local.steps_computed``,
+``local.steps_active`` and ``exchange.fused_average`` (launches of the
+fused uplink kernel, which sums the server average inside the snap;
+counted by its wrapper where it launches, so the plain version counts
+none).
 
 **Off** (the default) :func:`span` is one module-level flag test that
 returns a shared null context, and :func:`count` and :func:`note` return at

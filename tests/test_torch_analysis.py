@@ -506,7 +506,7 @@ def test_wire_mark_dispatches_nothing_and_returns_its_input():
 
 
 _KERNELS = {"fused_encode", "fused_rotate", "quantize_codes", "snap_codes",
-            "fused_decode"}
+            "fused_decode", "uplink", "average"}
 
 
 def _copy_generator(gen):

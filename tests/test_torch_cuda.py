@@ -138,12 +138,16 @@ def test_each_wrapper_counts_its_launches(dev):
     kx.quantize_codes(y, u, gam)
     kx.snap_codes(codes, y, gam)
     kx.fused_decode(codes, x, sg, gam)
+    kx.uplink(codes, y[:1].contiguous(), y, gam)
+    kx.average(codes[:1].contiguous(), y.clone(), gam[:1].contiguous())
     kx.rotate_plain(x, sg)
     kx.decode_plain(codes, x, sg, gam)
+    kx.uplink_plain(codes, y[:1], y, gam)
+    kx.average_plain(codes[:1], y.clone(), gam[:1])
     torch.cuda.synchronize()
     assert kx.LAUNCHES == {"fused_encode": 1, "fused_rotate": 1,
                            "quantize_codes": 1, "snap_codes": 1,
-                           "fused_decode": 1}
+                           "fused_decode": 1, "uplink": 1, "average": 1}
 
 
 def test_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -381,6 +385,191 @@ def test_rotate_and_snap_kernels_are_deterministic(dev):
         assert torch.equal(kx.snap_codes(c, r, g, **kw),
                            kx.snap_codes(c, r, g, **kw))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the rotated-space round's fused snaps: uplink and average
+# ---------------------------------------------------------------------------
+
+# (d_pad, block): at 1 coordinate a thread (d_pad < 2^20, 256 a CTA), a
+# lone partial CTA (20), a partial last CTA (2,068 = 8 · 256 + 20), whole
+# CTAs at b = 1,024 (3,072) and the MLP's 32,768, and 2^19, twice the CTAs
+# of one wave (each strides); at 8 a thread (2,048 a CTA), a partial vector
+# in a partial CTA (2^20 + 20) and 2^22, again two chunks a CTA
+FUSED_GEOMETRIES = [(20, 4), (2068, 4), (3072, 1024), (32_768, 16_384),
+                    (1 << 19, 16_384), ((1 << 20) + 20, 4), (1 << 22, 16_384)]
+
+
+def _fused_case(dev, s, d_pad, block, wire, seed=0):
+    """Rotated server (1, d_pad) and client rows (s, d_pad) near it, the
+    clients' codes at γ_up (b8, b4 packed, or a levels row) and the
+    server's at γ_dn, with each direction's keyword arguments."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    srv = torch.randn((1, d_pad), generator=g, device=dev)
+    y = srv + 0.1 * torch.randn((s, d_pad), generator=g, device=dev)
+    bits, pack = (4, 2) if wire == "b4_packed" else (8, 1)
+    lv_up = lv_dn = None
+    if wire == "levels":
+        lv_up = torch.tensor([256.0, 16.0, 64.0], device=dev).repeat(s)[:s]
+        lv_dn = torch.tensor([64.0], device=dev)
+    up = dict(bits=bits, pack=pack, levels2=lv_up, block=block)
+    dn = dict(bits=8, pack=1, levels2=lv_dn, block=block)
+    L_up = lv_up if lv_up is not None else torch.full(
+        (s,), float(1 << bits), device=dev)
+    g_up = ((y - srv).abs().amax(dim=1) * 4 / L_up).contiguous()
+    L_dn = 64.0 if lv_dn is not None else 256.0
+    g_dn = ((y - srv).abs().amax() * 4 / L_dn).reshape(1)
+    u = torch.rand((s + 1, d_pad), generator=g, device=dev)
+    c_up = kx.quantize_plain(y, u[:s], g_up, **up)
+    c_dn = kx.quantize_plain(srv, u[s:], g_dn, **dn)
+    return srv, y, c_up, g_up, up, c_dn, g_dn, dn
+
+
+def _rel(a, b):
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+@pytest.mark.parametrize("avg_mode", ["both", "client_only", "none"])
+@pytest.mark.parametrize("wire", ["b8", "b4_packed", "levels"])
+@pytest.mark.parametrize("s", [1, 2, 16, 40])
+@pytest.mark.parametrize("d_pad,block", FUSED_GEOMETRIES)
+def test_fused_snap_kernels_equal_plain_versions(dev, d_pad, block, s, wire,
+                                                 avg_mode):
+    """``uplink`` and ``average`` against their plain versions: the server
+    average and the clients' average bit for bit, rel_err and hint_srv
+    within 1e-5 relative (the kernel sums squares per warp, per CTA and
+    over CTAs; torch another way). s = 40 takes the rows in two groups."""
+    srv, y, c_up, g_up, up, c_dn, g_dn, dn = _fused_case(dev, s, d_pad,
+                                                         block, wire)
+    kx.reset_launches()
+    got = kx.uplink(c_up, srv, y, g_up, avg_mode=avg_mode, **up)
+    want = kx.uplink_plain(c_up, srv, y, g_up, avg_mode=avg_mode, **up)
+    assert torch.equal(got[0], want[0])
+    assert _rel(got[1], want[1]) <= 1e-5 and _rel(got[2], want[2]) <= 1e-5
+    y_in = y.clone()
+    out = kx.average(c_dn, y_in, g_dn, avg_mode=avg_mode, **dn)
+    assert out is y_in
+    assert torch.equal(out, kx.average_plain(c_dn, y.clone(), g_dn,
+                                             avg_mode=avg_mode, **dn))
+    torch.cuda.synchronize()
+    assert kx.LAUNCHES["uplink"] == kx.LAUNCHES["average"] == 1
+
+
+def test_fused_uplink_takes_more_messages_than_a_finish_pass(dev):
+    """s = 1,030: the uplink's rows in 33 groups, its finish in two passes
+    of at most 1,024 messages."""
+    srv, y, c_up, g_up, up, _, _, _ = _fused_case(dev, 1030, 3072, 1024,
+                                                  "levels")
+    got = kx.uplink(c_up, srv, y, g_up, **up)
+    want = kx.uplink_plain(c_up, srv, y, g_up, **up)
+    assert torch.equal(got[0], want[0])
+    assert _rel(got[1], want[1]) <= 1e-5 and _rel(got[2], want[2]) <= 1e-5
+
+
+def test_fused_snap_kernels_are_deterministic(dev):
+    """Two launches give the same bits: the partial sums run in a fixed
+    order, without atomics."""
+    for s, d_pad in ((2, 1 << 22), (16, 32_768), (40, 3072)):
+        srv, y, c_up, g_up, up, c_dn, g_dn, dn = _fused_case(
+            dev, s, d_pad, 16_384 if d_pad > 4096 else 1024, "b8", seed=s)
+        a = kx.uplink(c_up, srv, y, g_up, **up)
+        b = kx.uplink(c_up, srv, y, g_up, **up)
+        for x1, x2 in zip(a, b):
+            assert torch.equal(x1, x2)
+        assert torch.equal(kx.average(c_dn, y.clone(), g_dn, **dn),
+                           kx.average(c_dn, y.clone(), g_dn, **dn))
+    torch.cuda.synchronize()
+
+
+def test_fused_snap_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    srv, y, c_up, g_up, up, c_dn, g_dn, dn = _fused_case(dev, 2, 4096, 4096,
+                                                         "b8")
+    kx.reset_launches()
+    with pytest.raises(TypeError, match="uint8"):
+        kx.uplink(c_up, srv, y, g_up, bits=4, pack=2)
+    with pytest.raises(ValueError, match="shape"):
+        kx.uplink(c_up, y, y, g_up)                 # two server rows
+    with pytest.raises(ValueError, match="shape"):
+        kx.uplink(c_up[:1].contiguous(), srv, y, g_up)
+    with pytest.raises(ValueError, match="messages"):
+        kx.uplink(c_up, srv, y, torch.ones(3, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        kx.uplink(c_up, srv, y.t().contiguous().t(), g_up)
+    with pytest.raises(ValueError, match="avg_mode"):
+        kx.uplink(c_up, srv, y, g_up, avg_mode="mean")
+    with pytest.raises(ValueError, match="CPU or all"):
+        kx.uplink(c_up, srv.cpu(), y, g_up)
+    with pytest.raises(ValueError, match="shape"):
+        kx.average(c_up, y, g_dn)                   # two code rows
+    with pytest.raises(ValueError, match="2 values for 1 messages"):
+        kx.average(c_dn, y, g_up)
+    with pytest.raises(TypeError, match="float32"):
+        kx.average(c_dn, y.double(), g_dn)
+    with pytest.raises(ValueError, match="avg_mode"):
+        kx.average(c_dn, y, g_dn, avg_mode="mean")
+    torch.cuda.synchronize()
+    assert kx.LAUNCHES["uplink"] == kx.LAUNCHES["average"] == 0
+
+
+def _exchange_cu_kernels():
+    import re
+    from pathlib import Path
+    src = (Path(kx.__file__).parent / "csrc" / "exchange.cu").read_text()
+    return set(re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?"
+                          r"\s+(\w+)\(", src))
+
+
+def test_quafl_round_launches_only_counted_exchange_kernels(dev):
+    """One rotated-space round at (2, 2^22) under the profiler: every
+    kernel of ``exchange.cu`` it launches is one the benchmark's
+    ``exchange_ms_per_round`` counts (its family rule), the fused snaps
+    among them; with spans on, the uplink's wrapper counts one
+    ``exchange.fused_average``; rel_err and hint_srv match the unfused
+    composition (the snap kernel, the differences and torch's norms)
+    within 1e-5."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.metrics.exchange_ms_per_round import member
+    from repro_torch.compression import pipeline
+    from repro_torch.utils import spans
+    s, d = 2, 1 << 22
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    server = torch.randn((d,), generator=g, device=dev) * 0.05
+    Y = server + 0.01 * torch.randn((s, d), generator=g, device=dev)
+    hints = torch.linalg.vector_norm(Y - server, dim=1)
+    sg, u_cl, u_srv = pipeline.round_randomness(g, s, d)
+    p = pipeline.ExchangePipeline(bits=8, backend="cuda")
+    kw = dict(signs=sg, u_cl=u_cl, u_srv=u_srv)
+    p.quafl_round(server, Y, hints, **kw)           # builds, warms up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, hint_srv, rel_err = p.quafl_round(server, Y, hints, **kw)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = _exchange_cu_kernels()
+    assert {"snap_vec_kernel_up_average", "snap_vec_kernel_up_finish",
+            "snap_vec_kernel_down_average"} <= ours
+    launched = [n for n in names if any(k in n for k in ours)]
+    assert launched and all(member(n) for n in launched), launched
+    for k in ("snap_vec_kernel_up_average", "snap_vec_kernel_up_finish",
+              "snap_vec_kernel_down_average"):
+        assert any(k in n for n in launched), (k, launched)
+    with spans.recording() as log:
+        p.quafl_round(server, Y, hints, **kw)
+    assert log.summary()["counters"] == {"exchange.fused_average": 1.0}
+
+    norms = pipeline._norms
+    gam_up = p.gammas(hints, norms(Y), d)
+    Y_rot, codes = p.rotate_encode(Y, sg, u_cl, gam_up)
+    srv_rot = p.rotate(server[None], sg)
+    qy = p.snap(codes, srv_rot, gam_up)
+    want_rel = torch.mean(norms(qy - Y_rot) / (norms(Y_rot) + 1e-9))
+    want_hint = torch.max(norms(qy - srv_rot)) + 1e-8
+    assert _rel(rel_err, want_rel) <= 1e-5
+    assert _rel(hint_srv, want_hint) <= 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -882,7 +1071,8 @@ def test_quafl_round_on_the_card_matches_plain_backend(dev, uplink):
     assert ma["bits_up"] == mb["bits_up"] and ma["bits_down"] == 32_800
     if uplink == "grouped":
         assert ma["bits_up"] == 131_328 - 2 * 16_384    # ids 0 and 3 slow
-        assert kx.LAUNCHES["fused_encode"] == kx.LAUNCHES["snap_codes"] // 2
+        assert kx.LAUNCHES["fused_encode"] == kx.LAUNCHES["uplink"] == \
+            kx.LAUNCHES["average"] == 1 and kx.LAUNCHES["snap_codes"] == 0
     else:
         assert ma["bits_up"] == 4 * (2762 * 8 + 32)
         assert kx.LAUNCHES["fused_encode"] == kx.LAUNCHES["fused_decode"] == 1

@@ -179,3 +179,127 @@ def test_levels_row_matches_reference(kind):
                         levels2=lv_j)
     s = kx.snap_codes(q, tt(w), tt(g), bits=bits, levels2=tt(levels))
     np.testing.assert_array_equal(npy(s), npy(s_ref))
+
+
+# ---------------------------------------------------------------------------
+# the rotated-space round's two fused snaps against the passes they replace
+# ---------------------------------------------------------------------------
+
+FUSED_WIRES = ["b8", "b4_packed", "levels"]
+
+
+def _fused_inputs(s, wire, d_pad=4096, seed=20):
+    """A round's rotated rows and codes: Y_rot (s, d_pad) near the rotated
+    server (1, d_pad), the clients' codes at γ_up, the server's at γ_dn,
+    and the (bits, pack, levels) of each direction."""
+    srv = gauss(seed, (1, d_pad), 0.05)
+    y = srv + gauss(seed + 1, (s, d_pad), 0.01)
+    if wire == "b4_packed":
+        up = (4, 2, None)
+    elif wire == "levels":
+        up = (8, 1, tt(np.resize(np.array([256.0, 16.0, 256.0, 64.0],
+                                          np.float32), s)))
+    else:
+        up = (8, 1, None)
+    dn = (8, 1, tt(np.array([64.0], np.float32)) if wire == "levels"
+          else None)
+    lv_up = (np.full(s, 1 << up[0], np.float32) if up[2] is None
+             else npy(up[2]))
+    g_up = (np.abs(y - srv).max(axis=1) * 4 / lv_up).astype(np.float32)
+    lv_dn = float(1 << dn[0]) if dn[2] is None else float(npy(dn[2])[0])
+    g_dn = np.array([np.abs(y - srv).max() * 4 / lv_dn], np.float32)
+    codes_up = kx.quantize_plain(tt(y), tt(uniform(seed + 2, (s, d_pad))),
+                                 tt(g_up), bits=up[0], pack=up[1],
+                                 levels2=up[2])
+    codes_dn = kx.quantize_plain(tt(srv), tt(uniform(seed + 3, (1, d_pad))),
+                                 tt(g_dn), bits=dn[0], pack=dn[1],
+                                 levels2=dn[2])
+    return (tt(srv), tt(y), codes_up, tt(g_up), up, codes_dn, tt(g_dn), dn)
+
+
+def _wire_kw(w):
+    return dict(bits=w[0], pack=w[1], levels2=w[2])
+
+
+@pytest.mark.parametrize("avg_mode", kx.AVG_MODES)
+@pytest.mark.parametrize("wire", FUSED_WIRES)
+@pytest.mark.parametrize("s", [1, 2, 16])
+def test_fused_snaps_equal_the_passes_they_replace(s, wire, avg_mode):
+    """``uplink`` and ``average`` (the CPU path of their wrappers) against
+    the round's unfused composition: the snaps, the server average over
+    ``torch.sum`` / ``torch.mean``, the differences, the norms and the
+    in-place client average. Same order of operations (CPU sums over at
+    most 16 rows run in row order), so the same bits."""
+    srv, y, c_up, g_up, up, c_dn, g_dn, dn = _fused_inputs(s, wire)
+    norms = lambda x: torch.linalg.vector_norm(x, dim=1)  # noqa: E731
+    qy = kx.snap_plain(c_up, srv, g_up, **_wire_kw(up))
+    if avg_mode in ("both", "server_only"):
+        srv_want = (srv[0] + torch.sum(qy, 0)) / (s + 1)
+    else:
+        srv_want = torch.mean(qy, 0)
+    rel_want = torch.mean(norms(qy - y) / (norms(y) + 1e-9))
+    hint_want = torch.max(norms(qy - srv)) + 1e-8
+    qx = kx.snap_plain(c_dn, y, g_dn, **_wire_kw(dn))
+    if avg_mode in ("both", "client_only"):
+        cl_want = qx.div_(s + 1).add_(y.clone().mul_(s).div_(s + 1))
+    else:
+        cl_want = qx
+
+    srv_new, rel, hint = kx.uplink(c_up, srv, y, g_up, avg_mode=avg_mode,
+                                   **_wire_kw(up))
+    assert srv_new.shape == (y.shape[1],) and rel.shape == hint.shape == ()
+    assert torch.equal(srv_new, srv_want)
+    assert torch.equal(rel, rel_want) and torch.equal(hint, hint_want)
+    y_in = y.clone()
+    got = kx.average(c_dn, y_in, g_dn, avg_mode=avg_mode, **_wire_kw(dn))
+    assert got is y_in and torch.equal(got, cl_want)
+    assert kx.LAUNCHES["uplink"] == kx.LAUNCHES["average"] == 0
+
+
+def test_fused_snaps_sum_the_rows_in_order():
+    """Past 16 rows the CPU's ``torch.sum`` takes another order; the fused
+    uplink sums the rows one after another, as the kernel does."""
+    s = 33
+    srv, y, c_up, g_up, up, _, _, _ = _fused_inputs(s, "b8")
+    qy = kx.snap_plain(c_up, srv, g_up, **_wire_kw(up))
+    acc = torch.zeros_like(srv[0])
+    for i in range(s):
+        acc = acc + qy[i]
+    srv_new, _, _ = kx.uplink(c_up, srv, y, g_up, **_wire_kw(up))
+    assert torch.equal(srv_new, (srv[0] + acc) / (s + 1))
+    want = (srv[0] + torch.sum(qy, 0)) / (s + 1)
+    assert float((srv_new - want).abs().max()) <= 1e-6 * float(
+        want.abs().max())
+
+
+def test_fused_snap_geometry_and_refusals():
+    assert kx.uplink_geometry(2, 1_176_764_416) == {
+        "ctas": 1056, "threads": 256, "per_thread": 8, "scratch": 3 * 2 * 1056}
+    assert kx.uplink_geometry(16, 32_768) == {
+        "ctas": 128, "threads": 256, "per_thread": 1, "scratch": 3 * 16 * 128}
+    assert kx.uplink_geometry(16, 1 << 20)["per_thread"] == 8
+    assert kx.uplink_geometry(1, 8)["ctas"] == 1
+    assert kx.average_geometry(2, 1_176_764_416)["rows"] == 1
+    assert kx.average_geometry(16, 32_768) == {"ctas": 256, "rows": 16,
+                                               "threads": 256}
+    assert kx.average_geometry(100_000, 2048)["rows"] == 1056
+    srv, y, c_up, g_up, up, c_dn, g_dn, dn = _fused_inputs(2, "b8")
+    with pytest.raises(ValueError, match="avg_mode"):
+        kx.uplink(c_up, srv, y, g_up, avg_mode="mean")
+    with pytest.raises(ValueError, match="avg_mode"):
+        kx.average(c_dn, y, g_dn, avg_mode="mean")
+
+
+def test_fused_snap_meta_branches():
+    m, d = 3, 4096
+    meta = dict(device="meta")
+    y = torch.empty((m, d), **meta)
+    srv = torch.empty((1, d), **meta)
+    g = torch.empty((m,), **meta)
+    codes = torch.empty((m, d), dtype=torch.int32, **meta)
+    srv_new, rel, hint = kx.uplink(codes, srv, y, g)
+    assert srv_new.shape == (d,) and rel.shape == hint.shape == ()
+    assert {t.device.type for t in (srv_new, rel, hint)} == {"meta"}
+    assert kx.average(codes[:1], y, g[:1]) is y
+    with pytest.raises(ValueError, match="meta tensors only together"):
+        kx.uplink(codes, torch.zeros((1, d)), y, g)

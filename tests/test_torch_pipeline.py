@@ -44,7 +44,8 @@ def _wires(kind):
 
 
 @pytest.mark.parametrize("wire", ["b8", "b4_packed", "levels"])
-@pytest.mark.parametrize("avg_mode", ["both", "server_only", "client_only"])
+@pytest.mark.parametrize("avg_mode", ["both", "server_only", "client_only",
+                                      "none"])
 def test_quafl_round_matches_reference(avg_mode, wire):
     server, Y, hints = _inputs()
     key = jax.random.PRNGKey(3)
@@ -85,6 +86,59 @@ def test_rotated_round_matches_port_oracle(backend):
     b = p.quafl_round_reference(tt(server), tt(Y), tt(hints), **kw)
     for x, y in zip(a[:2], b[:2]):
         np.testing.assert_allclose(npy(x), npy(y), atol=2e-5)
+
+
+def _unfused_round(p, server, Y, hints, sg, u_cl, u_srv, avg_mode, up,
+                   down):
+    """The rotated-space round as it ran before its snaps took over the
+    passes around them: every snapped row, difference and average
+    written out."""
+    norms = pipeline._norms
+    s, d = Y.shape
+    gam_up = p.gammas(hints, norms(Y), d, up)
+    Y_rot, codes_up = p.rotate_encode(Y, sg, u_cl, gam_up, wire=up)
+    srv_rot = p.rotate(server[None], sg)
+    QY_rot = p.snap(codes_up, srv_rot, gam_up, up)
+    rel_err = torch.mean(norms(QY_rot - Y_rot) / (norms(Y_rot) + 1e-9))
+    hint_srv = torch.max(norms(QY_rot - srv_rot)) + 1e-8
+    gam_dn = p.gammas(hint_srv[None], norms(server[None]), d, down)
+    codes_dn = p.quantize(srv_rot, u_srv, gam_dn, down)
+    if avg_mode in ("both", "server_only"):
+        srv_new_rot = (srv_rot[0] + torch.sum(QY_rot, 0)) / (s + 1)
+    else:
+        srv_new_rot = torch.mean(QY_rot, 0)
+    QX_rot = p.snap(codes_dn, Y_rot, gam_dn, down)
+    if avg_mode in ("both", "client_only"):
+        cl_new_rot = QX_rot.div_(s + 1).add_(Y_rot.mul_(s).div_(s + 1))
+    else:
+        cl_new_rot = QX_rot
+    return (p.unrotate(srv_new_rot[None], sg, d)[0],
+            p.unrotate(cl_new_rot, sg, d), hint_srv, rel_err)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("wire", ["b8", "b4_packed", "levels"])
+@pytest.mark.parametrize("avg_mode", ["both", "server_only", "client_only",
+                                      "none"])
+def test_quafl_round_equals_the_unfused_round(avg_mode, wire, backend):
+    """The round whose snaps sum the server average and the norms and
+    average the clients in place gives the bits of the round that wrote
+    every snapped row out (the CPU path of both backends), and keeps the
+    rotation budget."""
+    server, Y, hints = _inputs(7)
+    g = torch.Generator()
+    g.manual_seed(2)
+    sg, u_cl, u_srv = pipeline.round_randomness(g, S, D)
+    _, _, up, down = _wires(wire)
+    p = pipeline.ExchangePipeline(bits=8, backend=backend)
+    got = p.quafl_round(tt(server), tt(Y), tt(hints), signs=sg, u_cl=u_cl,
+                        u_srv=u_srv, avg_mode=avg_mode, up=up, down=down)
+    assert p.stats.counts() == rotation_budget(S)
+    want = _unfused_round(pipeline.ExchangePipeline(bits=8, backend=backend),
+                          tt(server), tt(Y), tt(hints), sg, u_cl, u_srv,
+                          avg_mode, up, down)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_round_randomness_shapes():
